@@ -5,15 +5,19 @@
 Phases, each a hard failure (nonzero exit, no result line):
 
 1. the card (nvidia-smi name and power limit), torch/CUDA versions, and the
-   build of every kernel of the serving path from ``src/repro_torch``;
+   build of every kernel of ``src/repro_torch/kernels`` (flash attention,
+   decode attention, SSD chunk scan; one nvcc per source, in parallel);
 2. each kernel against its plain PyTorch version on the card, at the
-   serving path's shapes and the reference test sweep's, with the
-   tolerance stated per case;
-3. kernel, plain version and the PyTorch library call timed with CUDA
-   events at the serving shapes, beside the card's bound for the same work;
+   serving path's shapes, the reference test sweep's and the full widths of
+   gemma-2b, gemma2-2b and mamba2-370m, with the tolerance stated per case;
+3. kernel, plain version and the PyTorch library call (where one computes
+   the same function) timed with CUDA events at those shapes, beside the
+   card's bound for the same work;
 4. full-width gemma-2b (random weights from a seed, bf16) served through
    ``Server`` + ``MetronomePolicy`` with the kernel route, with every
-   launch counter set to 0 just before and read just after.
+   launch counter set to 0 just before and read just after (flash
+   attention 18 per prefill; decode attention and the SSD scan 0: no model
+   path reaches them, in the reference or in the port).
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -26,6 +30,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -42,6 +47,17 @@ TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
 SERVE_BUCKETS = (128, 512, 1024)
 PROMPT_LENS = (40, 100, 200, 400, 600, 900, 1000, 64)
 MAX_NEW = 16
+# decode attention at full width: gemma-2b with the serving engine (4 slots,
+# max_len 2048), a gemma2-2b local layer, and kernels_bench's shape
+# (name, B, H, KV, hd, T, dtype, window, softcap, pos, q scale); q is scaled
+# where a softcap is set so that the logits (std 32) reach past it
+DECODE_SHAPES = (
+    ("gemma-2b decode", 4, 8, 1, 256, 2048, torch.bfloat16, 0, 0.0, (2047, 1024, 7, 1948), 1.0),
+    ("gemma2-2b local", 4, 8, 4, 256, 8192, torch.bfloat16, 4096, 50.0, (8191, 4096, 7, 8092),
+     32.0),
+    ("kernels_bench", 4, 8, 2, 64, 8192, torch.float32, 0, 0.0, (8191, 4096, 7, 8092), 1.0),
+)
+FLUSH_BYTES = 256 << 20      # written between timed launches to empty the 50 MB L2
 
 
 def log(*args) -> None:
@@ -52,14 +68,21 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def time_ms(fn, *args, iters: int = 20, warmup: int = 3, **kwargs) -> float:
+def time_ms(fn, *args, iters: int = 20, warmup: int = 3, flush=None, **kwargs) -> float:
     """Median of ``iters`` CUDA-event timings of ``fn(*args, **kwargs)``
-    after warm-up."""
+    after warm-up.  The card spins ~0.5 ms before each timed call (outside
+    the events) while the host enqueues it, so the events time the card's
+    work, not up to 0.5 ms of host-side dispatch.  With ``flush`` (a large
+    tensor), it is zeroed before each timed call, outside the events, so the
+    call finds L2 cold."""
     for _ in range(warmup):
         fn(*args, **kwargs)
     torch.cuda.synchronize()
     pairs = []
     for _ in range(iters):
+        if flush is not None:
+            flush.zero_()
+        torch.cuda._sleep(1_000_000)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -68,6 +91,20 @@ def time_ms(fn, *args, iters: int = 20, warmup: int = 3, **kwargs) -> float:
         pairs.append((e0, e1))
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
+    """Least time in ms for ``flops`` at the card's peak for ``dtype`` and
+    ``nbytes`` at its memory rate, and which of the two binds."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def within(out, ref, *, atol: float, rtol: float) -> tuple[bool, float]:
+    """(all finite and |out - ref| <= atol + rtol |ref|, max abs error)."""
+    diff = (out.float() - ref.float()).abs()
+    ok = bool((diff <= atol + rtol * ref.float().abs()).all()) and bool(torch.isfinite(out).all())
+    return ok, float(diff.max())
 
 
 def attn_inputs(gen, b, s, h, kv, hd, dtype):
@@ -88,9 +125,7 @@ def attn_bound(b, s, h, kv, hd, dtype, *, causal, window):
         mask &= kpos > qpos - window
     flops = 4.0 * b * h * hd * int(mask.sum())
     itemsize = torch.tensor([], dtype=dtype).element_size()
-    nbytes = itemsize * hd * b * s * (2 * h + 2 * kv)
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    return bound(flops, itemsize * hd * b * s * (2 * h + 2 * kv), dtype)
 
 
 def phase_card() -> None:
@@ -101,13 +136,21 @@ def phase_card() -> None:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    builds = {"flash_attention.cu": fa_kernel.build, "decode_attention.cu": da_kernel.build,
+              "ssd_scan.cu": ssd_kernel.build}
     t0 = time.perf_counter()
-    fa_kernel.build()
-    info = _build.BUILD_INFO["flash_attention.cu"]
-    regs = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln]
-    log(f"phase 1: built flash_attention.cu in {info['seconds']:.2f} s "
-        f"(load {time.perf_counter() - t0:.2f} s); ptxas: {regs}")
+    with ThreadPoolExecutor(len(builds)) as pool:
+        for future in [pool.submit(fn) for fn in builds.values()]:
+            future.result()
+    log(f"phase 1: built {len(builds)} sources in parallel in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for source in builds:
+        info = _build.BUILD_INFO[source]
+        regs = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln]
+        log(f"  {source}: nvcc {info['seconds']:.2f} s; ptxas: {regs}")
 
 
 def phase_compare() -> float:
@@ -132,12 +175,8 @@ def phase_compare() -> float:
         out = flash_attention(q, k, v, causal=causal, window=window, softcap=cap)
         torch.cuda.synchronize()
         ref = flash_attention_ref(q, k, v, causal=causal, window=window, softcap=cap)
-        diff = (out.float() - ref.float()).abs()
-        err = float(diff.max())
         tol = TOL[dtype]
-        ok = bool((diff <= tol["atol"] + tol["rtol"] * ref.float().abs()).all())
-        if not torch.isfinite(out).all():
-            ok = False
+        ok, err = within(out, ref, **tol)
         log(f"  {name}: B={b} S=T={s} H={h} KV={kv} hd={hd} {str(dtype)[6:]} "
             f"causal={causal} window={window} softcap={cap}: max_abs_err={err:.3e} "
             f"tol atol={tol['atol']} rtol={tol['rtol']} {'ok' if ok else 'FAIL'}")
@@ -153,7 +192,8 @@ def phase_time() -> list[dict]:
 
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
     log("phase 3: times at the serving shapes (gemma-2b: H=8 KV=1 hd=256 bf16 causal), "
-        "median of 20 CUDA-event timings after 3 warm-up calls, inputs warm in L2")
+        "median of 20 CUDA-event timings after 3 warm-up calls, each behind a device-side "
+        "spin (host dispatch not timed), inputs warm in L2")
     gen = torch.Generator("cuda").manual_seed(1)
     rows = []
     for s in SERVE_BUCKETS:
@@ -173,10 +213,257 @@ def phase_time() -> list[dict]:
     return rows
 
 
+def decode_inputs(gen, b, h, kv, hd, t, dtype, pos, q_scale=1.0):
+    def r(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen, device="cuda")).to(dtype)
+    pos = torch.tensor(pos, dtype=torch.int32, device="cuda") if pos is not None else \
+        torch.randint(0, t, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    return r(b, h, hd, scale=q_scale), r(b, t, kv, hd), r(b, t, kv, hd), pos
+
+
+def decode_tol(dtype, ref) -> dict:
+    """f32: the reference's 2e-5.  bf16: 5e-3 of max|ref| (about ten bf16
+    ulps of the largest output) and 1e-2 relative (one ulp of rounding the
+    output).  An output is a softmax average over up to thousands of rows,
+    so it is far below the reference's 2e-2: dropping one 64-position piece
+    of a row moves it by more than this tolerance."""
+    if dtype == torch.float32:
+        return dict(TOL[torch.float32])
+    return dict(atol=5e-3 * float(ref.float().abs().max()), rtol=1e-2)
+
+
+def decode_bound(b, h, kv, hd, dtype, pos, window):
+    """Bytes: q and out once, k and v once for each visible position (the
+    kernel reads no other row); operations: 4*hd per query head and visible
+    position.  ``pos`` and ``window`` are this run's."""
+    visible = sum(min(p + 1, window) if window else p + 1 for p in pos)
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    nbytes = itemsize * hd * (2 * b * h + 2 * kv * visible) + 4 * b
+    return (*bound(4.0 * hd * h * visible, nbytes, dtype), visible)
+
+
+def phase_compare_decode() -> float:
+    """Decode attention against its plain version; returns the max abs error
+    at gemma-2b decode."""
+    from repro_torch.kernels import decode_attention, reference_decode_attention
+    log("phase 2: decode attention vs plain version (TF32 off)")
+    gen = torch.Generator("cuda").manual_seed(2)
+    cases = [("test sweep", b, h, kv, hd, t, dtype, 0, 0.0, None, 1.0)
+             for dtype in (torch.float32, torch.bfloat16)
+             for b, h, kv, hd, t in ((2, 4, 4, 64, 256), (3, 8, 2, 64, 512),
+                                     (1, 4, 1, 128, 256))]
+    cases += [("ragged pos", 4, 4, 2, 64, 128, torch.float32, 0, 0.0, (0, 1, 63, 127), 1.0),
+              ("window 16", 2, 4, 4, 64, 128, torch.float32, 16, 0.0, (100, 127), 1.0),
+              *DECODE_SHAPES,
+              ("gemma2-2b local f32", *DECODE_SHAPES[1][1:6], torch.float32,
+               *DECODE_SHAPES[1][7:])]
+    decode_attention.launches = 0
+    main_err = 0.0
+    for name, b, h, kv, hd, t, dtype, window, cap, pos, q_scale in cases:
+        q, k, v, p = decode_inputs(gen, b, h, kv, hd, t, dtype, pos, q_scale)
+        out = decode_attention(q, k, v, p, window=window, softcap=cap)
+        torch.cuda.synchronize()
+        ref = reference_decode_attention(q, k, v, p, window=window, softcap=cap)
+        tol = decode_tol(dtype, ref)
+        ok, err = within(out, ref, **tol)
+        log(f"  {name}: B={b} H={h} KV={kv} hd={hd} T={t} {str(dtype)[6:]} window={window} "
+            f"softcap={cap} q scale {q_scale} pos={p.tolist() if b <= 4 else '...'}: "
+            f"max_abs_err={err:.3e} (max|ref| {float(ref.float().abs().max()):.3e}) "
+            f"tol atol={tol['atol']:.3e} rtol={tol['rtol']} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"decode_attention disagrees with its plain version ({name})")
+        if name == DECODE_SHAPES[0][0]:
+            main_err = err
+    if decode_attention.launches != len(cases):
+        fail(f"decode_attention counted {decode_attention.launches} launches for "
+             f"{len(cases)} calls")
+    return main_err
+
+
+def ssd_inputs(gen, b, length, nh, hd, n, x_dtype, bc_dtype):
+    """As tests/test_kernels.py draws them: x normal, dt = softplus(normal),
+    a = -exp(0.3 normal), B and C = 0.3 normal."""
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    x = r(b, length, nh, hd).to(x_dtype)
+    dt = torch.nn.functional.softplus(r(b, length, nh))
+    a = -torch.exp(0.3 * r(nh))
+    return x, dt, a, (0.3 * r(b, length, n)).to(bc_dtype), (0.3 * r(b, length, n)).to(bc_dtype)
+
+
+def ssd_bound(b, length, nh, hd, n, chunk, x_dtype, bc_dtype):
+    """Operations: C B^T once per (batch row, chunk) over the i >= j pairs,
+    and per (head, chunk) att @ x, C h_prev^T and the state update; bytes:
+    each input read once, y and h_final written once.  Returns the f32
+    (CUDA-core) bound, its binding term, the time of the operations on the
+    bf16 tensor cores (the floor of a redesign), the bytes' time, and the
+    FLOPs."""
+    nc = length // chunk
+    pairs = chunk * (chunk + 1) // 2
+    flops = b * nc * 2.0 * pairs * n + b * nh * nc * (2.0 * pairs * hd + 4.0 * chunk * hd * n)
+    xs = torch.tensor([], dtype=x_dtype).element_size()
+    bs = torch.tensor([], dtype=bc_dtype).element_size()
+    nbytes = (2 * xs * b * length * nh * hd + 4 * b * length * nh + 4 * nh
+              + 2 * bs * b * length * n + 4 * b * nh * hd * n)
+    ms, by = bound(flops, nbytes, torch.float32)
+    return ms, by, 1e3 * flops / PEAK_FLOPS[torch.bfloat16], 1e3 * nbytes / PEAK_BYTES_PER_S, flops
+
+
+def ssd_shapes():
+    """mamba2-370m's SSD at B=1 and B=4 (widths from its config) and
+    kernels_bench's shape: (name, B, L, nh, hd, N, chunk, x dtype, B/C dtype)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("mamba2-370m")
+    d_in = cfg.ssm_expand * cfg.d_model
+    nh, hd = d_in // cfg.ssm_head_dim, cfg.ssm_head_dim
+    return tuple((f"mamba2-370m B={b}", b, 2048, nh, hd, cfg.ssm_state, cfg.ssm_chunk,
+                  torch.float32, torch.bfloat16) for b in (1, 4)) + (
+        ("kernels_bench", 1, 1024, 4, 32, 32, 128, torch.float32, torch.float32),)
+
+
+def phase_compare_ssd() -> float:
+    """SSD scan against its plain version (the sequential recurrence);
+    returns the max abs error of y at mamba2-370m B=1."""
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.kernels.ssd_scan.ops import fold_and_scan
+    log("phase 2: ssd_scan vs plain version (TF32 off)")
+    gen = torch.Generator("cuda").manual_seed(3)
+    cases = [("test sweep", b, length, nh, hd, n, chunk, dtype, torch.float32)
+             for dtype in (torch.float32, torch.bfloat16)
+             for b, length, nh, hd, n, chunk in ((1, 64, 2, 16, 16, 16),
+                                                 (2, 128, 4, 32, 64, 32),
+                                                 (1, 256, 2, 64, 128, 64))]
+    cases += list(ssd_shapes())
+    ssd_scan.launches = 0
+    main_err = 0.0
+    for name, b, length, nh, hd, n, chunk, x_dtype, bc_dtype in cases:
+        args = ssd_inputs(gen, b, length, nh, hd, n, x_dtype, bc_dtype)
+        y, h = ssd_scan(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        yr, hr = fold_and_scan(*args, chunk=chunk)
+        if name == "test sweep":
+            tol_y = tol_h = TOL[x_dtype]
+            why = "the reference's test tolerance"
+        else:
+            # the plain version sums L steps in order, the kernel by chunks
+            # (cumsum of up to 256 decays, then chunk states): f32 rounding
+            # of sums in another order, bounded relative to the output scale
+            # (measured 2e-5 of max|y| at mamba2-370m on an H100)
+            tol_y = dict(atol=2e-4 * float(yr.abs().max()), rtol=0.0)
+            tol_h = dict(atol=2e-4 * float(hr.abs().max()), rtol=0.0)
+            why = "2e-4 of max|ref|: summation order over L"
+        ok_y, err_y = within(y, yr, **tol_y)
+        ok_h, err_h = within(h, hr, **tol_h)
+        log(f"  {name}: B={b} L={length} nh={nh} hd={hd} N={n} chunk={chunk} x "
+            f"{str(x_dtype)[6:]} B/C {str(bc_dtype)[6:]}: y max_abs_err={err_y:.3e} "
+            f"(max|y| {float(yr.abs().max()):.3e}), h max_abs_err={err_h:.3e} "
+            f"(max|h| {float(hr.abs().max()):.3e}); tol y atol={tol_y['atol']:.3e} "
+            f"rtol={tol_y['rtol']}, h atol={tol_h['atol']:.3e} ({why}) "
+            f"{'ok' if ok_y and ok_h else 'FAIL'}")
+        if not (ok_y and ok_h) or y.dtype != x_dtype or h.shape != (b, nh, hd, n):
+            fail(f"ssd_scan disagrees with its plain version ({name})")
+        if name == cases[-3][0]:
+            main_err = err_y
+    if ssd_scan.launches != len(cases):
+        fail(f"ssd_scan counted {ssd_scan.launches} launches for {len(cases)} calls")
+    return main_err
+
+
+def phase_time_decode() -> list[dict]:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention, reference_decode_attention
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
+    log("phase 3: decode attention at full width, median of 20 CUDA-event timings after "
+        f"3 warm-up calls, each behind a device-side spin (host dispatch not timed); "
+        f"'flushed' zeroes a {FLUSH_BYTES >> 20} MB buffer before each timed call "
+        "(outside the events), as a decode step finds its layer's cache cold")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator("cuda").manual_seed(4)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    rows = []
+    for name, b, h, kv, hd, t, dtype, window, cap, pos, q_scale in DECODE_SHAPES:
+        q, k, v, p = decode_inputs(gen, b, h, kv, hd, t, dtype, pos, q_scale)
+        decode_attention.launches = 0
+        warm = time_ms(decode_attention, q, k, v, p, window=window, softcap=cap)
+        ms = time_ms(decode_attention, q, k, v, p, window=window, softcap=cap, flush=flush)
+        launches = decode_attention.launches
+        if launches != 46:
+            fail(f"decode_attention counted {launches} launches for 46 timed calls")
+        plain_ms = time_ms(reference_decode_attention, q, k, v, p, window=window,
+                           softcap=cap, flush=flush)
+        lib_ms = lib_warm = None
+        if not cap:       # no one PyTorch call applies a softcap
+            kpos = torch.arange(t, device="cuda")[None, :]
+            mask = kpos <= p.long()[:, None]
+            if window:
+                mask &= kpos > p.long()[:, None] - window
+            qt, kt, vt = q[:, :, None], k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+            sdpa_args = (qt, kt, vt)
+            sdpa_kw = dict(attn_mask=mask[:, None, None, :], enable_gqa=True)
+            lib_warm = time_ms(F.scaled_dot_product_attention, *sdpa_args, **sdpa_kw)
+            lib_ms = time_ms(F.scaled_dot_product_attention, *sdpa_args, flush=flush, **sdpa_kw)
+        # the piece length the kernel picks, against every length it could pick
+        out = torch.empty_like(q)
+        pieces = {piece: time_ms(da_kernel.launch_decode_attention, q, k, v, p, out,
+                                 window=window, softcap=cap, scale=hd ** -0.5, piece=piece,
+                                 flush=flush)
+                  for piece in da_kernel.PIECES}
+        chosen = da_kernel.piece_len(b, h, kv, t, sms)
+        log(f"  {name}: flushed ms by piece length: "
+            + ", ".join(f"{n}: {t_ms:.4f}" for n, t_ms in pieces.items())
+            + f"; the kernel picks {chosen} ({sms} SMs)")
+        bound_ms, bound_by, visible = decode_bound(b, h, kv, hd, dtype, pos, window)
+        rows.append({"name": name, "ms": ms, "warm_ms": warm, "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "launches": launches,
+                     "shape": f"B={b} H={h} KV={kv} hd={hd} T={t} {str(dtype)[6:]} "
+                              f"window={window} softcap={cap} pos={list(pos)}"})
+        profile(f"decode_attention {name} (warm)", decode_attention, q, k, v, p,
+                kernel=("decode_attention", "decode_"), window=window, softcap=cap)
+        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms flushed ({lib_warm:.4f} warm)"
+        log(f"  {name} ({rows[-1]['shape']}, {visible} visible positions): kernel "
+            f"{ms:.4f} ms flushed ({warm:.4f} warm), plain {plain_ms:.4f} ms flushed, "
+            f"sdpa {lib}, bound {bound_ms * 1e3:.2f} us ({bound_by}); launches {launches}")
+    return rows
+
+
+def phase_time_ssd() -> list[dict]:
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.kernels.ssd_scan.ops import fold_and_scan
+    log("phase 3: ssd_scan at full width, inputs warm in L2: kernel median of 20 "
+        "CUDA-event timings after 3 warm-up calls, each behind a device-side spin (host "
+        "dispatch not timed), plain version median of 3 after 1")
+    gen = torch.Generator("cuda").manual_seed(5)
+    rows = []
+    for name, b, length, nh, hd, n, chunk, x_dtype, bc_dtype in ssd_shapes():
+        args = ssd_inputs(gen, b, length, nh, hd, n, x_dtype, bc_dtype)
+        ssd_scan.launches = 0
+        ms = time_ms(ssd_scan, *args, chunk=chunk)
+        launches = ssd_scan.launches
+        if launches != 23:
+            fail(f"ssd_scan counted {launches} launches for 23 timed calls")
+        plain_ms = time_ms(fold_and_scan, *args, chunk=chunk, iters=3, warmup=1)
+        profile(f"ssd_scan {name}", ssd_scan, *args, kernel=("ssd_scan", "ssd_"), chunk=chunk)
+        bound_ms, bound_by, tc_ms, bytes_ms, flops = ssd_bound(b, length, nh, hd, n, chunk,
+                                                               x_dtype, bc_dtype)
+        shape = (f"B={b} L={length} nh={nh} hd={hd} N={n} chunk={chunk} x "
+                 f"{str(x_dtype)[6:]} B/C {str(bc_dtype)[6:]}")
+        rows.append({"name": name, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "launches": launches,
+                     "shape": shape})
+        log(f"  {name} ({shape}): kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, library none, "
+            f"bound {bound_ms * 1e3:.2f} us ({bound_by}, f32 CUDA cores; the operations take "
+            f"{tc_ms * 1e3:.2f} us on bf16 tensor cores, the bytes {bytes_ms * 1e3:.2f} us) "
+            f"for {flops / 1e9:.3f} GFLOP; "
+            f"kernel {flops / ms / 1e9:.2f} TFLOP/s; launches {launches}")
+    return rows
+
+
 def phase_serve() -> dict:
     from repro_torch.configs import get_config
     from repro_torch.core import MetronomeConfig
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels import decode_attention, flash_attention, ssd_scan
     from repro_torch.models import Model
     from repro_torch.runtime import MetronomePolicy
     from repro_torch.serving import EngineConfig, InferenceEngine, Request, Server
@@ -226,6 +513,8 @@ def phase_serve() -> dict:
                     max_new_tokens=MAX_NEW) for n in PROMPT_LENS]
     prefills_before = engine.prefill_tokens
     flash_attention.launches = 0            # counts from the main path only
+    decode_attention.launches = 0
+    ssd_scan.launches = 0
     server.start()
     t_start = time.perf_counter()
     for r in reqs:
@@ -236,6 +525,8 @@ def phase_serve() -> dict:
     wall_s = time.perf_counter() - t_start
     stats = server.stop()
     launches = flash_attention.launches
+    other_launches = {"decode_attention": decode_attention.launches,
+                      "ssd_scan": ssd_scan.launches}
     if not done:
         fail("not every request completed within 120 s")
     completed = sum(len(r.tokens) == MAX_NEW for r in reqs)
@@ -247,13 +538,17 @@ def phase_serve() -> dict:
     if launches != want:
         fail(f"flash_attention launched {launches} times, want {want} "
              f"({cfg.n_layers} per prefill x {len(reqs)} prefills)")
+    if any(other_launches.values()):
+        fail(f"the serving path launched {other_launches}; no model path reaches them")
     if engine.prefill_tokens - prefills_before != sum(PROMPT_LENS):
         fail("prefill token count does not match the prompts")
     ttft = statistics.median((r.first_token_ns - r.arrival_ns) / 1e6 for r in reqs)
     tokens = sum(len(r.tokens) for r in reqs)
     log(f"  completed={completed}/{len(reqs)} cpu={stats.cpu_fraction:.3f} "
         f"ttft_ms_median={ttft:.2f} tokens={tokens} wall_s={wall_s:.3f} "
-        f"tokens_per_s={tokens / wall_s:.1f} flash_attention_launches={launches}")
+        f"tokens_per_s={tokens / wall_s:.1f} flash_attention_launches={launches} "
+        f"decode_attention_launches={other_launches['decode_attention']} "
+        f"ssd_scan_launches={other_launches['ssd_scan']}")
     ctrl = policy.controller
     log(f"  controller: rho={ctrl.rho:.3f} T_S={ctrl.t_short_us:.0f}us cycles={ctrl.cycles}")
 
@@ -269,29 +564,32 @@ def phase_serve() -> dict:
         dpos = torch.full((4,), 1000, dtype=torch.long, device="cuda")
         decode_ms = time_ms(model.decode_step, params, dtoks, cache, dpos,
                             iters=20, warmup=2)
-    log("  prefill ms per bucket (CUDA events, median of 5): "
+    log("  prefill ms per bucket (CUDA events behind the spin, median of 5): "
         + ", ".join(f"{n}: {ms:.2f}" for n, ms in prefill_ms.items())
         + f"; decode ms per step (4 slots, max_len 2048, median of 20): {decode_ms:.2f}")
     with torch.no_grad():
         toks = torch.ones((1, SERVE_BUCKETS[-1]), dtype=torch.long, device="cuda")
         profile(f"prefill S={SERVE_BUCKETS[-1]}", model.prefill, params, {"tokens": toks})
         profile("decode step (4 slots)", model.decode_step, params, dtoks, cache, dpos)
-    return {"launches": launches}
+    return {"launches": launches, **other_launches}
 
 
-def profile(name: str, fn, *args) -> None:
-    """Device busy share of one call of ``fn(*args)``: the sum of its CUDA
-    kernels' times (torch.profiler) over its wall time (host clock around a
-    synchronised call), and the kernels that take the most of it."""
+def profile(name: str, fn, *args, kernel: tuple[str, str] = ("flash_attention", "flash_fwd"),
+            **kwargs) -> None:
+    """Device busy share of one call of ``fn(*args, **kwargs)``: the sum of
+    its CUDA kernels' times (torch.profiler) over its wall time (host clock
+    around a synchronised call), the time of the kernels whose names
+    contain ``kernel[1]`` (reported as ``kernel[0]``), and the kernels that
+    take the most of it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    fn(*args)
+    fn(*args, **kwargs)
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn(*args)
+        fn(*args, **kwargs)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name: dict[str, float] = {}
@@ -303,12 +601,12 @@ def profile(name: str, fn, *args) -> None:
             "(the profiler recorded no CUDA kernels)")
         return
     busy = sum(by_name.values())
-    flash = sum(ms for n, ms in by_name.items() if "flash_fwd" in n)
+    focus = sum(ms for n, ms in by_name.items() if kernel[1] in n)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
     log(f"  profile {name}: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
-        f"({100 * busy / wall_ms:.1f}%), flash_attention {flash:.3f} ms, "
+        f"({100 * busy / wall_ms:.1f}%), {kernel[0]} {focus:.3f} ms, "
         f"{sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)} kernels; top: "
-        + "; ".join(f"{n[:60]} {ms:.3f} ms" for n, ms in top))
+        + "; ".join(f"{n[:60]} {ms:.4f} ms" for n, ms in top))
 
 
 def _leaves(tree):
@@ -327,7 +625,11 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails here, before any output, outside a checkout)
     phase_card()
     max_err = phase_compare()
+    decode_err = phase_compare_decode()
+    ssd_err = phase_compare_ssd()
     rows = phase_time()
+    decode_rows = phase_time_decode()
+    ssd_rows = phase_time_ssd()
     served = phase_serve()
     main_row = rows[-1]                     # the largest prefill bucket
     kernels = [{
@@ -344,6 +646,20 @@ def main() -> int:
         "library_ms": main_row["library_ms"],
         "shape": f"B=1 S=T={main_row['S']} H=8 KV=1 hd=256 bf16 causal",
     }]
+    # decode attention and the SSD scan are on no model path: their launches
+    # are the timing phase's, at the shape of the row (gemma-2b decode with
+    # the serving engine's cache; mamba2-370m at B=1); the serving run's
+    # counts (0, checked) go beside them
+    for name, replaces, row, err in (
+            ("decode_attention", "src/repro/kernels/decode_attention/kernel.py:73",
+             decode_rows[0], decode_err),
+            ("ssd_scan", "src/repro/kernels/ssd_scan/kernel.py:78", ssd_rows[0], ssd_err)):
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces, "launches": row["launches"], "max_abs_err": err,
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "shape": f"{row['name']}: {row['shape']}", "serving_launches": served[name]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

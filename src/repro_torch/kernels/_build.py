@@ -29,7 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # source name -> {"seconds": build time (0.0 if found built), "log": nvcc stderr}
 BUILD_INFO: dict[str, dict] = {}
 
-_lock = threading.Lock()
+_lock = threading.Lock()                      # guards _source_locks
+_source_locks: dict[str, threading.Lock] = {}  # one per source: builds run in parallel
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -60,8 +61,11 @@ def _build(src: Path, so: Path) -> dict:
 
 def load_library(source: str, signatures: dict[str, tuple]) -> ctypes.CDLL:
     """Build (once) and load ``csrc/<source>``; ``signatures`` maps each C
-    function to ``(restype, argtypes)``, set on first load."""
+    function to ``(restype, argtypes)``, set on first load.  Different
+    sources build concurrently when loaded from several threads."""
     with _lock:
+        source_lock = _source_locks.setdefault(source, threading.Lock())
+    with source_lock:
         lib = _libs.get(source)
         if lib is not None:
             return lib

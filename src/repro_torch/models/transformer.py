@@ -40,13 +40,13 @@ def _unsupported(cfg: ModelConfig) -> str | None:
         return "encoder-decoder models (whisper) come with the model-family slice"
     if cfg.frontend:
         return "modality frontends come with the model-family slice"
-    if not cfg.use_rope:
-        return "learned absolute positions come with the model-family slice"
     for mixer, ffn in cfg.layer_plan():
         if mixer == "ssm":
             return "Mamba2 (ssm) layers come with the model-family slice"
         if ffn == "moe":
             return "MoE FFNs come with the model-family slice"
+    if not cfg.use_rope:
+        return "learned absolute positions come with the model-family slice"
     return None
 
 

@@ -21,6 +21,7 @@ COPIES = [
     "runtime/queues.py", "runtime/policy.py", "runtime/simcore.py",
     "runtime/workload.py", "runtime/runtime.py",
     "configs/base.py", "configs/gemma_2b.py", "configs/gemma2_2b.py",
+    "configs/mamba2_370m.py",
 ]
 
 # an import statement naming jax or the reference package (not repro_torch)
@@ -33,6 +34,8 @@ def test_import_loads_no_jax_and_no_reference_module():
     names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
         repro_torch.__path__, "repro_torch.")]
     assert "repro_torch.serving.server" in names and "repro_torch.launch.serve" in names
+    assert {"repro_torch.kernels.decode_attention.ops",
+            "repro_torch.kernels.ssd_scan.ops"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
