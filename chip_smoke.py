@@ -6,18 +6,23 @@ Phases, each a hard failure (nonzero exit, no result line):
 
 1. the card (nvidia-smi name and power limit), torch/CUDA versions, and the
    build of every kernel of ``src/repro_torch/kernels`` (flash attention,
-   decode attention, SSD chunk scan; one nvcc per source, in parallel);
+   decode attention, SSD chunk scan; one nvcc per source, in parallel),
+   with each flash-attention kernel's registers and spills (the wgmma
+   kernel must not spill);
 2. each kernel against its plain PyTorch version on the card, at the
    serving path's shapes, the reference test sweep's and the full widths of
    gemma-2b, gemma2-2b and mamba2-370m, with the tolerance stated per case;
+   flash attention's bf16 cases go to its "wgmma" route, f32 to "simt";
 3. kernel, plain version and the PyTorch library call (where one computes
    the same function) timed with CUDA events at those shapes, beside the
-   card's bound for the same work;
+   card's bound for the same work, with the achieved TFLOP/s and the share
+   of the bound;
 4. full-width gemma-2b (random weights from a seed, bf16) served through
    ``Server`` + ``MetronomePolicy`` with the kernel route, with every
    launch counter set to 0 just before and read just after (flash
-   attention 18 per prefill; decode attention and the SSD scan 0: no model
-   path reaches them, in the reference or in the port).
+   attention 18 per prefill, all on the "wgmma" route; decode attention
+   and the SSD scan 0: no model path reaches them, in the reference or in
+   the port).
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -26,6 +31,7 @@ The second-to-last line is ``{"kernels": [...]}``; the last line is
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -125,7 +131,7 @@ def attn_bound(b, s, h, kv, hd, dtype, *, causal, window):
         mask &= kpos > qpos - window
     flops = 4.0 * b * h * hd * int(mask.sum())
     itemsize = torch.tensor([], dtype=dtype).element_size()
-    return bound(flops, itemsize * hd * b * s * (2 * h + 2 * kv), dtype)
+    return (*bound(flops, itemsize * hd * b * s * (2 * h + 2 * kv), dtype), flops)
 
 
 def phase_card() -> None:
@@ -151,65 +157,129 @@ def phase_card() -> None:
         info = _build.BUILD_INFO[source]
         regs = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln]
         log(f"  {source}: nvcc {info['seconds']:.2f} s; ptxas: {regs}")
+    kernels = ptxas_kernels(_build.BUILD_INFO["flash_attention.cu"]["log"])
+    for name, (regs, spills) in kernels.items():
+        log(f"  {name}: {regs} registers, {spills} bytes of spill stores + loads")
+    wgmma = {n: v for n, v in kernels.items() if n.startswith("flash_fwd_wgmma_bf16")}
+    if len(wgmma) != 3 or any(spills for _, spills in wgmma.values()):
+        fail(f"want the wgmma kernel at hd 64, 128 and 256 without spills; ptxas gave {wgmma}")
 
 
-def phase_compare() -> float:
-    """Kernel vs plain version; returns the max abs error at the serving
-    shapes (gemma-2b prefill, bf16)."""
+def ptxas_kernels(log_text: str) -> dict[str, tuple[int, int]]:
+    """``nvcc -Xptxas -v`` output -> {kernel<HD>: (registers, spill bytes)}
+    for the flash-attention kernels."""
+    out, name, spills = {}, None, 0
+    for ln in log_text.splitlines():
+        if m := re.search(r"Compiling entry function '.*?(flash_fwd_\w+?)ILi(\d+)E", ln):
+            name, spills = f"{m.group(1)}<{m.group(2)}>", 0
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
+            spills = int(m.group(1)) + int(m.group(2))
+        elif name and (m := re.search(r"Used (\d+) registers", ln)):
+            out[name] = (int(m.group(1)), spills)
+            name = None
+    return out
+
+
+def phase_compare() -> dict[str, float]:
+    """Kernel vs plain version; returns the max abs error per route at the
+    shapes of the ``kernels`` line: gemma-2b prefill in bf16 ("wgmma") and
+    in f32 ("simt")."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 plain version in full f32
     torch.backends.cudnn.allow_tf32 = False
-    log("phase 2: kernel vs plain version (TF32 off for the f32 cases)")
+    log("phase 2: kernel vs plain version (TF32 off for the f32 cases); tolerance: the "
+        "reference's, f32 2e-5 and bf16 2e-2 (rounding P to bf16 moves a bf16 output by "
+        "about one ulp, ~0.016 at |o| ~ 3; dropping one 64-key tile moves it by ~0.36)")
     gen = torch.Generator("cuda").manual_seed(0)
-    cases = [("gemma-2b prefill", 1, s, 8, 1, 256, torch.bfloat16, True, 0, 0.0)
+    # (name, B, S, H, KV, hd, dtype, causal, window, softcap, q scale)
+    cases = [("gemma-2b prefill", 1, s, 8, 1, 256, torch.bfloat16, True, 0, 0.0, 1.0)
              for s in (16, *SERVE_BUCKETS)]
     for dtype in (torch.float32, torch.bfloat16):
         for b, s, h, kv, hd in ((1, 128, 4, 4, 64), (2, 256, 8, 2, 64),
                                 (1, 192, 4, 1, 128), (1, 64, 2, 2, 256)):
             for causal in (True, False):
-                cases.append(("test sweep", b, s, h, kv, hd, dtype, causal, 0, 0.0))
-        cases.append(("gemma2-2b window+softcap", 1, 1024, 8, 4, 256, dtype, True, 256, 50.0))
-    serving_err = 0.0
-    for name, b, s, h, kv, hd, dtype, causal, window, cap in cases:
+                cases.append(("test sweep", b, s, h, kv, hd, dtype, causal, 0, 0.0, 1.0))
+        cases.append(("gemma2-2b window+softcap", 1, 1024, 8, 4, 256, dtype, True, 256, 50.0,
+                      1.0))
+    # bf16 edges of the wgmma kernel: rows past S and T zero-filled by TMA,
+    # a window that cuts tiles, logits past the softcap (q scaled by 32, so
+    # the logits' std is 32), and the batch stride at gemma-2b widths
+    cases += [("ragged S=100", 1, 100, 4, 2, 64, torch.bfloat16, True, 0, 0.0, 1.0),
+              ("ragged S=192, window 100", 1, 192, 8, 2, 128, torch.bfloat16, True, 100, 0.0,
+               1.0),
+              ("gemma2-2b window+softcap, q x32", 1, 1024, 8, 4, 256, torch.bfloat16, True, 256,
+               50.0, 32.0),
+              ("gemma-2b prefill B=2", 2, 512, 8, 1, 256, torch.bfloat16, True, 0, 0.0, 1.0),
+              ("gemma-2b prefill f32", 1, 1024, 8, 1, 256, torch.float32, True, 0, 0.0, 1.0)]
+    flash_attention.launches_by_route = {"wgmma": 0, "simt": 0}
+    route_err = {"wgmma": 0.0, "simt": 0.0}
+    for name, b, s, h, kv, hd, dtype, causal, window, cap, q_scale in cases:
         q, k, v = attn_inputs(gen, b, s, h, kv, hd, dtype)
+        q = (q_scale * q.float()).to(dtype)
         out = flash_attention(q, k, v, causal=causal, window=window, softcap=cap)
         torch.cuda.synchronize()
         ref = flash_attention_ref(q, k, v, causal=causal, window=window, softcap=cap)
         tol = TOL[dtype]
         ok, err = within(out, ref, **tol)
         log(f"  {name}: B={b} S=T={s} H={h} KV={kv} hd={hd} {str(dtype)[6:]} "
-            f"causal={causal} window={window} softcap={cap}: max_abs_err={err:.3e} "
+            f"causal={causal} window={window} softcap={cap} q scale {q_scale}: "
+            f"max_abs_err={err:.3e} (max|ref| {float(ref.float().abs().max()):.3e}) "
             f"tol atol={tol['atol']} rtol={tol['rtol']} {'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"flash_attention disagrees with its plain version ({name}, S={s})")
-        if name == "gemma-2b prefill":
-            serving_err = max(serving_err, err)
-    return serving_err
+        if name.startswith("gemma-2b prefill"):
+            route = "wgmma" if dtype == torch.bfloat16 else "simt"
+            route_err[route] = max(route_err[route], err)
+    want = {"wgmma": sum(c[6] == torch.bfloat16 for c in cases),
+            "simt": sum(c[6] == torch.float32 for c in cases)}
+    if flash_attention.launches_by_route != want:
+        fail(f"flash_attention routes {flash_attention.launches_by_route}, want {want}")
+    log(f"  launches by route: {flash_attention.launches_by_route}")
+    return route_err
 
 
-def phase_time() -> list[dict]:
+def phase_time() -> dict[str, list[dict]]:
+    """K1 rows by route: "wgmma" holds gemma-2b's three prefill buckets and
+    a gemma2-2b softcap row, "simt" the f32 row at gemma-2b heads."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
-    log("phase 3: times at the serving shapes (gemma-2b: H=8 KV=1 hd=256 bf16 causal), "
-        "median of 20 CUDA-event timings after 3 warm-up calls, each behind a device-side "
-        "spin (host dispatch not timed), inputs warm in L2")
+    log("phase 3: flash attention, median of 20 CUDA-event timings after 3 warm-up calls, "
+        "each behind a device-side spin (host dispatch not timed), inputs warm in L2")
     gen = torch.Generator("cuda").manual_seed(1)
-    rows = []
-    for s in SERVE_BUCKETS:
-        q, k, v = attn_inputs(gen, 1, s, 8, 1, 256, torch.bfloat16)
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        ms = time_ms(flash_attention, q, k, v)
-        plain_ms = time_ms(flash_attention_ref, q, k, v)
-        lib_ms = time_ms(F.scaled_dot_product_attention, qt, kt, vt,
-                         is_causal=True, enable_gqa=True)
-        bound_ms, bound_by = attn_bound(1, s, 8, 1, 256, torch.bfloat16,
-                                        causal=True, window=0)
-        row = {"S": s, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by}
-        log(f"  S=T={s}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"sdpa {lib_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by})")
-        rows.append(row)
+    # (name, route, S, H, KV, dtype, window, softcap, q scale); hd 256, causal
+    shapes = [(f"gemma-2b prefill S={s}", "wgmma", s, 8, 1, torch.bfloat16, 0, 0.0, 1.0)
+              for s in SERVE_BUCKETS]
+    shapes += [("gemma2-2b prefill S=1024, local layer (window 4096, softcap 50, q x32)",
+                "wgmma", 1024, 8, 4, torch.bfloat16, 4096, 50.0, 32.0),
+               ("gemma-2b prefill S=1024 f32", "simt", 1024, 8, 1, torch.float32, 0, 0.0, 1.0)]
+    rows = {"wgmma": [], "simt": []}
+    for name, route, s, h, kv, dtype, window, cap, q_scale in shapes:
+        q, k, v = attn_inputs(gen, 1, s, h, kv, 256, dtype)
+        q = (q_scale * q.float()).to(dtype)
+        kw = dict(causal=True, window=window, softcap=cap)
+        flash_attention.launches_by_route = {"wgmma": 0, "simt": 0}
+        ms = time_ms(flash_attention, q, k, v, **kw)
+        launches = flash_attention.launches_by_route[route]
+        if launches != 23:
+            fail(f"{name}: {flash_attention.launches_by_route} for 23 timed calls on {route}")
+        plain_ms = time_ms(flash_attention_ref, q, k, v, **kw)
+        lib_ms = None
+        if not cap:       # no one PyTorch call applies a softcap
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            lib_ms = time_ms(F.scaled_dot_product_attention, qt, kt, vt,
+                             is_causal=True, enable_gqa=True)
+        bound_ms, bound_by, flops = attn_bound(1, s, h, kv, 256, dtype, causal=True,
+                                               window=window)
+        rows[route].append({"name": name, "ms": ms, "plain_ms": plain_ms,
+                            "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                            "launches": launches, "tflops": flops / ms / 1e9,
+                            "bound_share": bound_ms / ms})
+        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        ratio = "" if lib_ms is None else f", kernel/sdpa {ms / lib_ms:.2f}"
+        log(f"  {name} [{route}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib}, "
+            f"bound {bound_ms * 1e3:.2f} us ({bound_by}, {str(dtype)[6:]} peak); "
+            f"{flops / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of the bound{ratio}")
     return rows
 
 
@@ -513,6 +583,7 @@ def phase_serve() -> dict:
                     max_new_tokens=MAX_NEW) for n in PROMPT_LENS]
     prefills_before = engine.prefill_tokens
     flash_attention.launches = 0            # counts from the main path only
+    flash_attention.launches_by_route = {"wgmma": 0, "simt": 0}
     decode_attention.launches = 0
     ssd_scan.launches = 0
     server.start()
@@ -525,6 +596,7 @@ def phase_serve() -> dict:
     wall_s = time.perf_counter() - t_start
     stats = server.stop()
     launches = flash_attention.launches
+    by_route = dict(flash_attention.launches_by_route)
     other_launches = {"decode_attention": decode_attention.launches,
                       "ssd_scan": ssd_scan.launches}
     if not done:
@@ -538,6 +610,8 @@ def phase_serve() -> dict:
     if launches != want:
         fail(f"flash_attention launched {launches} times, want {want} "
              f"({cfg.n_layers} per prefill x {len(reqs)} prefills)")
+    if by_route != {"wgmma": want, "simt": 0}:
+        fail(f"flash_attention routes {by_route}: every bf16 prefill launch must be wgmma")
     if any(other_launches.values()):
         fail(f"the serving path launched {other_launches}; no model path reaches them")
     if engine.prefill_tokens - prefills_before != sum(PROMPT_LENS):
@@ -547,6 +621,7 @@ def phase_serve() -> dict:
     log(f"  completed={completed}/{len(reqs)} cpu={stats.cpu_fraction:.3f} "
         f"ttft_ms_median={ttft:.2f} tokens={tokens} wall_s={wall_s:.3f} "
         f"tokens_per_s={tokens / wall_s:.1f} flash_attention_launches={launches} "
+        f"(by route {by_route}) "
         f"decode_attention_launches={other_launches['decode_attention']} "
         f"ssd_scan_launches={other_launches['ssd_scan']}")
     ctrl = policy.controller
@@ -571,7 +646,7 @@ def phase_serve() -> dict:
         toks = torch.ones((1, SERVE_BUCKETS[-1]), dtype=torch.long, device="cuda")
         profile(f"prefill S={SERVE_BUCKETS[-1]}", model.prefill, params, {"tokens": toks})
         profile("decode step (4 slots)", model.decode_step, params, dtoks, cache, dpos)
-    return {"launches": launches, **other_launches}
+    return {"launches": launches, "by_route": by_route, **other_launches}
 
 
 def profile(name: str, fn, *args, kernel: tuple[str, str] = ("flash_attention", "flash_fwd"),
@@ -624,28 +699,33 @@ def main() -> int:
         return 2
     import repro_torch  # noqa: F401  (fails here, before any output, outside a checkout)
     phase_card()
-    max_err = phase_compare()
+    route_err = phase_compare()
     decode_err = phase_compare_decode()
     ssd_err = phase_compare_ssd()
     rows = phase_time()
     decode_rows = phase_time_decode()
     ssd_rows = phase_time_ssd()
     served = phase_serve()
-    main_row = rows[-1]                     # the largest prefill bucket
-    kernels = [{
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:81",
-        "launches": served["launches"],
-        "max_abs_err": max_err,
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-        "shape": f"B=1 S=T={main_row['S']} H=8 KV=1 hd=256 bf16 causal",
-    }]
+    # K1 has one kernel per type: bf16 ("wgmma", the serving path; its
+    # numbers at the largest prefill bucket, every row beside them) and f32
+    # ("simt", on no model path: launches are its timing phase's, the
+    # serving run's count, 0, beside them)
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    main_row, f32_row = rows["wgmma"][len(SERVE_BUCKETS) - 1], rows["simt"][0]
+    k1 = {"route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+          "replaces": "src/repro/kernels/flash_attention/kernel.py:81"}
+    kernels = [
+        {"name": "flash_attention (wgmma, bf16)", **k1, "launches": served["by_route"]["wgmma"],
+         "max_abs_err": route_err["wgmma"], **{k: main_row[k] for k in keys},
+         "shape": "B=1 S=T=1024 H=8 KV=1 hd=256 bf16 causal",
+         "rows": [{k: r[k] for k in ("name", "ms", "plain_ms", "library_ms", "bound_ms",
+                                     "bound_by", "tflops", "bound_share")}
+                  for r in rows["wgmma"]]},
+        {"name": "flash_attention (simt, f32)", **k1, "launches": f32_row["launches"],
+         "max_abs_err": route_err["simt"], **{k: f32_row[k] for k in keys},
+         "shape": "B=1 S=T=1024 H=8 KV=1 hd=256 f32 causal",
+         "serving_launches": served["by_route"]["simt"]},
+    ]
     # decode attention and the SSD scan are on no model path: their launches
     # are the timing phase's, at the shape of the row (gemma-2b decode with
     # the serving engine's cache; mamba2-370m at B=1); the serving run's

@@ -20,6 +20,8 @@ _SIGNATURES = {
                                  _I, _I, _F, _F, _I, _P]),
     "flash_attention_error_string": (ctypes.c_char_p, [_I]),
 }
+# the C entry point picks the kernel by this code: 0 -> f32 on the CUDA
+# cores, 1 -> bf16 on wgmma (ops.ROUTES names the two routes)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 

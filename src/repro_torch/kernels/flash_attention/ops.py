@@ -2,10 +2,20 @@
 
 ``flash_attention`` takes the model's layout, q (B,S,H,hd) and k/v
 (B,T,KV,hd), like the reference's ``ops.flash_attention``.  For CUDA
-tensors it launches the hand-written kernel (``csrc/flash_attention.cu``)
-and counts the launch in ``flash_attention.launches``; for CPU tensors it
-computes ``flash_attention_ref``.  It never falls back from the kernel to
-the plain version.
+tensors it launches one of the two hand-written kernels of
+``csrc/flash_attention.cu``, chosen by the input type:
+
+* bf16 -> ``"wgmma"``: both products on the tensor cores (bf16 operands,
+  f32 accumulation), tiles fed by TMA.  The one rounding the reference
+  does not make is the probabilities P -> bf16 before P V.
+* f32 -> ``"simt"``: f32 on the CUDA cores.  The tensor cores take f32
+  only as TF32, which keeps about three decimal digits and would miss the
+  reference's 2e-5.
+
+Each launch counts in ``flash_attention.launches`` and in
+``flash_attention.launches_by_route[route]``.  For CPU tensors it computes
+``flash_attention_ref`` and counts nothing.  It never falls back from a
+kernel to another route or to the plain version.
 """
 
 from __future__ import annotations
@@ -18,7 +28,7 @@ __all__ = ["flash_attention", "flash_attention_ref"]
 
 NEG_INF = -2.3819763e38
 HEAD_DIMS = (64, 128, 256)
-_DTYPES = (torch.float32, torch.bfloat16)
+ROUTES = {torch.bfloat16: "wgmma", torch.float32: "simt"}
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
@@ -57,7 +67,7 @@ def _check(q, k, v) -> None:
         raise ValueError(f"incompatible shapes q {tuple(q.shape)}, k {tuple(k.shape)}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in ROUTES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"want float32 or bfloat16 for all of q, k, v; got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     for name, x in (("q", q), ("k", k), ("v", v)):
@@ -73,8 +83,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: float = 0.0, scale: float | None = None):
     """q: (B,S,H,hd); k, v: (B,T,KV,hd) -> (B,S,H,hd) in q's dtype.
 
-    CUDA tensors go through the kernel (hd in {64, 128, 256}, f32 or bf16,
-    contiguous); CPU tensors through ``flash_attention_ref``."""
+    CUDA tensors go through the kernel of their type's route (hd in
+    {64, 128, 256}, bf16 -> "wgmma", f32 -> "simt", contiguous); CPU
+    tensors through ``flash_attention_ref``."""
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     scale = q.shape[-1] ** -0.5 if scale is None else scale
@@ -88,7 +99,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     launch_flash_attention(q, k, v, out, causal=causal, window=window,
                            softcap=softcap, scale=scale)
     flash_attention.launches += 1
+    flash_attention.launches_by_route[ROUTES[q.dtype]] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = dict.fromkeys(ROUTES.values(), 0)

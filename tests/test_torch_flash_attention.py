@@ -2,8 +2,10 @@
 inputs through JAX ``flash_attention`` (the Pallas kernel in interpret
 mode) and the port's wrapper, which on CPU tensors computes its plain
 version.  Sweep and tolerances are those of tests/test_kernels.py (f32
-2e-5, bf16 2e-2).  The kernel itself runs only on a card: its test is
-marked ``gpu`` and skips here."""
+2e-5, bf16 2e-2).  The bf16 kernel's arithmetic (bf16 operands on the
+tensor cores, P rounded to bf16 before P V) is emulated here and held
+against the same JAX kernel.  The kernels themselves run only on a card:
+their test is marked ``gpu`` and skips here."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,6 +14,8 @@ import torch
 
 from repro.kernels.flash_attention import flash_attention as jax_flash_attention
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention import ops as fa_ops
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -79,6 +83,95 @@ def test_flash_attention_matches_jax_model_sdpa():
     np.testing.assert_allclose(_np(out), _np(ref), rtol=3e-5, atol=3e-5)
 
 
+NEG_INF = -2.3819763e38
+LOG2E = 1.4426950408889634
+
+
+def _wgmma_emulation(q, k, v, *, causal, window, softcap):
+    """The bf16 route's arithmetic on the CPU, tile by tile as the kernel
+    walks it: 64 q rows against 64-key tiles from the first visible one,
+    f32 logits from the bf16 operands, scale, softcap and mask, an online
+    softmax in log2 units, P rounded to bf16 before P V, f32 accumulators,
+    and 0 for a row that sees no key (the l == 0 guard)."""
+    b, s, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    kf = k.float().repeat_interleave(h // kv, dim=2)
+    vf = v.float().repeat_interleave(h // kv, dim=2)
+    scale = hd ** -0.5
+    out = torch.zeros(b, s, h, hd)
+    for q0 in range(0, s, 64):
+        qf = q[:, q0:q0 + 64].float()
+        qpos = torch.arange(q0, q0 + qf.shape[1])[:, None]
+        k_lo = max(0, q0 - window + 1) if window else 0
+        k_hi = min(t, q0 + 64) if causal else t
+        m = torch.full((b, h, qf.shape[1]), NEG_INF)
+        l = torch.zeros(b, h, qf.shape[1])
+        acc = torch.zeros(b, h, qf.shape[1], hd)
+        for k0 in range(k_lo // 64 * 64, k_hi, 64):
+            x = torch.einsum("bshd,bthd->bhst", qf, kf[:, k0:k0 + 64]) * scale
+            if softcap:
+                x = softcap * torch.tanh(x / softcap)
+            kpos = torch.arange(k0, k0 + x.shape[-1])[None, :]
+            ok = torch.ones(x.shape[-2:], dtype=torch.bool)
+            if causal:
+                ok &= kpos <= qpos
+            if window:
+                ok &= kpos > qpos - window
+            x = torch.where(ok, x * LOG2E, NEG_INF)
+            m_new = torch.maximum(m, x.amax(-1))
+            p = torch.where(ok, torch.exp2(x - m_new[..., None]), 0.0)
+            corr = torch.exp2(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhst,bthd->bhsd", p.bfloat16().float(), vf[:, k0:k0 + 64])
+            m = m_new
+        l = torch.where(l == 0, 1.0, l)
+        out[:, q0:q0 + 64] = (acc / l[..., None]).permute(0, 2, 1, 3)
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,bq,bk,causal,window,softcap", [
+    *[(*shape, causal, 0, 0.0)
+      for shape in ((1, 128, 4, 4, 64, 64, 64), (2, 256, 8, 2, 64, 128, 64),
+                    (1, 192, 4, 1, 128, 64, 96), (1, 64, 2, 2, 256, 64, 64))
+      for causal in (True, False)],
+    (2, 128, 4, 2, 64, 64, 32, True, 32, 0.0),     # the reference's window/softcap cases
+    (2, 128, 4, 2, 64, 64, 32, True, 0, 20.0),
+    (2, 128, 4, 2, 64, 64, 32, True, 64, 30.0),
+    (1, 100, 4, 2, 64, 100, 100, True, 0, 0.0),    # ragged: rows past S and T
+    (1, 192, 8, 2, 128, 64, 96, True, 100, 0.0),   # a window that cuts tiles
+])
+def test_wgmma_arithmetic_matches_jax_kernel(b, s, h, kv, hd, bq, bk, causal, window,
+                                             softcap):
+    """Rounding P to bf16 is the one step the reference's kernel does not
+    take; with it the bf16 route stays inside the reference's 2e-2."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        hash((b, s, h, kv, hd, causal, window)) % 2**31,
+        [(b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)], "bfloat16")
+    ref = jax_flash_attention(jq, jk, jv, causal=causal, window=window, softcap=softcap,
+                              block_q=bq, block_k=bk)
+    out = _wgmma_emulation(tq, tk, tv, causal=causal, window=window, softcap=softcap)
+    assert out.dtype == torch.bfloat16 and out.shape == tq.shape
+    np.testing.assert_allclose(_np(out), _np(ref), **TOL["bfloat16"])
+
+
+def test_routes_by_dtype_and_cpu_calls_count_nothing():
+    """bf16 goes to the wgmma kernel (dtype code 1), f32 to the CUDA-core
+    kernel (code 0); a CPU call computes the plain version and leaves every
+    counter at 0."""
+    assert fa_ops.ROUTES == {torch.bfloat16: "wgmma", torch.float32: "simt"}
+    assert {fa_ops.ROUTES[d]: fa_kernel._DTYPE_CODE[d] for d in fa_ops.ROUTES} == {
+        "wgmma": 1, "simt": 0}
+    assert flash_attention.launches_by_route == {"wgmma": 0, "simt": 0}
+    for dtype in ("bfloat16", "float32"):
+        (_, _, _), (tq, tk, tv) = _inputs(
+            13, [(1, 64, 4, 64), (1, 64, 2, 64), (1, 64, 2, 64)], dtype)
+        out = flash_attention(tq, tk, tv, window=16, softcap=10.0)
+        assert torch.equal(out, flash_attention_ref(tq, tk, tv, window=16, softcap=10.0))
+    assert flash_attention.launches == 0
+    assert flash_attention.launches_by_route == {"wgmma": 0, "simt": 0}
+
+
 def test_flash_attention_on_cpu_is_the_plain_version_and_counts_nothing():
     (_, _, _), (tq, tk, tv) = _inputs(
         11, [(1, 32, 4, 64), (1, 32, 2, 64), (1, 32, 2, 64)], "float32")
@@ -99,16 +192,24 @@ def cuda_device():
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_matches_plain_version_on_card(cuda_device, dtype):
+    """Both routes (bf16 -> wgmma, f32 -> simt) at ragged S, windows that
+    cut tiles, a softcap that binds (q scaled by 32) and a batch stride."""
     torch.backends.cuda.matmul.allow_tf32 = False
     tdt = DTYPES[dtype][1]
+    route = fa_ops.ROUTES[tdt]
     gen = torch.Generator(cuda_device).manual_seed(0)
-    for s, h, kv, hd, window, cap in ((100, 4, 2, 64, 0, 0.0), (256, 8, 1, 256, 0, 0.0),
-                                      (512, 8, 4, 128, 64, 50.0)):
-        q, k, v = (torch.randn(1, s, n, hd, generator=gen, device=cuda_device).to(tdt)
+    for b, s, h, kv, hd, window, cap, q_scale in (
+            (1, 100, 4, 2, 64, 0, 0.0, 1.0), (1, 192, 4, 1, 128, 100, 0.0, 1.0),
+            (1, 256, 8, 1, 256, 0, 0.0, 1.0), (1, 512, 8, 4, 128, 64, 50.0, 1.0),
+            (1, 512, 8, 4, 256, 256, 50.0, 32.0), (2, 192, 8, 2, 64, 0, 0.0, 1.0)):
+        q, k, v = (torch.randn(b, s, n, hd, generator=gen, device=cuda_device)
                    for n in (h, kv, kv))
+        q, k, v = (q_scale * q).to(tdt), k.to(tdt), v.to(tdt)
         before = flash_attention.launches
+        before_route = flash_attention.launches_by_route[route]
         out = flash_attention(q, k, v, causal=True, window=window, softcap=cap)
         torch.cuda.synchronize()
         assert flash_attention.launches == before + 1
+        assert flash_attention.launches_by_route[route] == before_route + 1
         ref = flash_attention_ref(q, k, v, causal=True, window=window, softcap=cap)
         np.testing.assert_allclose(_np(out.cpu()), _np(ref.cpu()), **TOL[dtype])
