@@ -7,22 +7,24 @@ Phases, each a hard failure (nonzero exit, no result line):
 1. the card (nvidia-smi name and power limit), torch/CUDA versions, and the
    build of every kernel of ``src/repro_torch/kernels`` (flash attention,
    decode attention, SSD chunk scan; one nvcc per source, in parallel),
-   with each flash-attention kernel's registers and spills (the wgmma
-   kernel must not spill);
+   with each flash-attention and decode-attention kernel's registers and
+   spills (the wgmma kernel and the mma decode split must not spill);
 2. each kernel against its plain PyTorch version on the card, at the
    serving path's shapes, the reference test sweep's and the full widths of
    gemma-2b, gemma2-2b and mamba2-370m, with the tolerance stated per case;
-   flash attention's bf16 cases go to its "wgmma" route, f32 to "simt";
+   flash attention's bf16 cases go to its "wgmma" route, decode
+   attention's to its "mma" route, f32 to "simt";
 3. kernel, plain version and the PyTorch library call (where one computes
    the same function) timed with CUDA events at those shapes, beside the
    card's bound for the same work, with the achieved TFLOP/s and the share
-   of the bound;
+   of the bound; decode attention also at every piece length it can pick,
+   and its split and combine apart (torch.profiler);
 4. full-width gemma-2b (random weights from a seed, bf16) served through
    ``Server`` + ``MetronomePolicy`` with the kernel route, with every
    launch counter set to 0 just before and read just after (flash
    attention 18 per prefill, all on the "wgmma" route; decode attention
-   and the SSD scan 0: no model path reaches them, in the reference or in
-   the port).
+   and the SSD scan 0 on every route: no model path reaches them, in the
+   reference or in the port).
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -157,21 +159,25 @@ def phase_card() -> None:
         info = _build.BUILD_INFO[source]
         regs = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln]
         log(f"  {source}: nvcc {info['seconds']:.2f} s; ptxas: {regs}")
-    kernels = ptxas_kernels(_build.BUILD_INFO["flash_attention.cu"]["log"])
-    for name, (regs, spills) in kernels.items():
-        log(f"  {name}: {regs} registers, {spills} bytes of spill stores + loads")
-    wgmma = {n: v for n, v in kernels.items() if n.startswith("flash_fwd_wgmma_bf16")}
-    if len(wgmma) != 3 or any(spills for _, spills in wgmma.values()):
-        fail(f"want the wgmma kernel at hd 64, 128 and 256 without spills; ptxas gave {wgmma}")
+    for source, kernel in (("flash_attention.cu", "flash_fwd_wgmma_bf16"),
+                           ("decode_attention.cu", "decode_split_mma_bf16")):
+        kernels = ptxas_kernels(_build.BUILD_INFO[source]["log"])
+        for name, (regs, spills) in kernels.items():
+            log(f"  {name}: {regs} registers, {spills} bytes of spill stores + loads")
+        tc = {n: v for n, v in kernels.items() if n.startswith(kernel + "<")}
+        if len(tc) != 3 or any(spills for _, spills in tc.values()):
+            fail(f"want {kernel} at hd 64, 128 and 256 without spills; ptxas gave {tc}")
 
 
 def ptxas_kernels(log_text: str) -> dict[str, tuple[int, int]]:
-    """``nvcc -Xptxas -v`` output -> {kernel<HD>: (registers, spill bytes)}
-    for the flash-attention kernels."""
+    """``nvcc -Xptxas -v`` output -> {kernel<[type, ]HD>: (registers, spill
+    bytes)} for the flash-attention and decode-attention kernels."""
     out, name, spills = {}, None, 0
     for ln in log_text.splitlines():
-        if m := re.search(r"Compiling entry function '.*?(flash_fwd_\w+?)ILi(\d+)E", ln):
-            name, spills = f"{m.group(1)}<{m.group(2)}>", 0
+        if m := re.search(r"Compiling entry function '.*?(flash_fwd_\w+?|decode_split_mma_bf16|"
+                          r"decode_split|decode_combine)I(f|13__nv_bfloat16)?Li(\d+)E", ln):
+            dtype = {"f": "float, ", "13__nv_bfloat16": "bf16, "}.get(m.group(2), "")
+            name, spills = f"{m.group(1)}<{dtype}{m.group(3)}>", 0
         elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
             spills = int(m.group(1)) + int(m.group(2))
         elif name and (m := re.search(r"Used (\d+) registers", ln)):
@@ -312,23 +318,36 @@ def decode_bound(b, h, kv, hd, dtype, pos, window):
     return (*bound(4.0 * hd * h * visible, nbytes, dtype), visible)
 
 
-def phase_compare_decode() -> float:
+def phase_compare_decode() -> dict[str, float]:
     """Decode attention against its plain version; returns the max abs error
-    at gemma-2b decode."""
+    per route at the shapes of the ``kernels`` line: gemma-2b decode in bf16
+    ("mma") and kernels_bench in f32 ("simt")."""
     from repro_torch.kernels import decode_attention, reference_decode_attention
+    from repro_torch.kernels.decode_attention.ops import ROUTES
     log("phase 2: decode attention vs plain version (TF32 off)")
     gen = torch.Generator("cuda").manual_seed(2)
     cases = [("test sweep", b, h, kv, hd, t, dtype, 0, 0.0, None, 1.0)
              for dtype in (torch.float32, torch.bfloat16)
              for b, h, kv, hd, t in ((2, 4, 4, 64, 256), (3, 8, 2, 64, 512),
                                      (1, 4, 1, 128, 256))]
-    cases += [("ragged pos", 4, 4, 2, 64, 128, torch.float32, 0, 0.0, (0, 1, 63, 127), 1.0),
-              ("window 16", 2, 4, 4, 64, 128, torch.float32, 16, 0.0, (100, 127), 1.0),
+    for dtype in (torch.float32, torch.bfloat16):
+        cases += [("ragged pos", 4, 4, 2, 64, 128, dtype, 0, 0.0, (0, 1, 63, 127), 1.0),
+                  ("window 16", 2, 4, 4, 64, 128, dtype, 16, 0.0, (100, 127), 1.0)]
+    # bf16 edges of the mma split: logits past the softcap, two head chunks
+    # of 8, rows past T and past hi zero-filled (T=200), and pieces of 512
+    # positions (8 tiles, the first cut by the window) at hd 64 and 128
+    cases += [("softcap, q x32", 2, 8, 4, 128, 256, torch.bfloat16, 0, 50.0, None, 32.0),
+              ("16 heads a group", 2, 16, 1, 64, 192, torch.bfloat16, 0, 0.0, (191, 70), 1.0),
+              ("T=200", 2, 8, 2, 128, 200, torch.bfloat16, 0, 0.0, (199, 130), 1.0),
+              ("pieces of 512, window 1000", 8, 16, 8, 64, 4096, torch.bfloat16, 1000, 0.0, None,
+               1.0),
+              ("pieces of 512", 8, 32, 8, 128, 4096, torch.bfloat16, 0, 0.0, None, 1.0),
               *DECODE_SHAPES,
               ("gemma2-2b local f32", *DECODE_SHAPES[1][1:6], torch.float32,
                *DECODE_SHAPES[1][7:])]
     decode_attention.launches = 0
-    main_err = 0.0
+    decode_attention.launches_by_route = {"mma": 0, "simt": 0}
+    route_err = {}
     for name, b, h, kv, hd, t, dtype, window, cap, pos, q_scale in cases:
         q, k, v, p = decode_inputs(gen, b, h, kv, hd, t, dtype, pos, q_scale)
         out = decode_attention(q, k, v, p, window=window, softcap=cap)
@@ -342,12 +361,14 @@ def phase_compare_decode() -> float:
             f"tol atol={tol['atol']:.3e} rtol={tol['rtol']} {'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"decode_attention disagrees with its plain version ({name})")
-        if name == DECODE_SHAPES[0][0]:
-            main_err = err
-    if decode_attention.launches != len(cases):
-        fail(f"decode_attention counted {decode_attention.launches} launches for "
-             f"{len(cases)} calls")
-    return main_err
+        if name in (DECODE_SHAPES[0][0], DECODE_SHAPES[2][0]):
+            route_err[ROUTES[dtype]] = err
+    want = {route: sum(ROUTES[c[6]] == route for c in cases) for route in ROUTES.values()}
+    if decode_attention.launches != len(cases) or decode_attention.launches_by_route != want:
+        fail(f"decode_attention counted {decode_attention.launches} launches, by route "
+             f"{decode_attention.launches_by_route}, for {len(cases)} calls ({want})")
+    log(f"  launches by route: {decode_attention.launches_by_route}")
+    return route_err
 
 
 def ssd_inputs(gen, b, length, nh, hd, n, x_dtype, bc_dtype):
@@ -440,10 +461,13 @@ def phase_compare_ssd() -> float:
 
 
 def phase_time_decode() -> list[dict]:
+    """K2 rows, one per ``DECODE_SHAPES`` entry: bf16 on the "mma" route,
+    f32 on "simt"."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention, reference_decode_attention
     from repro_torch.kernels.decode_attention import kernel as da_kernel
+    from repro_torch.kernels.decode_attention.ops import ROUTES
     log("phase 3: decode attention at full width, median of 20 CUDA-event timings after "
         f"3 warm-up calls, each behind a device-side spin (host dispatch not timed); "
         f"'flushed' zeroes a {FLUSH_BYTES >> 20} MB buffer before each timed call "
@@ -453,13 +477,16 @@ def phase_time_decode() -> list[dict]:
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     rows = []
     for name, b, h, kv, hd, t, dtype, window, cap, pos, q_scale in DECODE_SHAPES:
+        route = ROUTES[dtype]
         q, k, v, p = decode_inputs(gen, b, h, kv, hd, t, dtype, pos, q_scale)
         decode_attention.launches = 0
+        decode_attention.launches_by_route = {"mma": 0, "simt": 0}
         warm = time_ms(decode_attention, q, k, v, p, window=window, softcap=cap)
         ms = time_ms(decode_attention, q, k, v, p, window=window, softcap=cap, flush=flush)
-        launches = decode_attention.launches
-        if launches != 46:
-            fail(f"decode_attention counted {launches} launches for 46 timed calls")
+        launches = decode_attention.launches_by_route[route]
+        if launches != 46 or decode_attention.launches != 46:
+            fail(f"decode_attention counted {decode_attention.launches_by_route} launches "
+                 f"for 46 timed calls on {route}")
         plain_ms = time_ms(reference_decode_attention, q, k, v, p, window=window,
                            softcap=cap, flush=flush)
         lib_ms = lib_warm = None
@@ -484,17 +511,24 @@ def phase_time_decode() -> list[dict]:
             + ", ".join(f"{n}: {t_ms:.4f}" for n, t_ms in pieces.items())
             + f"; the kernel picks {chosen} ({sms} SMs)")
         bound_ms, bound_by, visible = decode_bound(b, h, kv, hd, dtype, pos, window)
-        rows.append({"name": name, "ms": ms, "warm_ms": warm, "plain_ms": plain_ms,
-                     "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                     "launches": launches,
+        rows.append({"name": name, "route": route, "ms": ms, "warm_ms": warm,
+                     "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "launches": launches,
                      "shape": f"B={b} H={h} KV={kv} hd={hd} T={t} {str(dtype)[6:]} "
                               f"window={window} softcap={cap} pos={list(pos)}"})
-        profile(f"decode_attention {name} (warm)", decode_attention, q, k, v, p,
-                kernel=("decode_attention", "decode_"), window=window, softcap=cap)
+        by_name = profile(f"decode_attention {name} (warm)", decode_attention, q, k, v, p,
+                          kernel=("decode_attention", "decode_"), window=window, softcap=cap)
+        split_ms = sum(t_ms for n, t_ms in by_name.items() if "decode_split" in n)
+        combine_ms = sum(t_ms for n, t_ms in by_name.items() if "decode_combine" in n)
+        if by_name:
+            log(f"  {name} [{route}]: split {split_ms:.4f} ms, combine {combine_ms:.4f} ms "
+                "(torch.profiler, one warm call)")
         lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms flushed ({lib_warm:.4f} warm)"
-        log(f"  {name} ({rows[-1]['shape']}, {visible} visible positions): kernel "
+        ratio = "" if lib_ms is None else f", kernel/sdpa {ms / lib_ms:.2f} flushed"
+        log(f"  {name} [{route}] ({rows[-1]['shape']}, {visible} visible positions): kernel "
             f"{ms:.4f} ms flushed ({warm:.4f} warm), plain {plain_ms:.4f} ms flushed, "
-            f"sdpa {lib}, bound {bound_ms * 1e3:.2f} us ({bound_by}); launches {launches}")
+            f"sdpa {lib}, bound {bound_ms * 1e3:.2f} us ({bound_by}), "
+            f"{100 * bound_ms / ms:.1f}% of the bound flushed{ratio}; launches {launches}")
     return rows
 
 
@@ -585,6 +619,7 @@ def phase_serve() -> dict:
     flash_attention.launches = 0            # counts from the main path only
     flash_attention.launches_by_route = {"wgmma": 0, "simt": 0}
     decode_attention.launches = 0
+    decode_attention.launches_by_route = {"mma": 0, "simt": 0}
     ssd_scan.launches = 0
     server.start()
     t_start = time.perf_counter()
@@ -597,6 +632,7 @@ def phase_serve() -> dict:
     stats = server.stop()
     launches = flash_attention.launches
     by_route = dict(flash_attention.launches_by_route)
+    decode_by_route = dict(decode_attention.launches_by_route)
     other_launches = {"decode_attention": decode_attention.launches,
                       "ssd_scan": ssd_scan.launches}
     if not done:
@@ -612,8 +648,9 @@ def phase_serve() -> dict:
              f"({cfg.n_layers} per prefill x {len(reqs)} prefills)")
     if by_route != {"wgmma": want, "simt": 0}:
         fail(f"flash_attention routes {by_route}: every bf16 prefill launch must be wgmma")
-    if any(other_launches.values()):
-        fail(f"the serving path launched {other_launches}; no model path reaches them")
+    if any(other_launches.values()) or any(decode_by_route.values()):
+        fail(f"the serving path launched {other_launches} (decode attention by route "
+             f"{decode_by_route}); no model path reaches them")
     if engine.prefill_tokens - prefills_before != sum(PROMPT_LENS):
         fail("prefill token count does not match the prompts")
     ttft = statistics.median((r.first_token_ns - r.arrival_ns) / 1e6 for r in reqs)
@@ -623,6 +660,7 @@ def phase_serve() -> dict:
         f"tokens_per_s={tokens / wall_s:.1f} flash_attention_launches={launches} "
         f"(by route {by_route}) "
         f"decode_attention_launches={other_launches['decode_attention']} "
+        f"(by route {decode_by_route}) "
         f"ssd_scan_launches={other_launches['ssd_scan']}")
     ctrl = policy.controller
     log(f"  controller: rho={ctrl.rho:.3f} T_S={ctrl.t_short_us:.0f}us cycles={ctrl.cycles}")
@@ -646,16 +684,18 @@ def phase_serve() -> dict:
         toks = torch.ones((1, SERVE_BUCKETS[-1]), dtype=torch.long, device="cuda")
         profile(f"prefill S={SERVE_BUCKETS[-1]}", model.prefill, params, {"tokens": toks})
         profile("decode step (4 slots)", model.decode_step, params, dtoks, cache, dpos)
-    return {"launches": launches, "by_route": by_route, **other_launches}
+    return {"launches": launches, "by_route": by_route, **other_launches,
+            "decode_by_route": decode_by_route}
 
 
 def profile(name: str, fn, *args, kernel: tuple[str, str] = ("flash_attention", "flash_fwd"),
-            **kwargs) -> None:
+            **kwargs) -> dict[str, float]:
     """Device busy share of one call of ``fn(*args, **kwargs)``: the sum of
     its CUDA kernels' times (torch.profiler) over its wall time (host clock
     around a synchronised call), the time of the kernels whose names
     contain ``kernel[1]`` (reported as ``kernel[0]``), and the kernels that
-    take the most of it."""
+    take the most of it.  Returns ms by kernel name (empty where the
+    profiler recorded no CUDA kernel)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -674,7 +714,7 @@ def profile(name: str, fn, *args, kernel: tuple[str, str] = ("flash_attention", 
     if not by_name:
         log(f"  profile {name}: wall {wall_ms:.2f} ms; device time not measured "
             "(the profiler recorded no CUDA kernels)")
-        return
+        return by_name
     busy = sum(by_name.values())
     focus = sum(ms for n, ms in by_name.items() if kernel[1] in n)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
@@ -682,6 +722,7 @@ def profile(name: str, fn, *args, kernel: tuple[str, str] = ("flash_attention", 
         f"({100 * busy / wall_ms:.1f}%), {kernel[0]} {focus:.3f} ms, "
         f"{sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)} kernels; top: "
         + "; ".join(f"{n[:60]} {ms:.4f} ms" for n, ms in top))
+    return by_name
 
 
 def _leaves(tree):
@@ -727,19 +768,23 @@ def main() -> int:
          "serving_launches": served["by_route"]["simt"]},
     ]
     # decode attention and the SSD scan are on no model path: their launches
-    # are the timing phase's, at the shape of the row (gemma-2b decode with
-    # the serving engine's cache; mamba2-370m at B=1); the serving run's
+    # are the timing phase's, at the shape of the row (K2: bf16 "mma" at
+    # gemma-2b decode with the serving engine's cache, f32 "simt" at
+    # kernels_bench's shape; K3: mamba2-370m at B=1); the serving run's
     # counts (0, checked) go beside them
-    for name, replaces, row, err in (
-            ("decode_attention", "src/repro/kernels/decode_attention/kernel.py:73",
-             decode_rows[0], decode_err),
-            ("ssd_scan", "src/repro/kernels/ssd_scan/kernel.py:78", ssd_rows[0], ssd_err)):
+    da = "decode_attention"
+    for name, source, replaces, row, err, serving in (
+            (f"{da} (mma, bf16)", da, "src/repro/kernels/decode_attention/kernel.py:73",
+             decode_rows[0], decode_err["mma"], served["decode_by_route"]["mma"]),
+            (f"{da} (simt, f32)", da, "src/repro/kernels/decode_attention/kernel.py:73",
+             decode_rows[2], decode_err["simt"], served["decode_by_route"]["simt"]),
+            ("ssd_scan", "ssd_scan", "src/repro/kernels/ssd_scan/kernel.py:78", ssd_rows[0],
+             ssd_err, served["ssd_scan"])):
         kernels.append({
-            "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}.cu",
             "replaces": replaces, "launches": row["launches"], "max_abs_err": err,
-            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "shape": f"{row['name']}: {row['shape']}", "serving_launches": served[name]})
+            **{k: row[k] for k in keys}, "shape": f"{row['name']}: {row['shape']}",
+            "serving_launches": serving})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,10 +3,20 @@
 ``decode_attention`` takes the reference's layout: q (B,H,hd), the
 sequence-major cache k/v (B,T,KV,hd) and pos (B,), the last visible
 position of each sequence.  For CUDA tensors it launches the hand-written
-kernel (``csrc/decode_attention.cu``: a split over T and a combine) and
-counts the call in ``decode_attention.launches``; for CPU tensors it
-computes ``reference_decode_attention``.  It never falls back from the
-kernel to the plain version.
+kernels of ``csrc/decode_attention.cu`` (a split over T, then a combine),
+with the split chosen by the input type:
+
+* bf16 -> ``"mma"``: q kᵀ and P V on the tensor cores (``mma.sync``,
+  bf16 operands, f32 accumulation), K/V tiles fed by ``cp.async``.  The
+  one rounding the reference does not make is the probabilities P -> bf16
+  before P V.
+* f32 -> ``"simt"``: f32 on the CUDA cores.  The tensor cores take f32
+  only as TF32, which would miss the reference's 2e-5.
+
+Each launch counts in ``decode_attention.launches`` and in
+``decode_attention.launches_by_route[route]``.  For CPU tensors it
+computes ``reference_decode_attention`` and counts nothing.  It never falls
+back from a kernel to another route or to the plain version.
 """
 
 from __future__ import annotations
@@ -19,7 +29,7 @@ __all__ = ["decode_attention", "reference_decode_attention"]
 
 NEG_INF = -2.3819763e38
 HEAD_DIMS = (64, 128, 256)
-_DTYPES = (torch.float32, torch.bfloat16)
+ROUTES = {torch.bfloat16: "mma", torch.float32: "simt"}
 _POS_DTYPES = (torch.int32, torch.int64)
 
 
@@ -58,7 +68,7 @@ def _check(q, k, v, pos) -> None:
                          "(want equal B and hd, and H a multiple of KV)")
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in ROUTES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"want float32 or bfloat16 for all of q, k, v; got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if not isinstance(pos, torch.Tensor) or pos.shape != (b,) or pos.dtype not in _POS_DTYPES:
@@ -74,8 +84,8 @@ def decode_attention(q, k, v, pos, *, softcap: float = 0.0, window: int = 0,
 
     Key t of sequence b is visible when t <= pos[b] and, for window > 0,
     t > pos[b] - window.  CUDA tensors go through the kernel (hd in {64,
-    128, 256}, f32 or bf16, contiguous); CPU tensors through
-    ``reference_decode_attention``."""
+    128, 256}, bf16 -> "mma", f32 -> "simt", contiguous); CPU tensors
+    through ``reference_decode_attention``."""
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     _check(q, k, v, pos)
@@ -95,7 +105,9 @@ def decode_attention(q, k, v, pos, *, softcap: float = 0.0, window: int = 0,
     launch_decode_attention(q, k, v, pos32, out, window=window, softcap=softcap,
                             scale=scale)
     decode_attention.launches += 1
+    decode_attention.launches_by_route[ROUTES[q.dtype]] += 1
     return out
 
 
 decode_attention.launches = 0
+decode_attention.launches_by_route = dict.fromkeys(ROUTES.values(), 0)

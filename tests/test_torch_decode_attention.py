@@ -2,8 +2,11 @@
 inputs through JAX ``decode_attention`` (the Pallas kernel in interpret
 mode) and the port's wrapper, which on CPU tensors computes its plain
 version.  Sweep and tolerances are those of tests/test_kernels.py (f32
-2e-5, bf16 2e-2).  The kernel itself runs only on a card: its test is
-marked ``gpu`` and skips here."""
+2e-5, bf16 2e-2).  The bf16 kernel's arithmetic (the "mma" route: bf16
+operands on the tensor cores, P rounded to bf16 before P V, warps that
+split each tile's keys, pieces merged by the combine) is emulated here and
+held against the same JAX kernel.  The kernels themselves run only on a
+card: their test is marked ``gpu`` and skips here."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +18,8 @@ from repro.kernels.decode_attention import (
     reference_decode_attention as jax_reference_decode_attention,
 )
 from repro_torch.kernels import decode_attention, reference_decode_attention
+from repro_torch.kernels.decode_attention import kernel as da_kernel
+from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention.kernel import piece_len
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -123,6 +128,114 @@ def test_piece_len_is_the_longest_that_fills_the_sms(b, h, kv, t, piece):
     assert piece_len(b, h, kv, t, 132) == piece
 
 
+NEG_INF = -2.3819763e38
+LOG2E = 1.4426950408889634
+TILE, WARPS = 64, 4          # rows per shared-memory tile; warps that split them
+
+
+def _mma_emulation(q, k, v, pos, *, window, softcap, piece):
+    """The bf16 "mma" route's arithmetic on the CPU, as its two kernels walk
+    it.  Split: a piece of ``piece`` positions keeps its visible rows
+    [lo, hi) and walks them in 64-row tiles from lo; each of 4 warps takes
+    16 rows of every tile and keeps its own online softmax in log2 units
+    (f32 logits from the bf16 operands, scale, softcap, rows past hi
+    masked, P rounded to bf16 before P V, f32 accumulators).  One merge over
+    the warps gives the piece's (m, l, acc), m back in natural units; a
+    piece with nothing visible is neutral.  Combine: the pieces that are not
+    neutral, merged, divided by l (1 where l == 0, so a row that sees no key
+    gives 0)."""
+    b, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    scale = hd ** -0.5
+    kf = k.float().repeat_interleave(h // kv, dim=2)
+    vf = v.float().repeat_interleave(h // kv, dim=2)
+    out = torch.zeros(b, h, hd)
+    for bi in range(b):
+        p = int(pos[bi])
+        qf = q[bi].float()
+        parts = []
+        for base in range(0, t, piece):
+            lo = max(p - window + 1 if window else 0, base)
+            hi = min(p + 1, t, base + piece)
+            if lo >= hi:
+                continue
+            warps = []
+            for w in range(WARPS):
+                m, l, acc = torch.full((h,), NEG_INF), torch.zeros(h), torch.zeros(h, hd)
+                for t0 in range(lo, hi, TILE):
+                    rows = torch.arange(t0 + 16 * w, t0 + 16 * w + 16)
+                    ok = rows < hi             # rows past hi arrive as zeros
+                    rows = rows.clamp(max=t - 1)
+                    x = torch.einsum("hd,rhd->hr", qf, kf[bi, rows]) * scale
+                    if softcap:
+                        x = softcap * torch.tanh(x / softcap)
+                    x = torch.where(ok, x * LOG2E, NEG_INF)
+                    m_new = torch.maximum(m, x.amax(-1))
+                    pr = torch.where(ok, torch.exp2(x - m_new[:, None]), 0.0)
+                    corr = torch.exp2(m - m_new)
+                    l = l * corr + pr.sum(-1)
+                    acc = acc * corr[:, None] + torch.einsum(
+                        "hr,rhd->hd", pr.bfloat16().float(), vf[bi, rows] * ok[:, None, None])
+                    m = m_new
+                warps.append((m, l, acc))
+            ms = torch.stack([w[0] for w in warps])
+            c = torch.exp2(ms - ms.amax(0))
+            parts.append((ms.amax(0) / LOG2E, (c * torch.stack([w[1] for w in warps])).sum(0),
+                          (c[..., None] * torch.stack([w[2] for w in warps])).sum(0)))
+        if parts:
+            ms = torch.stack([pt[0] for pt in parts])
+            c = torch.exp(ms - ms.amax(0))
+            big_l = (c * torch.stack([pt[1] for pt in parts])).sum(0)
+            acc = (c[..., None] * torch.stack([pt[2] for pt in parts])).sum(0)
+            out[bi] = acc / torch.where(big_l == 0, 1.0, big_l)[:, None]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("b,h,kv,hd,t,bk,pos,window,softcap,q_scale", [
+    (2, 4, 4, 64, 256, 64, None, 0, 0.0, 1.0),       # the bf16 sweep of the reference's tests
+    (3, 8, 2, 64, 512, 128, None, 0, 0.0, 1.0),
+    (1, 4, 1, 128, 256, 256, None, 0, 0.0, 1.0),
+    (4, 4, 2, 64, 128, 32, (0, 1, 63, 127), 0, 0.0, 1.0),   # ragged pos, pos = 0
+    (2, 4, 4, 64, 128, 32, (100, 127), 16, 0.0, 1.0),       # windows
+    (2, 4, 4, 64, 128, 32, (100, 127), 64, 0.0, 1.0),
+    (2, 8, 4, 128, 256, 64, None, 0, 50.0, 32.0),    # logits (std 32) past the softcap
+    (2, 16, 1, 64, 192, 64, (191, 70), 0, 0.0, 1.0),  # 16 heads a group: two head chunks
+    (2, 8, 2, 128, 200, 40, (199, 130), 0, 0.0, 1.0),  # T not a multiple of 64
+    (2, 8, 1, 256, 512, 128, (511, 200), 0, 0.0, 1.0),  # gemma-2b heads
+])
+def test_mma_arithmetic_matches_jax_kernel(b, h, kv, hd, t, bk, pos, window, softcap, q_scale):
+    """Rounding P to bf16 is the one step the reference's kernel does not
+    take; with it the bf16 route stays inside the reference's 2e-2 at every
+    piece length the wrapper can pick (1 to 8 tiles a piece)."""
+    jx, tx = _inputs(hash((b, h, kv, hd, t, window)) % 2**31, b, h, kv, hd, t, "bfloat16",
+                     pos=pos, q_scale=q_scale)
+    ref = jax_decode_attention(*jx, window=window, softcap=softcap, block_k=bk)
+    for piece in da_kernel.PIECES:
+        out = _mma_emulation(*tx, window=window, softcap=softcap, piece=piece)
+        assert out.dtype == torch.bfloat16 and out.shape == tx[0].shape
+        np.testing.assert_allclose(_np(out), _np(ref), **TOL["bfloat16"])
+    if pos is not None and pos[0] == 0:       # pos = 0 sees kv row 0 only
+        got = _np(out[0]).reshape(kv, h // kv, hd)
+        for g in range(kv):
+            np.testing.assert_allclose(got[g], np.broadcast_to(_np(tx[2][0, 0, g]), got[g].shape))
+
+
+def test_routes_by_dtype_and_cpu_calls_count_nothing():
+    """bf16 goes to the mma kernel (dtype code 1), f32 to the CUDA-core
+    kernel (code 0); a CPU call computes the plain version and leaves every
+    counter at 0."""
+    assert da_ops.ROUTES == {torch.bfloat16: "mma", torch.float32: "simt"}
+    assert {da_ops.ROUTES[d]: da_kernel._DTYPE_CODE[d] for d in da_ops.ROUTES} == {
+        "mma": 1, "simt": 0}
+    for dtype in ("bfloat16", "float32"):
+        _, (q, k, v, pos) = _inputs(37, 2, 8, 2, 64, 96, dtype)
+        out = decode_attention(q, k, v, pos, window=16, softcap=10.0)
+        assert torch.equal(out, reference_decode_attention(q, k, v, pos, window=16,
+                                                           softcap=10.0))
+    assert decode_attention.launches == 0
+    assert decode_attention.launches_by_route == {"mma": 0, "simt": 0}
+
+
 @pytest.mark.parametrize("case,error", [
     ("shape", ValueError), ("head_dim", ValueError), ("dtype", TypeError),
     ("heads", ValueError), ("pos", TypeError), ("window", ValueError)])
@@ -155,8 +268,11 @@ def cuda_device():
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_matches_plain_version_on_card(cuda_device, dtype):
+    """Both routes (bf16 -> mma, f32 -> simt), each launch counted on its
+    route, at gemma-2b heads and a group of 16 with window and softcap."""
     torch.backends.cuda.matmul.allow_tf32 = False
     tdt = DTYPES[dtype][1]
+    route = da_ops.ROUTES[tdt]
     gen = torch.Generator(cuda_device).manual_seed(0)
     for b, h, kv, hd, t, window, cap in ((2, 4, 4, 64, 256, 0, 0.0),
                                          (4, 8, 1, 256, 2048, 0, 0.0),
@@ -167,9 +283,11 @@ def test_kernel_matches_plain_version_on_card(cuda_device, dtype):
                 for _ in range(2))
         pos = torch.randint(0, t, (b,), generator=gen, device=cuda_device)
         before = decode_attention.launches
+        before_route = decode_attention.launches_by_route[route]
         out = decode_attention(q, k, v, pos, window=window, softcap=cap)
         torch.cuda.synchronize()
         assert decode_attention.launches == before + 1
+        assert decode_attention.launches_by_route[route] == before_route + 1
         ref = reference_decode_attention(q, k, v, pos, window=window, softcap=cap)
         # bf16: 5e-3 of max|ref| and one ulp of rounding, well below the
         # reference's 2e-2 for outputs that average thousands of rows
