@@ -7,13 +7,15 @@ Phases, each a hard failure (nonzero exit, no result line):
 1. the card (nvidia-smi name and power limit), torch/CUDA versions, and the
    build of every kernel of ``src/repro_torch/kernels`` (flash attention,
    decode attention, SSD chunk scan; one nvcc per source, in parallel),
-   with each flash-attention and decode-attention kernel's registers and
-   spills (the wgmma kernel and the mma decode split must not spill);
+   with every kernel's registers and spills (the wgmma kernel, the mma
+   decode split and the K3 kernels must not spill);
 2. each kernel against its plain PyTorch version on the card, at the
    serving path's shapes, the reference test sweep's and the full widths of
    gemma-2b, gemma2-2b and mamba2-370m, with the tolerance stated per case;
    flash attention's bf16 cases go to its "wgmma" route, decode
-   attention's to its "mma" route, f32 to "simt";
+   attention's to its "mma" route, f32 to "simt"; the SSD scan also against
+   its plain version in f64; and each kernel must refuse an input that
+   requires grad under grad mode (they have no backward);
 3. kernel, plain version and the PyTorch library call (where one computes
    the same function) timed with CUDA events at those shapes, beside the
    card's bound for the same work, with the achieved TFLOP/s and the share
@@ -47,8 +49,10 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM datasheet peaks (dense): bf16 tensor cores, f32 without them, HBM3.
+# H100 SXM datasheet peaks (dense): bf16 tensor cores, f32 without them, TF32
+# tensor cores, HBM3.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_TF32 = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
        torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
@@ -167,17 +171,32 @@ def phase_card() -> None:
         tc = {n: v for n, v in kernels.items() if n.startswith(kernel + "<")}
         if len(tc) != 3 or any(spills for _, spills in tc.values()):
             fail(f"want {kernel} at hd 64, 128 and 256 without spills; ptxas gave {tc}")
+    # K3: chunk states and chunk outputs (one per type pair and hd) and the
+    # state pass; every one that ptxas lists must be free of spills
+    kernels = ptxas_kernels(_build.BUILD_INFO["ssd_scan.cu"]["log"])
+    for name, (regs, spills) in kernels.items():
+        log(f"  {name}: {regs} registers, {spills} bytes of spill stores + loads")
+    names = {n.split("<")[0] for n in kernels}
+    if not {"ssd_chunk_state", "ssd_chunk_out", "ssd_state_pass"} <= names or any(
+            spills for _, spills in kernels.values()):
+        fail(f"want the three K3 kernels, none spilling; ptxas gave {kernels}")
 
 
 def ptxas_kernels(log_text: str) -> dict[str, tuple[int, int]]:
-    """``nvcc -Xptxas -v`` output -> {kernel<[type, ]HD>: (registers, spill
-    bytes)} for the flash-attention and decode-attention kernels."""
+    """``nvcc -Xptxas -v`` output -> {kernel<[types, ]HD>: (registers, spill
+    bytes)} for every kernel of the three sources."""
     out, name, spills = {}, None, 0
     for ln in log_text.splitlines():
         if m := re.search(r"Compiling entry function '.*?(flash_fwd_\w+?|decode_split_mma_bf16|"
-                          r"decode_split|decode_combine)I(f|13__nv_bfloat16)?Li(\d+)E", ln):
-            dtype = {"f": "float, ", "13__nv_bfloat16": "bf16, "}.get(m.group(2), "")
-            name, spills = f"{m.group(1)}<{dtype}{m.group(3)}>", 0
+                          r"decode_split|decode_combine|ssd_chunk_state|ssd_chunk_out)"
+                          r"I((?:f|13__nv_bfloat16|S\d*_)*)((?:Li\d+E)+)", ln):
+            # a repeated type is a substitution (S<n>_); only bf16 repeats
+            types = ["float" if t == "f" else "bf16"
+                     for t in re.findall(r"f|13__nv_bfloat16|S\d*_", m.group(2))]
+            ints = re.findall(r"Li(\d+)E", m.group(3))
+            name, spills = f"{m.group(1)}<{', '.join([*types, *ints])}>", 0
+        elif m := re.search(r"Compiling entry function '.*?(ssd_state_pass)", ln):
+            name, spills = m.group(1), 0
         elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
             spills = int(m.group(1)) + int(m.group(2))
         elif name and (m := re.search(r"Used (\d+) registers", ln)):
@@ -383,21 +402,38 @@ def ssd_inputs(gen, b, length, nh, hd, n, x_dtype, bc_dtype):
 
 
 def ssd_bound(b, length, nh, hd, n, chunk, x_dtype, bc_dtype):
-    """Operations: C B^T once per (batch row, chunk) over the i >= j pairs,
-    and per (head, chunk) att @ x, C h_prev^T and the state update; bytes:
-    each input read once, y and h_final written once.  Returns the f32
-    (CUDA-core) bound, its binding term, the time of the operations on the
-    bf16 tensor cores (the floor of a redesign), the bytes' time, and the
-    FLOPs."""
+    """The least time for the scan's work, two ways.  Operations: C B^T once
+    per (batch row, chunk) over the i >= j pairs, and per (head, chunk) att @
+    x over the same pairs, C h_prev^T and the state update; bytes: each input
+    read once, y and h_final written once.
+
+    Returns (route bound ms, what binds it, f32 bound ms, what binds it,
+    bytes ms, FLOPs, TF32-pass FLOPs).  The f32 bound runs the FLOPs on the
+    CUDA cores (67 TFLOP/s).  The route's bound runs them as the kernel does:
+    each product once per TF32 pass (3 with two f32 operands, 2 with one
+    bf16 operand, which is exact in TF32) at the 495 TFLOP/s TF32 peak, and
+    C B^T from bf16 B/C once on the bf16 tensor cores."""
     nc = length // chunk
     pairs = chunk * (chunk + 1) // 2
-    flops = b * nc * 2.0 * pairs * n + b * nh * nc * (2.0 * pairs * hd + 4.0 * chunk * hd * n)
+    cb = b * nc * 2.0 * pairs * n
+    att_x = b * nh * nc * 2.0 * pairs * hd
+    c_h = state = b * nh * nc * 2.0 * chunk * hd * n
+    flops = cb + att_x + c_h + state
+    x_bf16, bc_bf16 = x_dtype == torch.bfloat16, bc_dtype == torch.bfloat16
+    bc_passes = 2 if bc_bf16 else 3
+    tf32_flops = ((0 if bc_bf16 else 3 * cb) + (2 if x_bf16 else 3) * att_x
+                  + bc_passes * (c_h + state))
+    bf16_flops = cb if bc_bf16 else 0.0
     xs = torch.tensor([], dtype=x_dtype).element_size()
     bs = torch.tensor([], dtype=bc_dtype).element_size()
     nbytes = (2 * xs * b * length * nh * hd + 4 * b * length * nh + 4 * nh
               + 2 * bs * b * length * n + 4 * b * nh * hd * n)
-    ms, by = bound(flops, nbytes, torch.float32)
-    return ms, by, 1e3 * flops / PEAK_FLOPS[torch.bfloat16], 1e3 * nbytes / PEAK_BYTES_PER_S, flops
+    bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+    route_ops_ms = 1e3 * (tf32_flops / PEAK_TF32 + bf16_flops / PEAK_FLOPS[torch.bfloat16])
+    route_ms = max(route_ops_ms, bytes_ms)
+    route_by = "operations" if route_ops_ms >= bytes_ms else "bytes"
+    f32_ms, f32_by = bound(flops, nbytes, torch.float32)
+    return route_ms, route_by, f32_ms, f32_by, bytes_ms, flops, tf32_flops + bf16_flops
 
 
 def ssd_shapes():
@@ -412,52 +448,125 @@ def ssd_shapes():
         ("kernels_bench", 1, 1024, 4, 32, 32, 128, torch.float32, torch.float32),)
 
 
+def ssd_test_inputs(seed, b, length, nh, hd, n, x_dtype, bc_dtype):
+    """tests/test_torch_ssd_scan.py's draw (numpy, ``seed``), moved to the card."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, length, nh, hd)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, length, nh)))).astype(np.float32)
+    a = (-np.exp(0.3 * rng.standard_normal(nh))).astype(np.float32)
+    bm = (0.3 * rng.standard_normal((b, length, n))).astype(np.float32)
+    cm = (0.3 * rng.standard_normal((b, length, n))).astype(np.float32)
+    dtypes = (x_dtype, torch.float32, torch.float32, bc_dtype, bc_dtype)
+    return tuple(torch.from_numpy(v).cuda().to(d) for v, d in zip((x, dt, a, bm, cm), dtypes))
+
+
 def phase_compare_ssd() -> float:
-    """SSD scan against its plain version (the sequential recurrence);
-    returns the max abs error of y at mamba2-370m B=1."""
+    """SSD scan against its plain version (the sequential recurrence in
+    f32), every case also against the same recurrence in f64, and each
+    case's block layout of ssd_chunk_out (heads a block, paired row tiles)
+    against the one it must take; returns the max abs error of y at
+    mamba2-370m B=1.  Every case is printed before a disagreement fails the
+    phase."""
     from repro_torch.kernels import ssd_scan
     from repro_torch.kernels.ssd_scan.ops import fold_and_scan
-    log("phase 2: ssd_scan vs plain version (TF32 off)")
+    log("phase 2: ssd_scan vs plain version (TF32 off); 'f64' is each side's error against "
+        "the plain recurrence run in float64")
     gen = torch.Generator("cuda").manual_seed(3)
-    cases = [("test sweep", b, length, nh, hd, n, chunk, dtype, torch.float32)
-             for dtype in (torch.float32, torch.bfloat16)
+    f32, bf16 = torch.float32, torch.bfloat16
+    # the last item of a case is the layout it must take on an H100 (114 or
+    # 132 SMs): small grids take single tiles of one head, (1, 0)
+    cases = [("test sweep", b, length, nh, hd, n, chunk, dtype, f32, (1, 0))
+             for dtype in (f32, bf16)
              for b, length, nh, hd, n, chunk in ((1, 64, 2, 16, 16, 16),
                                                  (2, 128, 4, 32, 64, 32),
                                                  (1, 256, 2, 64, 128, 64))]
-    cases += list(ssd_shapes())
+    # the gpu test's largest case, with its draw: 256-step chunks, whose
+    # decays exp(cum_i - cum_j) lose ~1e-4 if taken from one f32 cumsum
+    cases += [("gpu test, chunk 256", 1, 512, 2, 64, 128, 256, x_dtype, bc_dtype, (1, 0))
+              for x_dtype, bc_dtype in ((f32, f32), (bf16, f32), (f32, bf16))]
+    # mamba2-370m's widths (nh 32, hd 64, N 128) at shorter L and smaller
+    # chunks reach the other layouts: fewer heads a block, and pairs of 2
+    # row tiles (chunk 128) or 1 (chunk 64); nh = 30 rules out 4 heads
+    nh, hd, n = ssd_shapes()[0][3:6]
+    cases += [("layouts", 1, 512, nh, hd, n, 256, f32, bf16, (1, 1)),
+              ("layouts", 1, 1024, nh, hd, n, 256, f32, bf16, (2, 1)),
+              ("layouts", 1, 2048, nh, hd, n, 128, f32, bf16, (4, 1)),
+              ("layouts", 1, 2048, nh, hd, n, 64, f32, bf16, (4, 1)),
+              ("layouts", 1, 2048, 30, hd, n, 256, f32, f32, (2, 1))]
+    cases += [(*shape, want) for shape, want in zip(ssd_shapes(), ((4, 1), (4, 1), (1, 0)))]
     ssd_scan.launches = 0
-    main_err = 0.0
-    for name, b, length, nh, hd, n, chunk, x_dtype, bc_dtype in cases:
-        args = ssd_inputs(gen, b, length, nh, hd, n, x_dtype, bc_dtype)
+    main_err, failed = 0.0, []
+    for name, b, length, nh, hd, n, chunk, x_dtype, bc_dtype, want in cases:
+        if name.startswith("gpu test"):
+            args = ssd_test_inputs(0, b, length, nh, hd, n, x_dtype, bc_dtype)
+        else:
+            args = ssd_inputs(gen, b, length, nh, hd, n, x_dtype, bc_dtype)
+        before = dict(ssd_scan.launches_by_layout)
         y, h = ssd_scan(*args, chunk=chunk)
         torch.cuda.synchronize()
+        layout = [k for k, v in ssd_scan.launches_by_layout.items() if v != before.get(k, 0)]
         yr, hr = fold_and_scan(*args, chunk=chunk)
-        if name == "test sweep":
+        y64, h64 = fold_and_scan(*(t.double() for t in args), chunk=chunk)
+        if name.startswith(("test sweep", "gpu test")):
             tol_y = tol_h = TOL[x_dtype]
             why = "the reference's test tolerance"
         else:
-            # the plain version sums L steps in order, the kernel by chunks
-            # (cumsum of up to 256 decays, then chunk states): f32 rounding
-            # of sums in another order, bounded relative to the output scale
-            # (measured 2e-5 of max|y| at mamba2-370m on an H100)
+            # the plain version sums L steps in order, the kernel by chunks:
+            # f32 rounding of sums in another order, bounded relative to the
+            # output scale
             tol_y = dict(atol=2e-4 * float(yr.abs().max()), rtol=0.0)
             tol_h = dict(atol=2e-4 * float(hr.abs().max()), rtol=0.0)
             why = "2e-4 of max|ref|: summation order over L"
         ok_y, err_y = within(y, yr, **tol_y)
         ok_h, err_h = within(h, hr, **tol_h)
+        f64 = {side: (float((yy.double() - y64).abs().max()), float((hh - h64).abs().max()))
+               for side, yy, hh in (("kernel", y, h), ("plain", yr, hr))}
+        ok = (ok_y and ok_h and y.dtype == x_dtype and h.shape == (b, nh, hd, n)
+              and layout == [want])
         log(f"  {name}: B={b} L={length} nh={nh} hd={hd} N={n} chunk={chunk} x "
             f"{str(x_dtype)[6:]} B/C {str(bc_dtype)[6:]}: y max_abs_err={err_y:.3e} "
             f"(max|y| {float(yr.abs().max()):.3e}), h max_abs_err={err_h:.3e} "
             f"(max|h| {float(hr.abs().max()):.3e}); tol y atol={tol_y['atol']:.3e} "
-            f"rtol={tol_y['rtol']}, h atol={tol_h['atol']:.3e} ({why}) "
-            f"{'ok' if ok_y and ok_h else 'FAIL'}")
-        if not (ok_y and ok_h) or y.dtype != x_dtype or h.shape != (b, nh, hd, n):
-            fail(f"ssd_scan disagrees with its plain version ({name})")
-        if name == cases[-3][0]:
+            f"rtol={tol_y['rtol']}, h atol={tol_h['atol']:.3e} ({why}); f64: kernel y "
+            f"{f64['kernel'][0]:.3e} h {f64['kernel'][1]:.3e}, plain y {f64['plain'][0]:.3e} "
+            f"h {f64['plain'][1]:.3e}; layout (heads a block, paired) {layout}, want "
+            f"{want} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"{name} x {str(x_dtype)[6:]} B/C {str(bc_dtype)[6:]} L={length} "
+                          f"nh={nh} chunk={chunk}")
+        if name == "mamba2-370m B=1":
             main_err = err_y
+    if failed:
+        fail(f"ssd_scan disagrees with its plain version ({'; '.join(failed)})")
     if ssd_scan.launches != len(cases):
         fail(f"ssd_scan counted {ssd_scan.launches} launches for {len(cases)} calls")
     return main_err
+
+
+def phase_grad_guard() -> None:
+    """Each kernel on the card with an input that requires grad, under grad
+    mode: the kernels have no backward, so each wrapper must raise, and
+    launch nothing, rather than return an output autograd cannot see into."""
+    from repro_torch.kernels import decode_attention, flash_attention, ssd_scan
+    gen = torch.Generator("cuda").manual_seed(6)
+    q, k, v = attn_inputs(gen, 1, 128, 4, 2, 64, torch.bfloat16)
+    dq, dk, dv, pos = decode_inputs(gen, 2, 8, 2, 64, 128, torch.bfloat16, (127, 40))
+    ssd_args = ssd_inputs(gen, 1, 128, 2, 64, 128, torch.float32, torch.bfloat16)
+    calls = {"flash_attention": (flash_attention, (q.requires_grad_(True), k, v), {}),
+             "decode_attention": (decode_attention, (dq, dk.requires_grad_(True), dv, pos), {}),
+             "ssd_scan": (ssd_scan, (ssd_args[0].requires_grad_(True), *ssd_args[1:]),
+                          {"chunk": 64})}
+    for name, (fn, args, kw) in calls.items():
+        before = fn.launches
+        try:
+            fn(*args, **kw)
+        except RuntimeError as err:
+            if "no backward" not in str(err) or fn.launches != before:
+                fail(f"{name} raised {err!r} (launches {before} -> {fn.launches})")
+            log(f"phase 2: {name} under grad mode with an input that requires grad raised: "
+                f"{err}")
+        else:
+            fail(f"{name} returned under grad mode with an input that requires grad")
 
 
 def phase_time_decode() -> list[dict]:
@@ -537,7 +646,8 @@ def phase_time_ssd() -> list[dict]:
     from repro_torch.kernels.ssd_scan.ops import fold_and_scan
     log("phase 3: ssd_scan at full width, inputs warm in L2: kernel median of 20 "
         "CUDA-event timings after 3 warm-up calls, each behind a device-side spin (host "
-        "dispatch not timed), plain version median of 3 after 1")
+        "dispatch not timed), plain version median of 3 after 1; each launch's time from "
+        "torch.profiler over one warm call")
     gen = torch.Generator("cuda").manual_seed(5)
     rows = []
     for name, b, length, nh, hd, n, chunk, x_dtype, bc_dtype in ssd_shapes():
@@ -548,18 +658,25 @@ def phase_time_ssd() -> list[dict]:
         if launches != 23:
             fail(f"ssd_scan counted {launches} launches for 23 timed calls")
         plain_ms = time_ms(fold_and_scan, *args, chunk=chunk, iters=3, warmup=1)
-        profile(f"ssd_scan {name}", ssd_scan, *args, kernel=("ssd_scan", "ssd_"), chunk=chunk)
-        bound_ms, bound_by, tc_ms, bytes_ms, flops = ssd_bound(b, length, nh, hd, n, chunk,
-                                                               x_dtype, bc_dtype)
+        by_name = profile(f"ssd_scan {name}", ssd_scan, *args, kernel=("ssd_scan", "ssd_"),
+                          chunk=chunk)
+        per_launch = {k: sum(t for kn, t in by_name.items() if k in kn)
+                      for k in ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_out")}
+        route_ms, route_by, f32_ms, f32_by, bytes_ms, flops, pass_flops = ssd_bound(
+            b, length, nh, hd, n, chunk, x_dtype, bc_dtype)
         shape = (f"B={b} L={length} nh={nh} hd={hd} N={n} chunk={chunk} x "
                  f"{str(x_dtype)[6:]} B/C {str(bc_dtype)[6:]}")
         rows.append({"name": name, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-                     "bound_ms": bound_ms, "bound_by": bound_by, "launches": launches,
-                     "shape": shape})
-        log(f"  {name} ({shape}): kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, library none, "
-            f"bound {bound_ms * 1e3:.2f} us ({bound_by}, f32 CUDA cores; the operations take "
-            f"{tc_ms * 1e3:.2f} us on bf16 tensor cores, the bytes {bytes_ms * 1e3:.2f} us) "
-            f"for {flops / 1e9:.3f} GFLOP; "
+                     "bound_ms": route_ms, "bound_by": route_by, "launches": launches,
+                     "per_launch_ms": per_launch, "shape": shape})
+        if by_name:
+            log(f"  {name}: " + ", ".join(f"{k} {t:.4f} ms" for k, t in per_launch.items())
+                + " (torch.profiler, one warm call)")
+        log(f"  {name} ({shape}): kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, library none; "
+            f"route bound {route_ms * 1e3:.2f} us ({route_by}: {pass_flops / 1e9:.3f} GFLOP of "
+            f"TF32 passes and bf16 products, bytes {bytes_ms * 1e3:.2f} us), "
+            f"{100 * route_ms / ms:.1f}% of it; f32 CUDA-core bound {f32_ms * 1e3:.2f} us "
+            f"({f32_by}) for {flops / 1e9:.3f} GFLOP, {100 * f32_ms / ms:.1f}% of it; "
             f"kernel {flops / ms / 1e9:.2f} TFLOP/s; launches {launches}")
     return rows
 
@@ -743,6 +860,7 @@ def main() -> int:
     route_err = phase_compare()
     decode_err = phase_compare_decode()
     ssd_err = phase_compare_ssd()
+    phase_grad_guard()
     rows = phase_time()
     decode_rows = phase_time_decode()
     ssd_rows = phase_time_ssd()
@@ -772,19 +890,26 @@ def main() -> int:
     # gemma-2b decode with the serving engine's cache, f32 "simt" at
     # kernels_bench's shape; K3: mamba2-370m at B=1); the serving run's
     # counts (0, checked) go beside them
+    # K3's bound is its route's (TF32 passes on the tensor cores); the time
+    # of each launch goes beside it, and its other shapes (mamba2-370m B=4,
+    # kernels_bench) in "rows"
     da = "decode_attention"
-    for name, source, replaces, row, err, serving in (
+    ssd_keys = ("per_launch_ms",)
+    for name, source, replaces, row, err, serving, extra in (
             (f"{da} (mma, bf16)", da, "src/repro/kernels/decode_attention/kernel.py:73",
-             decode_rows[0], decode_err["mma"], served["decode_by_route"]["mma"]),
+             decode_rows[0], decode_err["mma"], served["decode_by_route"]["mma"], {}),
             (f"{da} (simt, f32)", da, "src/repro/kernels/decode_attention/kernel.py:73",
-             decode_rows[2], decode_err["simt"], served["decode_by_route"]["simt"]),
+             decode_rows[2], decode_err["simt"], served["decode_by_route"]["simt"], {}),
             ("ssd_scan", "ssd_scan", "src/repro/kernels/ssd_scan/kernel.py:78", ssd_rows[0],
-             ssd_err, served["ssd_scan"])):
+             ssd_err, served["ssd_scan"],
+             {**{k: ssd_rows[0][k] for k in ssd_keys},
+              "rows": [{k: r[k] for k in ("name", "shape", *keys, *ssd_keys)}
+                       for r in ssd_rows[1:]]})):
         kernels.append({
             "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}.cu",
             "replaces": replaces, "launches": row["launches"], "max_abs_err": err,
             **{k: row[k] for k in keys}, "shape": f"{row['name']}: {row['shape']}",
-            "serving_launches": serving})
+            "serving_launches": serving, **extra})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from .._grad import refuse_grad
 from .kernel import launch_decode_attention
 
 __all__ = ["decode_attention", "reference_decode_attention"]
@@ -100,6 +101,7 @@ def decode_attention(q, k, v, pos, *, softcap: float = 0.0, window: int = 0,
             raise ValueError(f"{name} must be contiguous")
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+    refuse_grad("decode_attention", q, k, v)
     pos32 = pos.to(torch.int32).contiguous()
     out = torch.empty_like(q)
     launch_decode_attention(q, k, v, pos32, out, window=window, softcap=softcap,

@@ -15,13 +15,16 @@ tensors it launches one of the two hand-written kernels of
 Each launch counts in ``flash_attention.launches`` and in
 ``flash_attention.launches_by_route[route]``.  For CPU tensors it computes
 ``flash_attention_ref`` and counts nothing.  It never falls back from a
-kernel to another route or to the plain version.
+kernel to another route or to the plain version.  The kernels have no
+backward: on CUDA tensors a call under grad mode with an input that
+requires grad raises.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .._grad import refuse_grad
 from .kernel import launch_flash_attention
 
 __all__ = ["flash_attention", "flash_attention_ref"]
@@ -95,6 +98,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, got {q.device}")
     _check(q, k, v)
+    refuse_grad("flash_attention", q, k, v)
     out = torch.empty_like(q)
     launch_flash_attention(q, k, v, out, causal=causal, window=window,
                            softcap=softcap, scale=scale)

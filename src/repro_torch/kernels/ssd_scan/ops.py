@@ -3,16 +3,20 @@
 ``ssd_scan`` takes the model's layout, like the reference's
 ``ops.ssd_scan``: x (B,L,nh,hd), dt (B,L,nh), a (nh,), B and C (B,L,N).
 For CUDA tensors it launches the hand-written kernels
-(``csrc/ssd_scan.cu``) and counts the call in ``ssd_scan.launches``; for
+(``csrc/ssd_scan.cu``) and counts the call in ``ssd_scan.launches`` and,
+by the chunk outputs' block layout (heads a block, paired row tiles), in
+``ssd_scan.launches_by_layout``; for
 CPU tensors it folds heads into rows, as the reference wrapper does, and
 computes ``reference_ssd_scan``.  It never falls back from the kernel to
-the plain version.
+the plain version.  The kernels have no backward: on CUDA tensors a call
+under grad mode with an input that requires grad raises.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .._grad import refuse_grad
 from .kernel import launch_ssd_scan
 
 __all__ = ["fold_and_scan", "reference_ssd_scan", "ssd_scan"]
@@ -26,20 +30,22 @@ _DTYPES = (torch.float32, torch.bfloat16)
 def reference_ssd_scan(x, da, dt, bmat, cmat):
     """Plain version, the reference's ``ref.reference_ssd_scan`` in the
     kernel layout: x (BH,NC,Q,hd), da and dt (BH,NC,Q), bmat and cmat
-    (BH,NC,Q,N) -> (y (BH,NC,Q,hd), h_final (BH,hd,N)), both f32.
+    (BH,NC,Q,N) -> (y (BH,NC,Q,hd), h_final (BH,hd,N)), both f32 (f64 where
+    x is f64, to measure how far an f32 computation is off).
 
     The sequential recurrence over all NC*Q positions, independent of the
     chunking: h = exp(da_t) h + dt_t x_t B_t^T, y_t = C_t . h."""
     bh, nc, q, hd = x.shape
     n = bmat.shape[-1]
     length = nc * q
-    xs = x.reshape(bh, length, hd).float()
-    dts = dt.reshape(bh, length).float()
-    das = da.reshape(bh, length).float()
-    bs = bmat.reshape(bh, length, n).float()
-    cs = cmat.reshape(bh, length, n).float()
-    h = torch.zeros((bh, hd, n), dtype=torch.float32, device=x.device)
-    ys = torch.empty((bh, length, hd), dtype=torch.float32, device=x.device)
+    ct = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xs = x.reshape(bh, length, hd).to(ct)
+    dts = dt.reshape(bh, length).to(ct)
+    das = da.reshape(bh, length).to(ct)
+    bs = bmat.reshape(bh, length, n).to(ct)
+    cs = cmat.reshape(bh, length, n).to(ct)
+    h = torch.zeros((bh, hd, n), dtype=ct, device=x.device)
+    ys = torch.empty((bh, length, hd), dtype=ct, device=x.device)
     for t in range(length):
         h = torch.exp(das[:, t])[:, None, None] * h + \
             dts[:, t, None, None] * (xs[:, t, :, None] * bs[:, t, None, :])
@@ -111,12 +117,17 @@ def ssd_scan(x, dt, a, bmat, cmat, *, chunk: int = 256):
     for name, t in (("x", x), ("dt", dt), ("a", a), ("bmat", bmat), ("cmat", cmat)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    refuse_grad("ssd_scan", x, dt, a, bmat, cmat)
     b, length, nh, hd = x.shape
     y = torch.empty_like(x)
     h_final = torch.empty((b, nh, hd, bmat.shape[-1]), dtype=torch.float32, device=x.device)
-    launch_ssd_scan(x, dt, a, bmat, cmat, y, h_final, chunk=chunk)
+    layout = launch_ssd_scan(x, dt, a, bmat, cmat, y, h_final, chunk=chunk)
     ssd_scan.launches += 1
+    ssd_scan.launches_by_layout[layout] = ssd_scan.launches_by_layout.get(layout, 0) + 1
     return y, h_final
 
 
 ssd_scan.launches = 0
+ssd_scan.launches_by_layout = {}  # (heads a block, paired) -> launches

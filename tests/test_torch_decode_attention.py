@@ -258,6 +258,13 @@ def test_decode_attention_rejects_bad_inputs(case, error):
         decode_attention(q, k, v, pos, **kwargs)
 
 
+def test_cpu_path_stays_differentiable():
+    _, (q, k, v, pos) = _inputs(3, 2, 4, 2, 64, 32, "float32")
+    q.requires_grad_(True)
+    decode_attention(q, k, v, pos).sum().backward()
+    assert q.grad is not None and q.grad.shape == q.shape and torch.isfinite(q.grad).all()
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -294,3 +301,23 @@ def test_kernel_matches_plain_version_on_card(cuda_device, dtype):
         tol = TOL[dtype] if dtype == "float32" else dict(
             atol=5e-3 * float(ref.float().abs().max()), rtol=1e-2)
         np.testing.assert_allclose(_np(out.cpu()), _np(ref.cpu()), **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_refuses_grad_on_card(cuda_device, dtype):
+    """No backward kernel: under grad mode an input that requires grad
+    raises instead of giving an output that autograd cannot see into."""
+    tdt = DTYPES[dtype][1]
+    gen = torch.Generator(cuda_device).manual_seed(1)
+    q = torch.randn(2, 8, 64, generator=gen, device=cuda_device).to(tdt)
+    k, v = (torch.randn(2, 128, 2, 64, generator=gen, device=cuda_device).to(tdt)
+            for _ in range(2))
+    pos = torch.tensor([127, 40], device=cuda_device)
+    k.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        decode_attention(q, k, v, pos)
+    with torch.no_grad():
+        out = decode_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and torch.isfinite(out.float()).all()

@@ -182,6 +182,14 @@ def test_flash_attention_on_cpu_is_the_plain_version_and_counts_nothing():
     assert flash_attention.launches == before == 0
 
 
+def test_cpu_path_stays_differentiable():
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 16, n, 64, generator=gen) for n in (4, 2, 2))
+    q.requires_grad_(True)
+    flash_attention(q, k, v, causal=True).sum().backward()
+    assert q.grad is not None and q.grad.shape == q.shape and torch.isfinite(q.grad).all()
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -213,3 +221,21 @@ def test_kernel_matches_plain_version_on_card(cuda_device, dtype):
         assert flash_attention.launches_by_route[route] == before_route + 1
         ref = flash_attention_ref(q, k, v, causal=True, window=window, softcap=cap)
         np.testing.assert_allclose(_np(out.cpu()), _np(ref.cpu()), **TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_refuses_grad_on_card(cuda_device, dtype):
+    """No backward kernel: under grad mode an input that requires grad
+    raises instead of giving an output that autograd cannot see into."""
+    tdt = DTYPES[dtype][1]
+    gen = torch.Generator(cuda_device).manual_seed(1)
+    q, k, v = (torch.randn(1, 64, n, 64, generator=gen, device=cuda_device).to(tdt)
+               for n in (4, 2, 2))
+    q.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention(q, k, v, causal=True)
+    with torch.no_grad():
+        out = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and torch.isfinite(out.float()).all()

@@ -3,8 +3,12 @@ inputs through JAX ``ssd_scan`` (the Pallas kernel in interpret mode) or
 ``ssd_chunked`` and the port's wrapper, which on CPU tensors computes its
 plain version (the sequential recurrence).  Sweep and tolerances are those
 of tests/test_kernels.py (f32 2e-5, bf16 2e-2; 3e-5 against
-``ssd_chunked``; 2e-4 across chunk sizes).  The kernels themselves run
-only on a card: their tests are marked ``gpu`` and skip here."""
+``ssd_chunked``; 2e-4 across chunk sizes).  The kernel's arithmetic
+(decays from 16-step tile-local cumsums, products as split TF32 with the
+pass counts of ``csrc/ssd_scan.cu``) is emulated here and held against
+the same JAX kernel, the port's plain version and an f64 recurrence.  The
+kernels themselves run only on a card: their tests are marked ``gpu`` and
+skip here."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +20,7 @@ from repro.kernels.ssd_scan import ssd_scan as jax_ssd_scan
 from repro.models.mamba2 import ssd_chunked
 from repro_torch.configs import get_config
 from repro_torch.kernels import reference_ssd_scan, ssd_scan
+from repro_torch.kernels.ssd_scan.ops import fold_and_scan
 from repro_torch.models import Model
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -109,6 +114,7 @@ def test_ssd_scan_on_cpu_counts_nothing_and_rejects_bad_inputs():
     before = ssd_scan.launches
     ssd_scan(*tx, chunk=16)
     assert ssd_scan.launches == before == 0
+    assert ssd_scan.launches_by_layout == {}
     with pytest.raises(ValueError, match="multiple"):
         ssd_scan(*tx, chunk=128)            # L = 64 is not a multiple of 128
     x, dt, a, bm, cm = tx
@@ -127,6 +133,161 @@ def test_mamba2_370m_config_sizes_the_scan_and_stays_unported_as_a_model():
             cfg.ssm_chunk) == (2048, 32, 64, 128, 256)
     with pytest.raises(NotImplementedError, match="Mamba2"):
         Model(cfg, device="cpu")
+
+
+SUB = 16   # positions per tile-local cumsum in the kernel
+
+
+def _tf32(v, rounded=True):
+    """v onto TF32's 10 mantissa bits: rounded to nearest, ties away from
+    zero (cvt.rna), or truncated, as the tensor cores read an f32 register."""
+    bits = v.contiguous().view(torch.int32)
+    return (((bits + 0x1000) if rounded else bits) & ~0x1FFF).view(torch.float32)
+
+
+def _mm(a, b, a_exact, b_exact):
+    """a @ b as the kernel runs it on the tensor cores: an f32 operand is
+    split into hi (rounded to TF32) + lo (the rest, which the tensor cores
+    truncate), a bf16 one is exact in TF32; hi.hi + hi.lo + lo.hi (lo.lo
+    dropped), f32 sums.  Both exact: one pass (C.B^T in bf16)."""
+    def split(v):
+        hi = _tf32(v)
+        return hi, _tf32(v - hi, rounded=False)
+    if a_exact and b_exact:
+        return a @ b
+    if a_exact:
+        bh, bl = split(b)
+        return a @ bl + a @ bh
+    ah, al = split(a)
+    if b_exact:
+        return al @ b + ah @ b
+    bh, bl = split(b)
+    return (ah @ bl + al @ bh) + ah @ bh
+
+
+def _run(v, reverse=False, exclusive=False):
+    """Running f32 sum along the last axis, one term at a time."""
+    out = torch.empty_like(v)
+    run = torch.zeros_like(v[..., 0])
+    steps = range(v.shape[-1])
+    for k in (reversed(steps) if reverse else steps):
+        if exclusive:
+            out[..., k] = run
+        run = run + v[..., k]
+        if not exclusive:
+            out[..., k] = run
+    return out, run
+
+
+def _tile_sums(da):
+    """da (..., Q) -> the kernel's sums: loc (inclusive within each 16-step
+    tile), rem (exclusive suffix within the tile), pre and suf (tile totals
+    before and after each tile), mid[si, sj] (totals strictly between), and
+    the chunk's total."""
+    q = da.shape[-1]
+    ns = q // SUB
+    t = da.reshape(*da.shape[:-1], ns, SUB)
+    loc, tot = _run(t)
+    rem, _ = _run(t, reverse=True, exclusive=True)
+    pre, total = _run(tot, exclusive=True)
+    suf, _ = _run(tot, reverse=True, exclusive=True)
+    mid = torch.zeros(*tot.shape, ns)
+    for si in range(ns):
+        run = torch.zeros_like(tot[..., 0])
+        for sj in reversed(range(si)):
+            mid[..., si, sj] = run
+            run = run + tot[..., sj]
+    return loc.reshape(da.shape), rem.reshape(da.shape), pre, suf, mid, total
+
+
+def _route_emulation(x, dt, a, bm, cm, chunk):
+    """The kernel's arithmetic on the CPU, model layout in and out.  Every
+    decay exponent comes from sums of one sign over at most 16 steps plus
+    whole-tile totals (never a difference of two long cumsums), and off the
+    diagonal 16-step tile the decay is a product of three such exps; C.B^T in f32
+    from exact bf16 products (or 3 TF32 passes for f32 B/C); att.x 3 passes
+    (2 for bf16 x); C.h_prev^T and the chunk states 2 passes for bf16 B/C,
+    3 for f32; the state pass in f32."""
+    b, length, nh, hd = x.shape
+    n = bm.shape[-1]
+    nc, q = length // chunk, chunk
+    x_exact, bc_exact = x.dtype == torch.bfloat16, bm.dtype == torch.bfloat16
+    xf = x.float().reshape(b, nc, q, nh, hd).permute(0, 3, 1, 2, 4)     # b h c q d
+    dtc = dt.reshape(b, nc, q, nh).permute(0, 3, 1, 2)                  # b h c q
+    bf, cf = (m.float().reshape(b, nc, q, n) for m in (bm, cm))
+    loc, rem, pre, suf, mid, total = _tile_sums(dtc * a[None, :, None, None])
+    s_of = torch.arange(q) // SUB
+    same = s_of[:, None] == s_of[None, :]
+    lower = torch.arange(q)[:, None] >= torch.arange(q)[None, :]
+    g = _mm(cf, bf.transpose(-1, -2), bc_exact, bc_exact)[:, None]      # b 1 c q q
+    # the diagonal tile: exp(loc_i - loc_j); off it, a row factor exp(loc_i)
+    # exp(mid) and a column factor exp(rem_j) dt_j
+    diag = g * torch.exp(loc[..., :, None] - loc[..., None, :]) * dtc[..., None, :]
+    row = torch.exp(loc)[..., :, None] * torch.exp(mid[..., s_of[:, None], s_of[None, :]])
+    off = g * row * (torch.exp(rem) * dtc)[..., None, :]
+    att = torch.where(lower, torch.where(same, diag, off), 0.0)
+    y = _mm(att, xf, False, x_exact)
+    xw = xf * (torch.exp(rem + suf.repeat_interleave(SUB, -1)) * dtc)[..., None]
+    states = _mm(xw.transpose(-1, -2), bf[:, None], False, bc_exact)    # b h c d n
+    h = torch.zeros(b, nh, hd, n)
+    h_prev = []
+    for c in range(nc):
+        h_prev.append(h)
+        h = torch.exp(total[..., c, None, None]) * h + states[:, :, c]
+    inter = _mm(cf[:, None], torch.stack(h_prev, 2).transpose(-1, -2), bc_exact, False)
+    y = torch.exp(pre.repeat_interleave(SUB, -1) + loc)[..., None] * inter + y
+    return y.permute(0, 2, 3, 1, 4).reshape(b, length, nh, hd).to(x.dtype), h
+
+
+@pytest.mark.parametrize("x_dtype,bc_dtype", [("float32", "float32"), ("bfloat16", "bfloat16"),
+                                              ("float32", "bfloat16")])
+@pytest.mark.parametrize("b,length,nh,hd,n,chunk", [
+    (1, 64, 2, 16, 16, 16),
+    (2, 128, 4, 32, 64, 32),
+    (1, 256, 2, 64, 128, 64),
+])
+def test_route_arithmetic_matches_jax_kernel(x_dtype, bc_dtype, b, length, nh, hd, n, chunk):
+    """test_kernels.py's sweep (x and B/C of one type) and the model's mix
+    (x f32, B/C bf16), at x's tolerance."""
+    jx, tx = _inputs(hash((b, length, nh, hd, n)) % 2**31, b, length, nh, hd, n, x_dtype,
+                     bc_dtype)
+    yj, hj = jax_ssd_scan(*jx, chunk=chunk)
+    y, h = _route_emulation(*tx, chunk)
+    np.testing.assert_allclose(_np(y), _np(yj), **TOL[x_dtype])
+    np.testing.assert_allclose(_np(h), _np(hj), **TOL[x_dtype])
+
+
+@pytest.mark.parametrize("x_dtype,bc_dtype", [("float32", "float32"), ("bfloat16", "float32"),
+                                              ("float32", "bfloat16")])
+def test_route_arithmetic_matches_plain_version_over_256_step_chunks(x_dtype, bc_dtype):
+    """The card test's largest case, with its draw: decays over 256-step
+    chunks, where one f32 cumsum per chunk misses 2e-5."""
+    _, tx = _inputs(0, 1, 512, 2, 64, 128, x_dtype, bc_dtype)
+    y, h = _route_emulation(*tx, 256)
+    yr, hr = ssd_scan(*tx, chunk=256)
+    np.testing.assert_allclose(_np(y), _np(yr), **TOL[x_dtype])
+    np.testing.assert_allclose(_np(h), _np(hr), **TOL[x_dtype])
+
+
+def test_route_arithmetic_is_no_further_from_f64_than_the_jax_kernel():
+    """Against the recurrence in f64, the route's y and h are no further off
+    than the reference kernel's (one cumsum per chunk, f32)."""
+    jx, tx = _inputs(0, 1, 512, 2, 64, 128)
+    y64, h64 = (v.numpy() for v in fold_and_scan(*(t.double() for t in tx), chunk=256))
+    yj, hj = jax_ssd_scan(*jx, chunk=256)
+    y, h = _route_emulation(*tx, 256)
+    for ours, ref, exact in ((y, yj, y64), (h, hj, h64)):
+        err = np.abs(_np(ours).astype(np.float64) - exact).max()
+        err_jax = np.abs(np.asarray(ref, np.float64) - exact).max()
+        assert err <= err_jax, (err, err_jax)
+
+
+def test_cpu_path_stays_differentiable():
+    _, tx = _inputs(4, 1, 32, 2, 16, 16)
+    x = tx[0].clone().requires_grad_(True)
+    y, h = ssd_scan(x, *tx[1:], chunk=16)
+    (y.sum() + h.sum()).backward()
+    assert x.grad is not None and x.grad.shape == x.shape and torch.isfinite(x.grad).all()
 
 
 @pytest.fixture
@@ -154,3 +315,16 @@ def test_kernel_matches_plain_version_on_card(cuda_device, x_dtype, bc_dtype):
         tol = TOL["float32" if x_dtype == "float32" else "bfloat16"]
         np.testing.assert_allclose(_np(y.cpu()), _np(yr), **tol)
         np.testing.assert_allclose(_np(h.cpu()), _np(hr), **tol)
+
+
+@pytest.mark.gpu
+def test_kernel_refuses_grad_on_card(cuda_device):
+    _, tx = _inputs(1, 1, 64, 2, 16, 16)
+    tx = [t.to(cuda_device) for t in tx]
+    x = tx[0].clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ssd_scan(x, *tx[1:], chunk=16)
+    with torch.no_grad():
+        y, h = ssd_scan(x, *tx[1:], chunk=16)
+    torch.cuda.synchronize()
+    assert y.shape == x.shape and torch.isfinite(y).all() and torch.isfinite(h).all()
