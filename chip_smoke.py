@@ -6,9 +6,9 @@ Phases, each a hard failure (nonzero exit, no result line):
 
 1. the card (nvidia-smi name and power limit), torch/CUDA versions, and the
    build of every kernel of ``src/repro_torch/kernels`` (flash attention,
-   decode attention, SSD chunk scan; one nvcc per source, in parallel),
-   with every kernel's registers and spills (the wgmma kernel, the mma
-   decode split and the K3 kernels must not spill);
+   decode attention, SSD chunk scan, the sweep; one nvcc per source, in
+   parallel), with every kernel's registers and spills (the wgmma kernel,
+   the mma decode split, the K3 kernels and the sweep must not spill);
 2. each kernel against its plain PyTorch version on the card, at the
    serving path's shapes, the reference test sweep's and the full widths of
    gemma-2b, gemma2-2b and mamba2-370m, with the tolerance stated per case;
@@ -27,6 +27,25 @@ Phases, each a hard failure (nonzero exit, no result line):
    attention 18 per prefill, all on the "wgmma" route; decode attention
    and the SSD scan 0 on every route: no model path reaches them, in the
    reference or in the port).
+
+Then the fixed-slot sweep S1 (``slot_sweep``, the reference's
+``runtime/batched.py`` ``lax.scan``), built in phase 1 with the others
+(its two builds, <4, 1> and <4, 4>, must not spill):
+
+- phase 2: the kernel against its plain version at 4,000 slots: 64 points
+  (m 1-4 x n_queues 1-4, and one queue a point) with every noise family,
+  schedules and windows, and the main path's grid (sweep_frontier's 2016
+  points, quiet and noisy) cut in duration only: counters equal, float sums
+  within 1e-5 of max(|ref|, 1), a diverging point reported with its slot;
+- phase 3: the kernel timed at sweep_frontier's full grid (quiet and
+  noisy), power.py's and adaptation.py's sweeps and the 1296-point test
+  grid, beside its bound and the plain version's time over its first 400
+  slots; at the quiet frontier grid also the <4, 1> build against <4, 4>;
+- band phase: the kernel against the port's event engine inside the
+  reference's parity bands (24 quiet and 16 noisy configs at 120 ms);
+- main path: ``simulate_batch`` over sweep_frontier's full quiet grid, one
+  launch with every counter set to 0 just before, the exact identities at
+  every point.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -150,9 +169,10 @@ def phase_card() -> None:
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import kernel as da_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.slot_sweep import kernel as sweep_kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     builds = {"flash_attention.cu": fa_kernel.build, "decode_attention.cu": da_kernel.build,
-              "ssd_scan.cu": ssd_kernel.build}
+              "ssd_scan.cu": ssd_kernel.build, "slot_sweep.cu": sweep_kernel.build}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         for future in [pool.submit(fn) for fn in builds.values()]:
@@ -180,15 +200,24 @@ def phase_card() -> None:
     if not {"ssd_chunk_state", "ssd_chunk_out", "ssd_state_pass"} <= names or any(
             spills for _, spills in kernels.values()):
         fail(f"want the three K3 kernels, none spilling; ptxas gave {kernels}")
+    # S1: the (M_MAX, Q_MAX) builds <4, 1> and <4, 4>, built with
+    # -fmad=false; neither may spill
+    kernels = ptxas_kernels(_build.BUILD_INFO["slot_sweep.cu"]["log"])
+    for name, (regs, spills) in kernels.items():
+        log(f"  {name}: {regs} registers, {spills} bytes of spill stores + loads")
+    want = {f"slot_sweep_kernel<4, {q}>" for q in (1, 4)}
+    if set(kernels) != want or any(spills for _, spills in kernels.values()):
+        fail(f"want the 2 slot_sweep_kernel builds, none spilling; ptxas gave {kernels}")
 
 
 def ptxas_kernels(log_text: str) -> dict[str, tuple[int, int]]:
-    """``nvcc -Xptxas -v`` output -> {kernel<[types, ]HD>: (registers, spill
-    bytes)} for every kernel of the three sources."""
+    """``nvcc -Xptxas -v`` output -> {kernel<[types, ]ints>: (registers, spill
+    bytes)} for every kernel of the four sources."""
     out, name, spills = {}, None, 0
     for ln in log_text.splitlines():
         if m := re.search(r"Compiling entry function '.*?(flash_fwd_\w+?|decode_split_mma_bf16|"
-                          r"decode_split|decode_combine|ssd_chunk_state|ssd_chunk_out)"
+                          r"decode_split|decode_combine|ssd_chunk_state|ssd_chunk_out|"
+                          r"slot_sweep_kernel)"
                           r"I((?:f|13__nv_bfloat16|S\d*_)*)((?:Li\d+E)+)", ln):
             # a repeated type is a substitution (S<n>_); only bf16 repeats
             types = ["float" if t == "f" else "bf16"
@@ -805,6 +834,549 @@ def phase_serve() -> dict:
             "decode_by_route": decode_by_route}
 
 
+# -- S1: the fixed-slot sweep (runtime/batched.py's lax.scan) ----------------
+
+MU_MPPS = 29.76
+# benchmarks/sweep_frontier.py's noisy-host mode (:54) and
+# tests/test_batched_engine.py's interference band (INTERFERENCE_ENV)
+FRONTIER_NOISY = dict(interference_prob=0.2, interference_mean_us=15.0,
+                      stall_rate_per_us=1.0 / 5_000.0, stall_mean_us=100.0)
+BAND_NOISY = dict(interference_prob=0.25, interference_mean_us=20.0,
+                  stall_rate_per_us=1.0 / 4000.0, stall_mean_us=150.0)
+SWEEP_COUNTERS = ("wakeups", "busy_tries", "cycles", "ts_arms")
+SWEEP_RTOL = 1e-5
+# instruction rates of one H100 SXM (132 SMs at the 1.98 GHz boost clock of
+# the data sheet's 67 TFLOP/s float32, which counts an fma as two): float32
+# 128 lanes an SM a clock, int32 64, the special-function units and
+# int-to-float converts 16 (the CUDA C programming guide's throughput table
+# for compute capability 9.0)
+PEAK_F32_OPS = 33.5e12
+PEAK_INT32_OPS = PEAK_F32_OPS / 2
+PEAK_SFU_OPS = PEAK_F32_OPS / 8
+RESIDENT_THREADS = 132 * 2048
+# benchmarks/sweep_frontier.py's full grid (:73-84): 2016 points, 50 ms
+FRONTIER = dict(t_s_grid=np.linspace(3.0, 80.0, 14),
+                t_l_grid=np.asarray([120.0, 250.0, 500.0, 900.0]), m_grid=(2, 3, 4),
+                rhos=np.asarray([0.1, 0.25, 0.4, 0.55, 0.7, 0.85]), seeds=(0, 1))
+FRONTIER_US = 50_000.0
+
+
+def frontier_grid():
+    from repro_torch.runtime import SweepGrid
+    f = FRONTIER
+    return SweepGrid.product(t_s_us=f["t_s_grid"], t_l_us=f["t_l_grid"], m=f["m_grid"],
+                             rate_mpps=f["rhos"] * MU_MPPS, seeds=f["seeds"])
+
+
+def sweep_settings():
+    """(name, grid, cfg, slot_us): the sweeps phase 3 times, each as the
+    repo runs it."""
+    from repro_torch.runtime import (
+        DEEP_CSTATE_ENERGY_MODEL,
+        HR_SLEEP_MODEL,
+        MMPPSchedule,
+        RampSchedule,
+        SimRunConfig,
+        SinusoidSchedule,
+        StepSchedule,
+        SweepGrid,
+    )
+    out = [("sweep_frontier full, quiet", frontier_grid(),
+            SimRunConfig(duration_us=FRONTIER_US), 0.5),
+           ("sweep_frontier full, noisy", frontier_grid(),
+            SimRunConfig(duration_us=FRONTIER_US, **FRONTIER_NOISY), 0.5)]
+    # benchmarks/power.py's objective-divergence grid (:134-140), full mode
+    out.append(("power.py energy grid", SweepGrid.product(
+        t_s_us=(24.0, 36.0, 48.0, 60.0), t_l_us=(300.0, 600.0), m=(2, 3),
+        rate_mpps=np.asarray((0.2, 0.3)) * MU_MPPS, seeds=(0, 1)),
+        SimRunConfig(duration_us=60_000.0, sleep_model=HR_SLEEP_MODEL,
+                     energy_model=DEEP_CSTATE_ENERGY_MODEL), 0.5))
+    # benchmarks/adaptation.py's windowed schedule sweep (:223-229), full mode
+    d = 100_000.0
+    scheds = [StepSchedule(times_us=(0.0, d * 0.375), scales=(0.3, 1.0)),
+              StepSchedule(times_us=(0.0, d * 0.375), scales=(1.0, 0.3)),
+              RampSchedule(t_start_us=d * 0.25, t_end_us=d * 0.75, scale_from=0.3,
+                           scale_to=1.0),
+              SinusoidSchedule(period_us=d / 4.0, amplitude=0.35, mean=0.65),
+              MMPPSchedule(states=(0.3, 0.65, 1.0), mean_dwell_us=d / 6.0, seed=11)]
+    out.append(("adaptation.py windowed schedule sweep", SweepGrid.product(
+        t_s_us=[10.0, 16.0, 24.0], t_l_us=[300.0], m=(2, 3), rate_mpps=[0.75 * MU_MPPS],
+        seeds=(0,), schedules=scheds), SimRunConfig(duration_us=d, window_us=1_000.0), 1.0))
+    # tests/test_batched_engine.py's thousand-point grid (:160-169)
+    out.append(("test_batched_engine 1296-point grid", SweepGrid.product(
+        t_s_us=np.linspace(4.0, 40.0, 8), t_l_us=[150.0, 500.0], m=[2, 3, 4],
+        rate_mpps=np.linspace(2.0, 25.0, 9), seeds=(0, 1, 2)),
+        SimRunConfig(duration_us=10_000.0), 1.0))
+    return out
+
+
+def sweep_compare_grid(one_queue: bool = False):
+    """64 points: every (m, n_queues) in 1..4 x 1..4 (one queue throughout
+    with ``one_queue``), four each, two of the four sharing a seed, two of
+    the four on a load schedule."""
+    from repro_torch.runtime import RampSchedule, StepSchedule, SweepGrid
+    rng = np.random.default_rng(0)
+    pts = []
+    for m in (1, 2, 3, 4):
+        for q in (1,) * 4 if one_queue else (1, 2, 3, 4):
+            for s in range(4):
+                p = dict(t_s_us=float(rng.uniform(4.0, 40.0)),
+                         t_l_us=float(rng.uniform(100.0, 600.0)), m=m, n_queues=q,
+                         rate_mpps=float(rng.uniform(0.1, 0.9) * MU_MPPS * q / 2.0),
+                         seed=s // 2)
+                if s == 1:
+                    p["schedule"] = StepSchedule(times_us=(0.0, 700.0), scales=(0.4, 1.5))
+                elif s == 3:
+                    p["schedule"] = RampSchedule(t_start_us=300.0, t_end_us=1_500.0,
+                                                 scale_from=0.3, scale_to=1.4)
+                pts.append(p)
+    return SweepGrid.of_points(pts)
+
+
+def sweep_diff(out, ref) -> tuple[list[int], float, float]:
+    """(points whose integer counters differ, max abs difference and max
+    difference over max(|ref|, 1), over every float output)."""
+    bad = set()
+    for name in SWEEP_COUNTERS:
+        bad |= set(torch.nonzero(out[name] != ref[name]).flatten().tolist())
+    abs_err = rel_err = 0.0
+    for name in (*SWEEP_COUNTERS, "offered", "dropped", "serviced", "awake_us", "lat_area",
+                 "vac_sum", "nv_sum", "energy_uj", "backlog", "win"):
+        if out[name].numel():
+            a, b = out[name].double(), ref[name].double()
+            abs_err = max(abs_err, float((a - b).abs().max()))
+            rel_err = max(rel_err, float(((a - b).abs() / b.abs().clamp(min=1.0)).max()))
+    return sorted(bad), abs_err, rel_err
+
+
+def first_divergence(args, params, i: int) -> int:
+    """The first slot after which point ``i``'s outputs differ between the
+    kernel and the plain version: both run the point alone on prefixes of
+    the run (its draws depend on its seed and the slot alone), and a
+    bisection finds the shortest prefix that differs."""
+    import dataclasses
+
+    from repro_torch.kernels.slot_sweep import reference_slot_sweep, slot_sweep
+    one = [None if a is None else a[i:i + 1].contiguous() for a in args]
+
+    def differs(n: int) -> bool:
+        p = dataclasses.replace(params, duration_us=n * params.slot_us)
+        bad, _, rel = sweep_diff(slot_sweep(*one, params=p), reference_slot_sweep(*one, p))
+        return bool(bad) or rel > SWEEP_RTOL
+
+    lo, hi = 0, params.live_slots()
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if differs(mid):
+            hi = mid
+        else:
+            lo = mid
+    return hi - 1
+
+
+def phase_compare_sweep() -> dict:
+    """The sweep kernel against its plain version on the card at short
+    shapes: 64 points (m 1-4 x n_queues 1-4, shared seeds, schedules), 4,000
+    slots of 0.5 us, every noise family (overshoot noise and tail,
+    interference, stall windows) and windows; the same 64 points with one
+    queue each (the other build); and the main path's own grid,
+    sweep_frontier's 2016 points in its quiet and its noisy config, cut in
+    duration only (2,000 us: the first 4,000 of the main path's 100,000
+    slots, whose draws depend on the seed and the slot alone).  Integer
+    counters must be equal at every point; float sums within 1e-5 of
+    max(|ref|, 1) (the same float32 operations in the same order, no fma
+    contraction: they agree up to the math library's log/sin/cos).  A point
+    that differs is reported with the slot where it diverges.  Returns the
+    max abs error and the builds compared."""
+    from repro_torch.kernels.slot_sweep import reference_slot_sweep, slot_sweep
+    from repro_torch.runtime import SimRunConfig, SleepModel
+    from repro_torch.runtime.batched import sweep_inputs
+    t0 = time.perf_counter()
+    every = SleepModel(base_us=2.8, slope=0.027, sigma_us=0.5, tail_prob=0.01,
+                       tail_mean_us=40.0)
+    every_cfg = SimRunConfig(duration_us=2_000.0, sleep_model=every, queue_capacity=256,
+                             window_us=300.0, **dict(BAND_NOISY, stall_rate_per_us=1 / 400.0))
+    cut_us = 2_000.0
+    cases = [("m 1-4 x n_queues 1-4", sweep_compare_grid(), every_cfg),
+             ("m 1-4, one queue a point", sweep_compare_grid(one_queue=True), every_cfg),
+             ("sweep_frontier full grid, quiet, first 4000 slots", frontier_grid(),
+              SimRunConfig(duration_us=cut_us)),
+             ("sweep_frontier full grid, noisy, first 4000 slots", frontier_grid(),
+              SimRunConfig(duration_us=cut_us, **FRONTIER_NOISY))]
+    log("phase 2: slot_sweep vs plain version, 4000 slots of 0.5 us: 64 points with every "
+        "noise family, schedules, windows; and the main path's grid (sweep_frontier, 2016 "
+        f"points) cut from {FRONTIER_US:g} to {cut_us:g} us; counters equal, float sums "
+        f"within {SWEEP_RTOL:g} of max(|ref|, 1)")
+    slot_sweep.launches = 0
+    slot_sweep.launches_by_build = {}
+    max_abs, failed = 0.0, []
+    for name, grid, cfg in cases:
+        args, params = sweep_inputs(grid, cfg, 0.5, "cuda")
+        before = dict(slot_sweep.launches_by_build)
+        out = slot_sweep(*args, params=params)
+        (build,) = [b for b, n in slot_sweep.launches_by_build.items()
+                    if n != before.get(b, 0)]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ref = reference_slot_sweep(*args, params)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t1
+        bad, abs_err, rel_err = sweep_diff(out, ref)
+        finite = all(bool(torch.isfinite(v).all()) for v in out.values())
+        ok = not bad and rel_err <= SWEEP_RTOL and finite
+        exact = [k for k in out if out[k].numel() and torch.equal(out[k], ref[k])]
+        log(f"  {name}: {len(grid)} points, build <{build[0]}, {build[1]}>, flags "
+            f"{params.flags}, {params.live_slots()} slots, {params.n_windows} windows: max_abs_err="
+            f"{abs_err:.3e} max_rel_err={rel_err:.3e}, counters differ at {len(bad)} points; "
+            f"bit-equal: {exact}; plain {plain_s:.2f} s {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(name)
+            for i in (bad or [int(torch.argmax((out['offered'] - ref['offered']).abs()))])[:3]:
+                p = grid.point(i)
+                log(f"    point {i} (m={p['m']} n_queues={p['n_queues']} seed={p['seed']}) "
+                    f"diverges at slot {first_divergence(args, params, i)}")
+        max_abs = max(max_abs, abs_err)
+    builds = set(slot_sweep.launches_by_build)
+    if slot_sweep.launches != len(cases) or len(builds) != 2:
+        fail(f"slot_sweep counted {slot_sweep.launches} launches "
+             f"({slot_sweep.launches_by_build}) for {len(cases)} calls of two builds")
+    # the wrapper checks its bounds: five threads a point is refused
+    args, params = sweep_inputs(sweep_compare_grid(), every_cfg, 0.5, "cuda")
+    try:
+        slot_sweep(args[0], args[1], torch.full_like(args[2], 5), *args[3:], params=params)
+    except ValueError as err:
+        log(f"  m=5 refused: {err}")
+    else:
+        fail("slot_sweep took m=5")
+    if failed:
+        fail(f"slot_sweep disagrees with its plain version ({'; '.join(failed)})")
+    log(f"  phase 2 (slot_sweep) took {time.perf_counter() - t0:.1f} s")
+    return {"max_abs_err": max_abs, "builds": builds}
+
+
+def check_builds_compared(name: str, compared: set) -> None:
+    """Fail unless every build ``slot_sweep`` launched since its counters
+    were reset was held against the plain version in phase 2."""
+    from repro_torch.kernels.slot_sweep import slot_sweep
+    launched = set(slot_sweep.launches_by_build)
+    if not launched <= compared:
+        fail(f"{name} launched builds {sorted(launched - compared)} that phase 2 did not "
+             "compare with the plain version")
+
+
+def sweep_bound(args, params, out) -> dict:
+    """Least time for a sweep's work on the card, counted from the code
+    (csrc/slot_sweep.cu) for this run's points and slots.  A Philox4x32-10
+    block is 10 rounds of 4 integer multiplies (low and high words of two
+    products) and 2 three-input XORs: 60 int32 operations (the key schedule
+    depends on the seed alone and counts once a point).  A word that a draw
+    uses costs a shift (int32) and a convert.  Every slot draws the
+    queues' normals (one block) and, with stall windows on, the stall start
+    (one block).  A slot where a thread re-arms also draws its overshoot:
+    one block of normals, one block each for the tail and interference hit
+    uniforms; such slots are counted at the fewest that this run's re-arms
+    (T_S arms + busy tries) can fall in, re-arms / m.  A Box-Muller pair is
+    a log, a sqrt, a cos and a sin (each one special-function operation)
+    and 7 float32 operations; a queue's arrivals a sqrt and 14 float32
+    operations, its drain, vacation and backlog sum 6; a thread's countdown
+    3; the slot's sums 22 (+5 with windows).  Bytes: each input read once
+    (7 words a point and its schedule rows), each output written once (13
+    words a point and its windows).  Returns the time by resource and the
+    largest, the bound."""
+    m = args[2].double().cpu().numpy()
+    q = args[3].double().cpu().numpy()
+    n = float(params.live_slots())
+    fl = {k: float(v) for k, v in params.flags.items()}
+    pq, pm = np.ceil(q / 2.0), np.ceil(m / 2.0)
+    win = 1.0 if params.n_windows else 0.0
+    rearms = (out["ts_arms"].double().cpu().numpy()
+              + out["busy_tries"].double().cpu().numpy())
+    rs = rearms / m                                   # fewest slots with a re-arm
+    int32 = n * (60.0 + 2.0 * pq + fl["stall"] * 62.0) + 18.0 \
+        + rs * (fl["sigma"] * (60.0 + 2.0 * pm) + (fl["tail"] + fl["intf"]) * (60.0 + m))
+    cvt = n * (2.0 * pq + fl["stall"] + 1.0) \
+        + rs * (fl["sigma"] * 2.0 * pm + (fl["tail"] + fl["intf"]) * m)
+    sfu = n * (4.0 * pq + q) + rs * fl["sigma"] * 4.0 * pm
+    f32 = n * (7.0 * pq + 20.0 * q + 3.0 * m + 22.0 + 5.0 * win + fl["stall"]) \
+        + rs * (fl["sigma"] * (7.0 * pm + 3.0 * m) + (fl["tail"] + fl["intf"]) * m) \
+        + 2.0 * rearms
+    ops = {"f32": float(f32.sum()), "int32": float(int32.sum()), "cvt": float(cvt.sum()),
+           "sfu": float(sfu.sum())}
+    nbytes = 4.0 * (20 * len(m) + out["win"].numel())
+    if args[7] is not None:
+        nbytes += 4.0 * (args[7].numel() + args[8].numel())
+    times = {"f32": ops["f32"] / PEAK_F32_OPS * 1e3,
+             "int32": ops["int32"] / PEAK_INT32_OPS * 1e3,
+             "cvt": ops["cvt"] / PEAK_SFU_OPS * 1e3,
+             "sfu": ops["sfu"] / PEAK_SFU_OPS * 1e3,
+             "bytes": nbytes / PEAK_BYTES_PER_S * 1e3}
+    worst = max(times, key=times.get)
+    point_slots = len(m) * n
+    per = {k: v / point_slots for k, v in (*ops.items(), ("bytes", nbytes))}
+    return {"bound_ms": times[worst], "bound_by": "bytes" if worst == "bytes" else "operations",
+            "bound_resource": worst, "bound_times_ms": times, "ops": ops, "bytes": nbytes,
+            "point_slots": point_slots, "per_point_slot": per}
+
+
+def check_sweep_invariants(name: str, bs, em) -> None:
+    """The exact identities of a sweep at every point, to float32 rounding:
+    offered = served + dropped + final backlog, window sums = totals,
+    energy = active power x awake + per-arm charges; counters are whole
+    numbers; every output finite.  Each side is a float32 sum over the
+    run's n slots, so the two agree within n * 2^-24 of their size (the
+    bound of a sequential float32 sum)."""
+    rel = max(SWEEP_RTOL, float(bs.n_steps.max()) * 2.0 ** -24)
+
+    def close(a, b):
+        return bool(np.all(np.abs(a - b) <= rel * np.maximum(np.abs(b), 1.0)))
+    checks = {"packets": close(bs.offered, bs.serviced + bs.dropped + bs.final_backlog)}
+    arm_s = np.array([em.arm_energy_uj(t) for t in bs.grid.t_s_us])
+    arm_l = np.array([em.arm_energy_uj(t) for t in bs.grid.t_l_us])
+    checks["energy"] = close(bs.energy_uj, em.active_power_w * bs.awake_us
+                             + bs.ts_arms * arm_s + bs.busy_tries * arm_l)
+    if bs.win.size:
+        checks["windows"] = all(
+            close(bs.win[:, :, col].sum(1), getattr(bs, k))
+            for col, k in enumerate(("offered", "serviced", "lat_area", "awake_us",
+                                     "energy_uj")))
+    checks["counts"] = all(np.array_equal(getattr(bs, k), np.round(getattr(bs, k)))
+                           for k in SWEEP_COUNTERS)
+    checks["finite"] = all(bool(np.isfinite(getattr(bs, k)).all()) for k in (
+        "offered", "serviced", "dropped", "awake_us", "lat_area", "energy_uj",
+        "final_backlog")) and bool(np.isfinite(bs.win).all())
+    if not all(checks.values()):
+        fail(f"{name}: the sweep breaks an exact identity: {checks}")
+
+
+def launch_build(args, params, m_max: int, q_max: int):
+    """One launch of the sweep kernel's build for ``q_max`` queues a point,
+    past the wrapper (which picks the build from the grid): phase 3's A/B of
+    the two builds on one grid."""
+    from repro_torch.kernels.slot_sweep.ops import STAT_NAMES
+    from repro_torch.kernels.slot_sweep.kernel import launch_slot_sweep
+    cols = dict(zip(("t_s", "t_l", "m", "nq", "lam", "seed_lo", "seed_hi"), args[:7]))
+    n = args[0].shape[0]
+    stats = torch.empty((len(STAT_NAMES), n), dtype=torch.float32, device="cuda")
+    win = torch.empty((n, params.n_windows, 5), dtype=torch.float32, device="cuda")
+    backlog = torch.empty(n, dtype=torch.float32, device="cuda")
+    build = launch_slot_sweep(cols, args[7], args[8], params, stats, win, backlog,
+                              m_max=m_max, q_max=q_max)
+    return build, stats, win, backlog
+
+
+def sweep_build_ab(args, params) -> dict:
+    """The <4, 1> build against <4, 4> on a one-queue grid: each timed as
+    the median of 5 CUDA-event timings after 1 warm-up, in the order A B B
+    A, both launched the same way (``launch_build``); their outputs must be
+    bit-equal (lanes past a point's queues add exact zeros)."""
+    m_max = int(args[2].max())
+    outs = {q: launch_build(args, params, m_max, q) for q in (1, 4)}
+    if {q: o[0] for q, o in outs.items()} != {1: (4, 1), 4: (4, 4)}:
+        fail(f"launch_build launched {[o[0] for o in outs.values()]}")
+    if not all(torch.equal(a, b) for a, b in zip(outs[1][1:], outs[4][1:])):
+        fail("the <4, 1> and <4, 4> builds disagree on a one-queue grid")
+    times = {1: [], 4: []}
+    for q in (1, 4, 4, 1):
+        times[q].append(time_ms(launch_build, args, params, m_max, q, iters=5, warmup=1))
+    return {f"<4, {q}>": t for q, t in times.items()}
+
+
+def phase_time_sweep(compared: set) -> list[dict]:
+    """The sweep kernel at the repo's sweep shapes: median of 5 CUDA-event
+    timings after 1 warm-up call, each behind the device-side spin; the
+    plain version timed over its first 400 slots (its cost a slot does not
+    depend on the slot: the log also gives it scaled to the run's slots, the
+    kernels line only the time measured).  One launch a sweep; every build
+    launched must be among those phase 2 compared.  At sweep_frontier's
+    quiet grid, also the A/B of the two builds (``sweep_build_ab``)."""
+    import dataclasses
+
+    from repro_torch.kernels.slot_sweep import reference_slot_sweep, slot_sweep
+    from repro_torch.runtime.batched import stats_from_outputs, sweep_inputs
+    t0 = time.perf_counter()
+    log("phase 3: slot_sweep at the repo's sweep shapes: kernel median of 5 CUDA-event "
+        "timings after 1 warm-up; plain version measured over its first 400 slots (and "
+        "scaled to the run in this log: not run in full); bound from the code's "
+        "operations (sweep_bound)")
+    rows = []
+    for k, (name, grid, cfg, slot_us) in enumerate(sweep_settings()):
+        args, params = sweep_inputs(grid, cfg, slot_us, "cuda")
+        slot_sweep.launches = 0
+        slot_sweep.launches_by_build = {}
+        ms = time_ms(slot_sweep, *args, params=params, iters=5, warmup=1)
+        if slot_sweep.launches != 6:
+            fail(f"{name}: slot_sweep counted {slot_sweep.launches} launches for 6 calls")
+        (build,) = slot_sweep.launches_by_build
+        check_builds_compared(name, compared)
+        out = slot_sweep(*args, params=params)
+        bs = stats_from_outputs(grid, cfg, slot_us, params, out)
+        check_sweep_invariants(name, bs, cfg.energy_model)
+        cut = dataclasses.replace(params, duration_us=400 * slot_us)
+        plain_cut_ms = time_ms(reference_slot_sweep, *args, cut, iters=1, warmup=0)
+        n_live = params.live_slots()
+        plain_scaled_ms = plain_cut_ms * n_live / cut.live_slots()
+        b = sweep_bound(args, params, out)
+        rate = b["point_slots"] / (ms / 1e3)
+        rows.append({"name": name, "ms": ms, "plain_ms": plain_cut_ms,
+                     "plain_slots": cut.live_slots(), "library_ms": None, "launches": 1,
+                     "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                     "bound_resource": b["bound_resource"], "point_slots_per_s": rate,
+                     "build": f"<{build[0]}, {build[1]}>",
+                     "shape": f"{len(grid)} points x {n_live} slots of {slot_us} us, m <= "
+                              f"{int(grid.m.max())}, n_queues <= {int(grid.n_queues.max())}, "
+                              f"flags {params.flags}, windows {params.n_windows}; plain_ms "
+                              f"over the first {cut.live_slots()} of the slots"})
+        log(f"  {name}: {len(grid)} points x {n_live} slots, build <{build[0]}, {build[1]}>: "
+            f"kernel {ms:.3f} ms ({rate:.4e} point-slots/s), plain {plain_cut_ms:.1f} ms "
+            f"measured for {cut.live_slots()} slots ({plain_scaled_ms:.0f} ms scaled to "
+            f"{n_live} slots, not measured), library none; bound "
+            f"{b['bound_ms'] * 1e3:.2f} us ({b['bound_resource']}; " + ", ".join(
+                f"{k} {v * 1e3:.2f} us" for k, v in b["bound_times_ms"].items())
+            + f"), {100 * b['bound_ms'] / ms:.4f}% of it; per point-slot " + ", ".join(
+                f"{k} {v:.3g}" for k, v in b["per_point_slot"].items())
+            + f"; {len(grid)} threads = "
+            f"{100 * len(grid) / RESIDENT_THREADS:.2f}% of the card's resident threads; "
+            f"mean latency {float(np.mean(bs.mean_latency_us)):.2f} us, cpu "
+            f"{float(np.mean(bs.cpu_fraction)):.3f}")
+        if k == 0:
+            ab = sweep_build_ab(args, params)
+            log(f"  {name}, A/B of the builds (A B B A, each a median of 5, outputs "
+                "bit-equal): " + "; ".join(f"{b} " + ", ".join(f"{t:.3f}" for t in ts)
+                                            + " ms" for b, ts in ab.items()))
+    log(f"  phase 3 (slot_sweep) took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def _band_check(name, pts, cfg, lat_abs, lat_rel, cpu_abs, cpu_rel, loss_abs=None) -> None:
+    """tests/test_batched_engine.py's parity band: the sweep kernel (one
+    launch for the points) against the port's event engine, point by point."""
+    from repro_torch.core import MetronomeConfig
+    from repro_torch.runtime import (
+        MetronomePolicy,
+        PoissonWorkload,
+        SweepGrid,
+        simulate_batch,
+        simulate_run,
+    )
+    bs = simulate_batch(SweepGrid.of_points(pts), cfg, slot_us=0.5)
+    check_sweep_invariants(name, bs, cfg.energy_model)
+    worst, bad = {"lat": 0.0, "cpu": 0.0, "wake": 0.0, "loss": 0.0}, []
+    for i, p in enumerate(pts):
+        rs = simulate_run(MetronomePolicy(MetronomeConfig(
+            m=p["m"], v_target_us=p["t_s_us"], t_long_us=p["t_l_us"],
+            ts_min_us=min(1.0, p["t_s_us"])), adaptive=False),
+            PoissonWorkload(p["rate_mpps"]), cfg)
+        lat_b, lat_e = float(bs.mean_latency_us[i]), rs.mean_sojourn_us
+        cpu_b, cpu_e = float(bs.cpu_fraction[i]), rs.cpu_fraction
+        loss_b, loss_e = float(bs.loss_fraction[i]), rs.loss_fraction
+        wake = abs(float(bs.wakeups[i]) - rs.wakeups) / max(rs.wakeups, 1)
+        ok = (abs(lat_b - lat_e) <= max(lat_abs, lat_rel * lat_e)
+              and abs(cpu_b - cpu_e) <= cpu_abs + cpu_rel * cpu_e and wake <= 0.15)
+        if loss_abs is None:
+            ok &= loss_b < 1e-3 and loss_e < 1e-3
+        else:
+            ok &= abs(loss_b - loss_e) <= loss_abs
+        worst["lat"] = max(worst["lat"], abs(lat_b - lat_e) / max(lat_abs, lat_rel * lat_e))
+        worst["cpu"] = max(worst["cpu"], abs(cpu_b - cpu_e) / (cpu_abs + cpu_rel * cpu_e))
+        worst["wake"] = max(worst["wake"], wake / 0.15)
+        worst["loss"] = max(worst["loss"], abs(loss_b - loss_e))
+        if not ok:
+            bad.append(f"point {i} {p}: latency {lat_b:.2f} vs {lat_e:.2f} us, cpu "
+                       f"{cpu_b:.4f} vs {cpu_e:.4f}, wakeups {bs.wakeups[i]:.0f} vs "
+                       f"{rs.wakeups}, loss {loss_b:.4f} vs {loss_e:.4f}")
+    log(f"  {name}: {len(pts)} configs at {cfg.duration_us:g} us, worst share of the band: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in worst.items() if k != "loss")
+        + f", loss gap {worst['loss']:.4f} {'ok' if not bad else 'FAIL'}")
+    for line in bad:
+        log(f"    {line}")
+    if bad:
+        fail(f"{name}: the sweep kernel leaves the reference's parity band")
+
+
+def _band_configs(n: int, seed: int) -> list[dict]:
+    """tests/test_batched_engine.py's _random_configs."""
+    rng = np.random.default_rng(seed)
+    pts = []
+    for i in range(n):
+        t_s = float(rng.uniform(5.0, 40.0))
+        pts.append(dict(t_s_us=t_s, t_l_us=float(t_s * rng.uniform(4.0, 25.0)),
+                        m=int(rng.integers(1, 5)),
+                        rate_mpps=float(rng.uniform(0.15, 0.85) * MU_MPPS), seed=i))
+    return pts
+
+
+def phase_sweep_bands(compared: set) -> None:
+    """tests/test_batched_engine.py's parity bands (:20-35) through the
+    kernel: 24 random quiet configs (mean sojourn within max(1.5 us, 12%),
+    cpu within 0.02 + 5%, wakeups within 15%, no loss) and the 16 configs
+    of its interference environment (max(4.5 us, 22%), 0.025 + 6%, loss
+    within 0.03), each against the port's event engine at 120,000 us, and
+    the exact identities of both sweeps."""
+    from repro_torch.kernels.slot_sweep import slot_sweep
+    from repro_torch.runtime import HR_SLEEP_MODEL, SimRunConfig
+    t0 = time.perf_counter()
+    log("band phase: slot_sweep against the port's event engine (simulate_run) inside "
+        "the reference's parity bands")
+    slot_sweep.launches_by_build = {}
+    _band_check("24 quiet configs", _band_configs(24, 42),
+                SimRunConfig(duration_us=120_000.0, sleep_model=HR_SLEEP_MODEL),
+                1.5, 0.12, 0.02, 0.05)
+    _band_check("16 noisy configs", _band_configs(16, 7),
+                SimRunConfig(duration_us=120_000.0, sleep_model=HR_SLEEP_MODEL, **BAND_NOISY),
+                4.5, 0.22, 0.025, 0.06, loss_abs=0.03)
+    check_builds_compared("the band phase", compared)
+    log(f"  band phase took {time.perf_counter() - t0:.1f} s")
+
+
+def phase_sweep_main(compared: set) -> dict:
+    """The sweep's main path: ``repro_torch.runtime.simulate_batch`` on
+    sweep_frontier's full quiet grid (2016 points, 50 ms, slots of 0.5 us)
+    with every launch counter set to 0 just before and read just after:
+    exactly one slot_sweep launch and no other kernel.  Then the exact
+    identities at every point, and a few points as ``RunStats``."""
+    from repro_torch.kernels import decode_attention, flash_attention, slot_sweep, ssd_scan
+    from repro_torch.runtime import SimRunConfig, simulate_batch
+    t0 = time.perf_counter()
+    log("main path (S1): simulate_batch over sweep_frontier's full quiet grid")
+    grid = frontier_grid()
+    cfg = SimRunConfig(duration_us=FRONTIER_US)
+    counters = (flash_attention, decode_attention, ssd_scan, slot_sweep)
+    for k in counters:
+        k.launches = 0
+    slot_sweep.launches_by_build = {}
+    t1 = time.perf_counter()
+    bs = simulate_batch(grid, cfg, slot_us=0.5)
+    host_s = time.perf_counter() - t1
+    launches = {k.__name__: k.launches for k in counters}
+    builds = dict(slot_sweep.launches_by_build)
+    if launches != {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 0,
+                    "slot_sweep": 1}:
+        fail(f"simulate_batch launched {launches}; want exactly one slot_sweep launch")
+    check_builds_compared("the main path", compared)
+    if len(bs) != len(grid) or bs.reshaped("cpu_fraction").shape != grid.shape:
+        fail(f"simulate_batch returned {len(bs)} points for a grid of {len(grid)}")
+    check_sweep_invariants("the main path", bs, cfg.energy_model)
+    rows = []
+    for i in (0, len(grid) // 2, len(grid) - 1):
+        rs = bs.to_run_stats(i)
+        if not (rs.backend == "batched" and rs.items == int(bs.serviced[i])
+                and rs.offered == int(bs.offered[i])
+                and abs(rs.cpu_fraction - float(bs.cpu_fraction[i])) <= 1e-6 + 1e-3 *
+                float(bs.cpu_fraction[i]) and np.isfinite(rs.mean_latency_us)):
+            fail(f"to_run_stats({i}) does not carry point {i}'s numbers: {rs.summary()}")
+        rows.append(f"{i}: {rs.policy} {rs.workload} mean latency "
+                    f"{rs.mean_latency_us:.2f} us cpu {rs.cpu_fraction:.4f} items {rs.items}")
+    lat, cpu = bs.reshaped("mean_latency_us"), bs.reshaped("cpu_fraction")
+    log(f"  {len(grid)} points in one launch (build {builds}), {host_s:.3f} s host clock "
+        f"(inputs, launch, results); launches {launches}; mean latency "
+        f"{float(lat.min()):.2f}-{float(lat.max()):.2f} us, cpu {float(cpu.min()):.4f}-"
+        f"{float(cpu.max()):.4f}, loss <= {float(bs.loss_fraction.max()):.2e}")
+    for line in rows:
+        log(f"    RunStats {line}")
+    log(f"  main path (S1) took {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches["slot_sweep"], "host_s": host_s}
+
+
 def profile(name: str, fn, *args, kernel: tuple[str, str] = ("flash_attention", "flash_fwd"),
             **kwargs) -> dict[str, float]:
     """Device busy share of one call of ``fn(*args, **kwargs)``: the sum of
@@ -865,6 +1437,10 @@ def main() -> int:
     decode_rows = phase_time_decode()
     ssd_rows = phase_time_ssd()
     served = phase_serve()
+    sweep_cmp = phase_compare_sweep()
+    sweep_rows = phase_time_sweep(sweep_cmp["builds"])
+    phase_sweep_bands(sweep_cmp["builds"])
+    sweep_main = phase_sweep_main(sweep_cmp["builds"])
     # K1 has one kernel per type: bf16 ("wgmma", the serving path; its
     # numbers at the largest prefill bucket, every row beside them) and f32
     # ("simt", on no model path: launches are its timing phase's, the
@@ -910,6 +1486,18 @@ def main() -> int:
             "replaces": replaces, "launches": row["launches"], "max_abs_err": err,
             **{k: row[k] for k in keys}, "shape": f"{row['name']}: {row['shape']}",
             "serving_launches": serving, **extra})
+    # S1, the fixed-slot sweep: launches are its main path's (one
+    # simulate_batch over sweep_frontier's full quiet grid); its numbers at
+    # that shape, the other sweeps of phase 3 in "rows"
+    row = sweep_rows[0]
+    extra = ("build", "bound_resource", "point_slots_per_s", "plain_slots")
+    kernels.append({
+        "name": "slot_sweep", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/slot_sweep.cu",
+        "replaces": "src/repro/runtime/batched.py:543", "launches": sweep_main["launches"],
+        "max_abs_err": sweep_cmp["max_abs_err"], **{k: row[k] for k in keys},
+        "shape": f"{row['name']}: {row['shape']}", **{k: row[k] for k in extra},
+        "rows": [{k: r[k] for k in ("name", "shape", *keys, *extra)} for r in sweep_rows[1:]]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

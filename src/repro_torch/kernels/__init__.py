@@ -1,6 +1,8 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), one per TPU kernel of
 ``repro.kernels``: flash attention (K1), decode attention (K2) and the
-Mamba2 SSD chunk scan (K3).
+Mamba2 SSD chunk scan (K3); and one per ``lax.scan`` engine of
+``repro.runtime`` ported so far: the fixed-slot sweep (S1, ``slot_sweep``,
+for ``repro_torch.runtime.simulate_batch``).
 
 Each kernel ships as ``<name>/`` with ``ops.py`` (the public wrapper, its
 launch counter and the plain PyTorch version it is held against) and
@@ -12,4 +14,5 @@ never at import.
 
 from .decode_attention import decode_attention, reference_decode_attention  # noqa: F401
 from .flash_attention import flash_attention, flash_attention_ref  # noqa: F401
+from .slot_sweep import reference_slot_sweep, slot_sweep  # noqa: F401
 from .ssd_scan import reference_ssd_scan, ssd_scan  # noqa: F401

@@ -46,9 +46,9 @@ def _nvcc() -> str:
     return found
 
 
-def _build(src: Path, so: Path) -> dict:
+def _build(src: Path, so: Path, flags: tuple[str, ...]) -> dict:
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [_nvcc(), *flags, "-o", str(tmp), str(src)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -59,10 +59,12 @@ def _build(src: Path, so: Path) -> dict:
     return {"seconds": time.perf_counter() - t0, "log": proc.stderr}
 
 
-def load_library(source: str, signatures: dict[str, tuple]) -> ctypes.CDLL:
+def load_library(source: str, signatures: dict[str, tuple],
+                 extra_flags: tuple[str, ...] = ()) -> ctypes.CDLL:
     """Build (once) and load ``csrc/<source>``; ``signatures`` maps each C
-    function to ``(restype, argtypes)``, set on first load.  Different
-    sources build concurrently when loaded from several threads."""
+    function to ``(restype, argtypes)``, set on first load; ``extra_flags``
+    follow ``NVCC_FLAGS`` on the source's nvcc line.  Different sources
+    build concurrently when loaded from several threads."""
     with _lock:
         source_lock = _source_locks.setdefault(source, threading.Lock())
     with source_lock:
@@ -70,7 +72,8 @@ def load_library(source: str, signatures: dict[str, tuple]) -> ctypes.CDLL:
         if lib is not None:
             return lib
         src = CSRC_DIR / source
-        digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+        flags = (*NVCC_FLAGS, *extra_flags)
+        digest = hashlib.sha1(src.read_bytes() + " ".join(flags).encode())
         so = BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:12]}.so"
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         with open(BUILD_DIR / f"{src.stem}.lock", "w") as lock_file:
@@ -78,7 +81,7 @@ def load_library(source: str, signatures: dict[str, tuple]) -> ctypes.CDLL:
             if so.exists():
                 BUILD_INFO[source] = {"seconds": 0.0, "log": ""}
             else:
-                BUILD_INFO[source] = _build(src, so)
+                BUILD_INFO[source] = _build(src, so, flags)
         lib = ctypes.CDLL(str(so))
         for name, (restype, argtypes) in signatures.items():
             fn = getattr(lib, name)

@@ -1,12 +1,21 @@
-"""repro_torch.runtime — retrieval policies, queues, workloads and the
-threaded ``Runtime`` (copied from ``repro.runtime``).
+"""repro_torch.runtime — retrieval policies, queues, workloads, the
+threaded ``Runtime``, the paper's discrete-event simulator
+(``simulate_run``), load schedules (copied from ``repro.runtime``), co-run
+apps, and the batched fixed-slot sweep.
 
-This slice carries what the serving path needs: ``Server`` builds on
-``Runtime``, ``BoundedQueue``, the dispatchers and assignments, and the
-policies.  The event simulator, the batched sweep engines, calibration,
-fleet, schedules and co-run apps come in later slices.
+``simulate_batch`` runs a whole ``SweepGrid`` in one launch of the
+hand-written CUDA kernel ``repro_torch.kernels.slot_sweep`` (its plain
+version with ``device="cpu"``).  ``MatmulAppLoad`` is a ``torch.matmul``
+tenant.  Calibration (``build_operating_table``), the event-jump
+(adaptive) sweep and the fleet engine come in later slices.
 """
 
+from .apps import (
+    AppLoad,
+    DutyCycleBurner,
+    MatmulAppLoad,
+    co_run_config,
+)
 from .assignment import (
     Assignment,
     DedicatedAssignment,
@@ -33,10 +42,29 @@ from .policy import (
 )
 from .queues import BoundedQueue
 from .runtime import Runtime
+from .schedule import (
+    LoadSchedule,
+    MMPPSchedule,
+    RampSchedule,
+    SinusoidSchedule,
+    StepSchedule,
+    from_trace,
+)
+from .sim import (
+    HR_SLEEP_MODEL,
+    NANOSLEEP_MODEL,
+    PERFECT_SLEEP_MODEL,
+    SimRunConfig,
+    SleepModel,
+    fleet_tail_reference,
+    simulate_fleet_run,
+    simulate_run,
+)
 from .simcore import (
     DEEP_CSTATE_ENERGY_MODEL,
     DEFAULT_ENERGY_MODEL,
     EnergyModel,
+    FleetConfig,
 )
 from .stats import (
     QueueStats,
@@ -44,6 +72,7 @@ from .stats import (
     RunStats,
     TrackingStats,
     WindowedSeries,
+    hedged_latency_quantile,
 )
 from .workload import (
     CBRWorkload,
@@ -53,6 +82,28 @@ from .workload import (
     TraceReplayWorkload,
     Workload,
 )
+
+# The batched engine imports torch and the kernel package; load it lazily,
+# as the reference does, so the numpy-only event sim / threaded / serving
+# paths do not pay for them.
+_LAZY_SUBMODULE = {
+    "SweepGrid": "batched",
+    "BatchStats": "batched",
+    "simulate_batch": "batched",
+    "unsupported_config_fields": "batched",
+    "validate_batched_config": "batched",
+}
+
+
+def __getattr__(name: str):
+    submodule = _LAZY_SUBMODULE.get(name)
+    if submodule is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    from importlib import import_module
+    value = getattr(import_module(f".{submodule}", __name__), name)
+    globals()[name] = value          # cache: next access skips this hook
+    return value
+
 
 __all__ = [
     "RetrievalPolicy",
@@ -67,6 +118,12 @@ __all__ = [
     "OnOffBurstyWorkload",
     "TraceReplayWorkload",
     "ScheduledWorkload",
+    "LoadSchedule",
+    "StepSchedule",
+    "RampSchedule",
+    "SinusoidSchedule",
+    "MMPPSchedule",
+    "from_trace",
     "Dispatcher",
     "RoundRobinDispatch",
     "FlowHashDispatch",
@@ -86,7 +143,26 @@ __all__ = [
     "Reservoir",
     "WindowedSeries",
     "TrackingStats",
+    "SleepModel",
+    "HR_SLEEP_MODEL",
+    "NANOSLEEP_MODEL",
+    "PERFECT_SLEEP_MODEL",
+    "SimRunConfig",
     "EnergyModel",
     "DEFAULT_ENERGY_MODEL",
     "DEEP_CSTATE_ENERGY_MODEL",
+    "simulate_run",
+    "FleetConfig",
+    "simulate_fleet_run",
+    "fleet_tail_reference",
+    "hedged_latency_quantile",
+    "SweepGrid",
+    "BatchStats",
+    "simulate_batch",
+    "unsupported_config_fields",
+    "validate_batched_config",
+    "AppLoad",
+    "DutyCycleBurner",
+    "MatmulAppLoad",
+    "co_run_config",
 ]

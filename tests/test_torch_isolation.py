@@ -1,7 +1,10 @@
 """The PyTorch port stands alone: importing it loads neither jax nor any
-module of the JAX package, no source file of it imports them, and its
-verbatim copies of the JAX-free host modules equal the reference's."""
+module of the JAX package and builds no kernel, no source file of it
+imports them, its verbatim copies of the JAX-free host modules equal the
+reference's, and the definitions its own ``runtime/apps.py`` and
+``runtime/batched.py`` keep from the reference are the reference's text."""
 
+import ast
 import os
 import pkgutil
 import re
@@ -22,7 +25,20 @@ COPIES = [
     "runtime/workload.py", "runtime/runtime.py",
     "configs/base.py", "configs/gemma_2b.py", "configs/gemma2_2b.py",
     "configs/mamba2_370m.py",
+    "runtime/schedule.py", "runtime/sim.py", "core/simulator.py",
+    "configs/metronome_l3fwd.py",
 ]
+
+# module -> top-level definitions the port's own module keeps from the
+# reference word for word
+PINNED = {
+    "runtime/apps.py": ("AppLoad", "DutyCycleBurner", "_combine_bernoulli_exp",
+                        "_combine_stalls", "co_run_config"),
+    "runtime/batched.py": ("_DIMS", "_MAX_SCHED_SEGMENTS", "SweepGrid", "BatchStats",
+                           "_EVENT_ENGINE_ONLY_FIELDS", "_GRID_SUPPLIED_FIELDS",
+                           "_NO_SAMPLE_PATH_FIELDS", "unsupported_config_fields",
+                           "validate_batched_config", "_schedule_rows"),
+}
 
 # an import statement naming jax or the reference package (not repro_torch)
 _BAD_IMPORT = re.compile(r"^\s*(?:from|import)\s+(?:jax|jaxlib|repro)\b(?!_)", re.M)
@@ -34,16 +50,18 @@ def test_import_loads_no_jax_and_no_reference_module():
     names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
         repro_torch.__path__, "repro_torch.")]
     assert "repro_torch.serving.server" in names and "repro_torch.launch.serve" in names
-    assert {"repro_torch.kernels.decode_attention.ops",
-            "repro_torch.kernels.ssd_scan.ops"} <= set(names)
+    assert {"repro_torch.kernels.decode_attention.ops", "repro_torch.kernels.ssd_scan.ops",
+            "repro_torch.kernels.slot_sweep.ops", "repro_torch.runtime.batched",
+            "repro_torch.runtime.sim", "repro_torch.core.simulator"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
         "    importlib.import_module(name)\n"
+        "from repro_torch.kernels import _build\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
-        "print(bad)\n"
-        "sys.exit(1 if bad else 0)\n")
+        "print(bad, _build.BUILD_INFO)\n"
+        "sys.exit(1 if bad or _build.BUILD_INFO else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120,
                           env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
@@ -62,3 +80,47 @@ def test_sources_import_no_jax_and_no_reference_module():
 def test_copied_module_equals_reference(rel):
     ref = _REF_IMPORT.sub(r"\1repro_torch", (REF / rel).read_text())
     assert (PORT / rel).read_text() == ref
+
+
+def test_runtime_import_builds_no_kernel():
+    """Importing ``repro_torch.runtime`` and reaching its batched engine
+    loads the sweep kernel's binding but builds and loads no library."""
+    code = (
+        "import sys\n"
+        "import repro_torch.runtime as rt\n"
+        "lazy = 'repro_torch.runtime.batched' in sys.modules\n"
+        "assert rt.simulate_batch and rt.SweepGrid and rt.BatchStats\n"
+        "from repro_torch.kernels import _build\n"
+        "print(lazy, _build.BUILD_INFO, _build._libs)\n"
+        "sys.exit(1 if lazy or _build.BUILD_INFO or _build._libs else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _definitions(path: Path) -> dict[str, str]:
+    """Top-level class, function and assignment sources of a module, by name."""
+    text = path.read_text()
+    out = {}
+    for node in ast.parse(text).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names = [node.name]
+        elif isinstance(node, ast.Assign):
+            names = [t.id for t in node.targets if isinstance(t, ast.Name)]
+        else:
+            continue
+        start = node.decorator_list[0].lineno if getattr(node, "decorator_list", None) \
+            else node.lineno
+        seg = "\n".join(text.splitlines()[start - 1:node.end_lineno])
+        out.update((name, seg) for name in names)
+    return out
+
+
+@pytest.mark.parametrize("rel,name", [(rel, name) for rel, names in PINNED.items()
+                                      for name in names])
+def test_pinned_definition_equals_reference(rel, name):
+    ref, port = _definitions(REF / rel), _definitions(PORT / rel)
+    assert name in ref and name in port
+    assert port[name] == ref[name]
+
