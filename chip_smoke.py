@@ -29,14 +29,18 @@ Phases, each a hard failure (nonzero exit, no result line):
    reference or in the port).
 
 Then the fixed-slot sweep S1 (``slot_sweep``, the reference's
-``runtime/batched.py`` ``lax.scan``), built in phase 1 with the others
-(its two builds, <4, 1> and <4, 4>, must not spill):
+``runtime/batched.py`` ``lax.scan``; producer warps and a consumer warp
+over a ring of stages in shared memory), built in phase 1 with the others
+(its builds, <4, 1> and <4, 4> each with 3 and 6 producer warps, must not
+spill; their registers, static shared memory and ring sizes are printed):
 
 - phase 2: the kernel against its plain version at 4,000 slots: 64 points
   (m 1-4 x n_queues 1-4, and one queue a point) with every noise family,
-  schedules and windows, and the main path's grid (sweep_frontier's 2016
-  points, quiet and noisy) cut in duration only: counters equal, float sums
-  within 1e-5 of max(|ref|, 1), a diverging point reported with its slot;
+  schedules and windows, the main path's grid (sweep_frontier's 2016
+  points, quiet and noisy) cut in duration only, and the edges of the
+  kernel's ring (runs of C - 1, C, C + 1 and 4 C + 13 slots, windows and
+  schedule edges inside a stage, 1, 5 and 33 points, both builds): every
+  output bit-equal, a diverging point reported with its slot;
 - phase 3: the kernel timed at sweep_frontier's full grid (quiet and
   noisy), power.py's and adaptation.py's sweeps and the 1296-point test
   grid, beside its bound and the plain version's time over its first 400
@@ -49,6 +53,13 @@ Then the fixed-slot sweep S1 (``slot_sweep``, the reference's
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+
+    python3 chip_smoke.py --sweep-ab SRC [SRC ...]
+
+times this checkout's sweep kernel against other sources with its C
+interface (a parent commit's ``csrc/slot_sweep.cu``, a variant) at phase
+3's five sweeps, in the order this, SRC1 .. SRCn, SRCn .. SRC1, this, and
+reports whether each gives this kernel's bits (``phase_sweep_source_ab``).
 """
 
 from __future__ import annotations
@@ -186,33 +197,47 @@ def phase_card() -> None:
     for source, kernel in (("flash_attention.cu", "flash_fwd_wgmma_bf16"),
                            ("decode_attention.cu", "decode_split_mma_bf16")):
         kernels = ptxas_kernels(_build.BUILD_INFO[source]["log"])
-        for name, (regs, spills) in kernels.items():
+        for name, (regs, spills, _) in kernels.items():
             log(f"  {name}: {regs} registers, {spills} bytes of spill stores + loads")
         tc = {n: v for n, v in kernels.items() if n.startswith(kernel + "<")}
-        if len(tc) != 3 or any(spills for _, spills in tc.values()):
+        if len(tc) != 3 or any(spills for _, spills, _ in tc.values()):
             fail(f"want {kernel} at hd 64, 128 and 256 without spills; ptxas gave {tc}")
     # K3: chunk states and chunk outputs (one per type pair and hd) and the
     # state pass; every one that ptxas lists must be free of spills
     kernels = ptxas_kernels(_build.BUILD_INFO["ssd_scan.cu"]["log"])
-    for name, (regs, spills) in kernels.items():
+    for name, (regs, spills, _) in kernels.items():
         log(f"  {name}: {regs} registers, {spills} bytes of spill stores + loads")
     names = {n.split("<")[0] for n in kernels}
     if not {"ssd_chunk_state", "ssd_chunk_out", "ssd_state_pass"} <= names or any(
-            spills for _, spills in kernels.values()):
+            spills for _, spills, _ in kernels.values()):
         fail(f"want the three K3 kernels, none spilling; ptxas gave {kernels}")
-    # S1: the (M_MAX, Q_MAX) builds <4, 1> and <4, 4>, built with
-    # -fmad=false; neither may spill
+    # S1: the (M_MAX, Q_MAX) builds <4, 1> and <4, 4>, each with 3 and 6
+    # producer warps, built with -fmad=false; none may spill.  Their ring of
+    # stages is dynamic shared memory, sized per launch by the fields a
+    # sweep's noise needs
     kernels = ptxas_kernels(_build.BUILD_INFO["slot_sweep.cu"]["log"])
-    for name, (regs, spills) in kernels.items():
-        log(f"  {name}: {regs} registers, {spills} bytes of spill stores + loads")
-    want = {f"slot_sweep_kernel<4, {q}>" for q in (1, 4)}
-    if set(kernels) != want or any(spills for _, spills in kernels.values()):
-        fail(f"want the 2 slot_sweep_kernel builds, none spilling; ptxas gave {kernels}")
+    for name, (regs, spills, smem) in kernels.items():
+        log(f"  {name}: {regs} registers, {spills} bytes of spill stores + loads, {smem} "
+            "bytes of static shared memory")
+    want = {f"slot_sweep_kernel<4, {q}, {n}>" for q in (1, 4) for n in (3, 6)}
+    if set(kernels) != want or any(spills for _, spills, _ in kernels.values()):
+        fail(f"want the 4 slot_sweep_kernel builds (<4, 1> and <4, 4>, each with 3 and 6 "
+             f"producer warps), none spilling; ptxas gave {kernels}")
+    from repro_torch.runtime.batched import sweep_inputs
+    for name, grid, cfg, slot_us in sweep_settings()[:2]:       # quiet; stalls on
+        _, params = sweep_inputs(grid, cfg, slot_us, "cpu")
+        for q in (1, 4):
+            lay = sweep_kernel.layout(params, q)
+            log(f"  slot_sweep_kernel<4, {q}> at {name}: {lay}")
+            if lay["stage_slots"] != sweep_kernel.STAGE_SLOTS or lay["smem_bytes"] > 232_448:
+                fail(f"slot_sweep layout {lay}: want {sweep_kernel.STAGE_SLOTS} slots a "
+                     "stage (kernel.STAGE_SLOTS) in at most 227 KB of shared memory")
 
 
-def ptxas_kernels(log_text: str) -> dict[str, tuple[int, int]]:
+def ptxas_kernels(log_text: str) -> dict[str, tuple[int, int, int]]:
     """``nvcc -Xptxas -v`` output -> {kernel<[types, ]ints>: (registers, spill
-    bytes)} for every kernel of the four sources."""
+    bytes, static shared memory bytes)} for every kernel of the four
+    sources."""
     out, name, spills = {}, None, 0
     for ln in log_text.splitlines():
         if m := re.search(r"Compiling entry function '.*?(flash_fwd_\w+?|decode_split_mma_bf16|"
@@ -229,7 +254,8 @@ def ptxas_kernels(log_text: str) -> dict[str, tuple[int, int]]:
         elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
             spills = int(m.group(1)) + int(m.group(2))
         elif name and (m := re.search(r"Used (\d+) registers", ln)):
-            out[name] = (int(m.group(1)), spills)
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out[name] = (int(m.group(1)), spills, int(smem.group(1)) if smem else 0)
             name = None
     return out
 
@@ -933,6 +959,45 @@ def sweep_compare_grid(one_queue: bool = False):
     return SweepGrid.of_points(pts)
 
 
+def sweep_edge_cases():
+    """(name, grid, cfg): the edges of the kernel's ring of stages, as
+    tests/test_torch_batched.py's _edge_case makes them: runs of C - 1, C,
+    C + 1 and 4 C + 13 slots of 0.5 us (C the kernel's slots a stage; the
+    last wraps the three-stage ring and ends inside a stage), windows of 10.5
+    slots and schedule edges at fractions of a slot (both inside a stage),
+    every noise family on, at 1, 5 and 33 points (partial consumer warps),
+    one queue a point (<4, 1>) and up to four (<4, 4>)."""
+    from repro_torch.kernels.slot_sweep.kernel import STAGE_SLOTS as C
+    from repro_torch.runtime import RampSchedule, SimRunConfig, SleepModel, StepSchedule, SweepGrid
+    sleep = SleepModel(base_us=2.8, slope=0.027, sigma_us=0.5, tail_prob=0.2, tail_mean_us=6.0)
+    scheds = (StepSchedule(times_us=(0.0, 7.25), scales=(0.4, 1.5)),
+              RampSchedule(t_start_us=3.1, t_end_us=41.3, scale_from=0.3, scale_to=1.4), None)
+    out = []
+    for n_points in (1, 5, 33):
+        for live in (C - 1, C, C + 1, 4 * C + 13):
+            for one_queue in (True, False):
+                rng = np.random.default_rng(n_points)
+                pts = []
+                for i in range(n_points):
+                    q = 1 if one_queue else int(rng.integers(1, 5))
+                    p = dict(t_s_us=(t_s := float(rng.uniform(1.5, 8.0))),
+                             t_l_us=float(t_s * rng.uniform(2.0, 6.0)),
+                             m=int(rng.integers(1, 5)), n_queues=q,
+                             rate_mpps=float(rng.uniform(0.2, 0.95) * MU_MPPS * q / 2.0),
+                             seed=i // 2)
+                    if scheds[i % 3] is not None:
+                        p["schedule"] = scheds[i % 3]
+                    pts.append(p)
+                cfg = SimRunConfig(duration_us=0.5 * live, sleep_model=sleep, window_us=5.25,
+                                   queue_capacity=24, interference_prob=0.25,
+                                   interference_mean_us=4.0, stall_rate_per_us=1.0 / 40.0,
+                                   stall_mean_us=6.0)
+                out.append((f"edge: {n_points} points, {live} slots, "
+                            f"{'one queue' if one_queue else 'up to four'}",
+                            SweepGrid.of_points(pts), cfg))
+    return out
+
+
 def sweep_diff(out, ref) -> tuple[list[int], float, float]:
     """(points whose integer counters differ, max abs difference and max
     difference over max(|ref|, 1), over every float output)."""
@@ -961,8 +1026,8 @@ def first_divergence(args, params, i: int) -> int:
 
     def differs(n: int) -> bool:
         p = dataclasses.replace(params, duration_us=n * params.slot_us)
-        bad, _, rel = sweep_diff(slot_sweep(*one, params=p), reference_slot_sweep(*one, p))
-        return bool(bad) or rel > SWEEP_RTOL
+        out, ref = slot_sweep(*one, params=p), reference_slot_sweep(*one, p)
+        return not all(torch.equal(out[k], ref[k]) for k in out)
 
     lo, hi = 0, params.live_slots()
     while hi - lo > 1:
@@ -979,15 +1044,18 @@ def phase_compare_sweep() -> dict:
     shapes: 64 points (m 1-4 x n_queues 1-4, shared seeds, schedules), 4,000
     slots of 0.5 us, every noise family (overshoot noise and tail,
     interference, stall windows) and windows; the same 64 points with one
-    queue each (the other build); and the main path's own grid,
+    queue each (the other build), and quiet over 1,000 slots (the
+    kernel's block of three producer warps; the cases with every family
+    take six); the main path's own grid,
     sweep_frontier's 2016 points in its quiet and its noisy config, cut in
     duration only (2,000 us: the first 4,000 of the main path's 100,000
-    slots, whose draws depend on the seed and the slot alone).  Integer
-    counters must be equal at every point; float sums within 1e-5 of
-    max(|ref|, 1) (the same float32 operations in the same order, no fma
-    contraction: they agree up to the math library's log/sin/cos).  A point
-    that differs is reported with the slot where it diverges.  Returns the
-    max abs error and the builds compared."""
+    slots, whose draws depend on the seed and the slot alone); and the
+    edges of the kernel's ring (``sweep_edge_cases``).  Every output must
+    be bit-equal (the same float32 operations in the same order, no fma
+    contraction, the same math library on both sides); the largest
+    differences are logged beside.  A point that differs is reported with
+    the slot where it diverges.  Returns the max abs error and the builds
+    compared."""
     from repro_torch.kernels.slot_sweep import reference_slot_sweep, slot_sweep
     from repro_torch.runtime import SimRunConfig, SleepModel
     from repro_torch.runtime.batched import sweep_inputs
@@ -999,14 +1067,17 @@ def phase_compare_sweep() -> dict:
     cut_us = 2_000.0
     cases = [("m 1-4 x n_queues 1-4", sweep_compare_grid(), every_cfg),
              ("m 1-4, one queue a point", sweep_compare_grid(one_queue=True), every_cfg),
+             # overshoot noise alone: the block of three producer warps
+             ("m 1-4 x n_queues 1-4, quiet, first 1000 slots", sweep_compare_grid(),
+              SimRunConfig(duration_us=500.0, window_us=75.0)),
              ("sweep_frontier full grid, quiet, first 4000 slots", frontier_grid(),
               SimRunConfig(duration_us=cut_us)),
              ("sweep_frontier full grid, noisy, first 4000 slots", frontier_grid(),
-              SimRunConfig(duration_us=cut_us, **FRONTIER_NOISY))]
+              SimRunConfig(duration_us=cut_us, **FRONTIER_NOISY)), *sweep_edge_cases()]
     log("phase 2: slot_sweep vs plain version, 4000 slots of 0.5 us: 64 points with every "
-        "noise family, schedules, windows; and the main path's grid (sweep_frontier, 2016 "
-        f"points) cut from {FRONTIER_US:g} to {cut_us:g} us; counters equal, float sums "
-        f"within {SWEEP_RTOL:g} of max(|ref|, 1)")
+        "noise family, schedules, windows; the main path's grid (sweep_frontier, 2016 "
+        f"points) cut from {FRONTIER_US:g} to {cut_us:g} us; and the ring's edges; every "
+        "output bit-equal")
     slot_sweep.launches = 0
     slot_sweep.launches_by_build = {}
     max_abs, failed = 0.0, []
@@ -1023,12 +1094,15 @@ def phase_compare_sweep() -> dict:
         plain_s = time.perf_counter() - t1
         bad, abs_err, rel_err = sweep_diff(out, ref)
         finite = all(bool(torch.isfinite(v).all()) for v in out.values())
-        ok = not bad and rel_err <= SWEEP_RTOL and finite
-        exact = [k for k in out if out[k].numel() and torch.equal(out[k], ref[k])]
+        outputs = [k for k in out if out[k].numel()]
+        exact = [k for k in outputs if torch.equal(out[k], ref[k])]
+        ok = not bad and finite and exact == outputs
         log(f"  {name}: {len(grid)} points, build <{build[0]}, {build[1]}>, flags "
             f"{params.flags}, {params.live_slots()} slots, {params.n_windows} windows: max_abs_err="
             f"{abs_err:.3e} max_rel_err={rel_err:.3e}, counters differ at {len(bad)} points; "
-            f"bit-equal: {exact}; plain {plain_s:.2f} s {'ok' if ok else 'FAIL'}")
+            f"bit-equal: {len(exact)} of {len(outputs)} outputs"
+            f"{'' if ok else ' ' + str(sorted(set(outputs) - set(exact)))}; plain "
+            f"{plain_s:.2f} s {'ok' if ok else 'FAIL'}")
         if not ok:
             failed.append(name)
             for i in (bad or [int(torch.argmax((out['offered'] - ref['offered']).abs()))])[:3]:
@@ -1148,10 +1222,11 @@ def check_sweep_invariants(name: str, bs, em) -> None:
         fail(f"{name}: the sweep breaks an exact identity: {checks}")
 
 
-def launch_build(args, params, m_max: int, q_max: int):
+def launch_build(args, params, m_max: int, q_max: int, lib=None):
     """One launch of the sweep kernel's build for ``q_max`` queues a point,
     past the wrapper (which picks the build from the grid): phase 3's A/B of
-    the two builds on one grid."""
+    the two builds on one grid, and ``--sweep-ab``'s of two sources
+    (``lib``, default this checkout's)."""
     from repro_torch.kernels.slot_sweep.ops import STAT_NAMES
     from repro_torch.kernels.slot_sweep.kernel import launch_slot_sweep
     cols = dict(zip(("t_s", "t_l", "m", "nq", "lam", "seed_lo", "seed_hi"), args[:7]))
@@ -1160,7 +1235,7 @@ def launch_build(args, params, m_max: int, q_max: int):
     win = torch.empty((n, params.n_windows, 5), dtype=torch.float32, device="cuda")
     backlog = torch.empty(n, dtype=torch.float32, device="cuda")
     build = launch_slot_sweep(cols, args[7], args[8], params, stats, win, backlog,
-                              m_max=m_max, q_max=q_max)
+                              m_max=m_max, q_max=q_max, lib=lib)
     return build, stats, win, backlog
 
 
@@ -1244,6 +1319,51 @@ def phase_time_sweep(compared: set) -> list[dict]:
                 "bit-equal): " + "; ".join(f"{b} " + ", ".join(f"{t:.3f}" for t in ts)
                                             + " ms" for b, ts in ab.items()))
     log(f"  phase 3 (slot_sweep) took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def phase_sweep_source_ab(sources: list[str]) -> list[dict]:
+    """``--sweep-ab SRC...``: this checkout's sweep kernel against other
+    sources with the same C interface as ``csrc/slot_sweep.cu`` (a parent
+    commit's, a variant), each built with the same flags, at the five
+    sweeps of phase 3.  Each is timed as the median of 5 CUDA-event timings
+    after 1 warm-up, in the order this, SRC1 .. SRCn, SRCn .. SRC1, this (A
+    B B A for one source), all launched the same way (``launch_build``);
+    every output of each source is compared bit for bit with this
+    checkout's (reported, not required: a variant may compute something
+    else)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.slot_sweep import kernel as sweep_kernel
+    from repro_torch.runtime.batched import sweep_inputs
+    named = {"this": sweep_kernel._SOURCE, **{s: str(Path(s).resolve()) for s in sources}}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(named)) as pool:
+        libs = dict(zip(named, pool.map(sweep_kernel.build, named.values())))
+    log(f"sweep A/B: built {len(named)} sources in parallel in {time.perf_counter() - t0:.2f} s")
+    for name, source in named.items():
+        info = _build.BUILD_INFO[source]
+        log(f"  {name}: nvcc {info['seconds']:.2f} s; ptxas "
+            f"{ptxas_kernels(info['log'])}")
+    order = [*named, *reversed(named)]
+    rows = []
+    for name, grid, cfg, slot_us in sweep_settings():
+        args, params = sweep_inputs(grid, cfg, slot_us, "cuda")
+        m_max, q_max = int(args[2].max()), int(args[3].max())
+        outs = {k: launch_build(args, params, m_max, q_max, lib=lib) for k, lib in libs.items()}
+        equal = {k: all(torch.equal(a, b) for a, b in zip(outs["this"][1:], o[1:]))
+                 for k, o in outs.items() if k != "this"}
+        times = {k: [] for k in named}
+        for k in order:
+            times[k].append(time_ms(launch_build, args, params, m_max, q_max, iters=5,
+                                    warmup=1, lib=libs[k]))
+        n_live = params.live_slots()
+        log(f"  {name} ({len(grid)} points x {n_live} slots, build <{outs['this'][0][0]}, "
+            f"{outs['this'][0][1]}>), order {' '.join(order)}: " + "; ".join(
+                f"{k} " + ", ".join(f"{t:.3f}" for t in ts) + " ms ("
+                f"{1e3 * statistics.mean(ts) / n_live:.4f} us a slot)" for k, ts in times.items())
+            + f"; bit-equal to this: {equal}")
+        rows.append({"name": name, "points": len(grid), "slots": n_live, "times_ms": times,
+                     "bit_equal": equal})
     return rows
 
 
@@ -1428,6 +1548,12 @@ def main() -> int:
               "CUDA device", file=sys.stderr)
         return 2
     import repro_torch  # noqa: F401  (fails here, before any output, outside a checkout)
+    if sys.argv[1:2] == ["--sweep-ab"]:
+        log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"], capture_output=True, text=True,
+                           check=True).stdout.strip().splitlines()[0])
+        print(json.dumps({"sweep_ab": phase_sweep_source_ab(sys.argv[2:])}), flush=True)
+        return 0
     phase_card()
     route_err = phase_compare()
     decode_err = phase_compare_decode()

@@ -9,9 +9,11 @@ import torch
 
 from .._build import load_library
 
-__all__ = ["build", "launch_slot_sweep"]
+__all__ = ["STAGE_SLOTS", "build", "launch_slot_sweep", "layout"]
 
 _SOURCE = "slot_sweep.cu"
+# slots a stage of the kernel's ring (kStageSlots of the source)
+STAGE_SLOTS = 32
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FP = ctypes.POINTER(ctypes.c_float)
 _SIGNATURES = {
@@ -21,6 +23,7 @@ _SIGNATURES = {
     # build (2 ints out), stream
     "slot_sweep_fwd": (_I, [_P] * 12 + [_I] * 8
                        + [_FP, _I, _FP, _I, _I, ctypes.POINTER(_I), _P]),
+    "slot_sweep_layout": (None, [_I, _I, ctypes.POINTER(_I)]),
     "slot_sweep_error_string": (ctypes.c_char_p, [_I]),
 }
 # no contraction of a * b + c into one fma: the kernel rounds every product
@@ -28,9 +31,28 @@ _SIGNATURES = {
 NVCC_EXTRA = ("-fmad=false",)
 
 
-def build():
-    """Build (once) and load the kernel's library."""
-    return load_library(_SOURCE, _SIGNATURES, NVCC_EXTRA)
+def build(source: str = _SOURCE):
+    """Build (once) and load the kernel's library; ``source`` may name
+    another file with the same launch interface (an absolute path; it needs
+    only ``slot_sweep_fwd`` and ``slot_sweep_error_string``), for an A/B
+    of two versions of the kernel in one process."""
+    sigs = _SIGNATURES if source == _SOURCE else {
+        k: v for k, v in _SIGNATURES.items() if k != "slot_sweep_layout"}
+    return load_library(source, sigs, NVCC_EXTRA)
+
+
+def _flag_bits(params) -> int:
+    flags = params.flags
+    return flags["sigma"] | flags["tail"] << 1 | flags["intf"] << 2 | flags["stall"] << 3
+
+
+def layout(params, q_max: int) -> dict[str, int]:
+    """The kernel's launch layout for a sweep with ``params`` and ``q_max``
+    queues a point: threads and points a block, slots a stage, stages, and
+    bytes of dynamic shared memory."""
+    out = (_I * 5)()
+    build().slot_sweep_layout(q_max, _flag_bits(params), out)
+    return dict(zip(("threads", "points", "stage_slots", "stages", "smem_bytes"), out))
 
 
 def _floats(values) -> ctypes.Array:
@@ -38,14 +60,14 @@ def _floats(values) -> ctypes.Array:
 
 
 def launch_slot_sweep(cols: dict, sched_edges, sched_scales, params, stats, win, backlog, *,
-                      m_max: int, q_max: int) -> tuple[int, int]:
+                      m_max: int, q_max: int, lib=None) -> tuple[int, int]:
     """Launch the sweep on the current stream of the inputs' device and
     return the (M_MAX, Q_MAX) build it launched.  Shapes, types and devices
-    are checked by the caller (``ops``)."""
-    lib = build()
+    are checked by the caller (``ops``); ``lib`` is a library from
+    ``build`` (default: this checkout's kernel)."""
+    lib = build() if lib is None else lib
     p = params
-    flags = p.flags
-    bits = flags["sigma"] | flags["tail"] << 1 | flags["intf"] << 2 | flags["stall"] << 3
+    bits = _flag_bits(p)
     # float32 constants, each rounded once from its double value (the
     # reference's weakly typed Python floats)
     fparams = _floats((p.slot_us, p.duration_us, p.service_rate_mpps,

@@ -4,7 +4,8 @@
 time slots: the body of the reference's ``_build_sweep.one_point``
 (``src/repro/runtime/batched.py:543``, a ``lax.scan`` over slots under
 ``jax.jit(jax.vmap(...))``).  For CUDA tensors it launches the hand-written
-kernel (``csrc/slot_sweep.cu``, one thread a point) and counts the call in
+kernel (``csrc/slot_sweep.cu``: producer warps make the draws, a consumer
+warp runs the state machine, 32 points a block) and counts the call in
 ``slot_sweep.launches`` and, by the (M_MAX, Q_MAX) build it launched, in
 ``slot_sweep.launches_by_build``; for CPU tensors it runs
 ``reference_slot_sweep``.  It never falls back from the kernel to the plain

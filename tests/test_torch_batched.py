@@ -38,6 +38,8 @@ from repro.runtime.simcore import DEEP_CSTATE_ENERGY_MODEL as REF_DEEP
 from repro.runtime.simcore import HR_SLEEP_MODEL as REF_HR
 from repro.runtime.simcore import PERFECT_SLEEP_MODEL as REF_PERFECT
 from repro.runtime.simcore import SleepModel as RefSleepModel
+from repro_torch.kernels.slot_sweep import kernel as sweep_kernel
+from repro_torch.kernels.slot_sweep import ops as sweep_ops
 from repro_torch.kernels.slot_sweep import philox, slot_sweep
 from repro_torch.kernels.slot_sweep.ops import STAT_NAMES, reference_slot_sweep
 from repro_torch.runtime import (
@@ -398,6 +400,73 @@ def test_engine_parity_pass_holds_on_the_port():
     assert not res.findings, [f.format() for f in res.findings]
 
 
+# -- the edges of the kernel's ring of stages ----------------------------------
+
+# live slot counts around the kernel's stage length C, and one past the
+# three-stage ring, ending inside a stage
+EDGE_SLOTS = {"C-1": sweep_kernel.STAGE_SLOTS - 1, "C": sweep_kernel.STAGE_SLOTS,
+              "C+1": sweep_kernel.STAGE_SLOTS + 1, "4C+13": 4 * sweep_kernel.STAGE_SLOTS + 13}
+EDGE_POINTS = (1, 5, 33)            # a lone lane, a partial warp, a warp and one more
+
+
+def _edge_case(n_points: int, live: str, one_queue: bool):
+    """A grid of ``n_points`` and a config with every noise family on (tails
+    and stalls frequent enough to reach in a short run) whose run has
+    ``EDGE_SLOTS[live]`` slots of 0.5 us, windows of 10.5 slots and
+    schedule edges at fractions of a slot, so that both fall inside a
+    stage."""
+    rng = np.random.default_rng(n_points)
+    scheds = (StepSchedule(times_us=(0.0, 7.25), scales=(0.4, 1.5)),
+              RampSchedule(t_start_us=3.1, t_end_us=41.3, scale_from=0.3, scale_to=1.4), None)
+    pts = []
+    for i in range(n_points):
+        q = 1 if one_queue else int(rng.integers(1, 5))
+        p = dict(t_s_us=(t_s := float(rng.uniform(1.5, 8.0))),
+                 t_l_us=float(t_s * rng.uniform(2.0, 6.0)), m=int(rng.integers(1, 5)),
+                 n_queues=q, rate_mpps=float(rng.uniform(0.2, 0.95) * 29.76 * q / 2.0),
+                 seed=i // 2)
+        if scheds[i % 3] is not None:
+            p["schedule"] = scheds[i % 3]
+        pts.append(p)
+    sleep = SleepModel(**dict(TAIL_SLEEP, tail_prob=0.2, tail_mean_us=6.0))
+    cfg = SimRunConfig(duration_us=0.5 * EDGE_SLOTS[live], sleep_model=sleep, window_us=5.25,
+                       queue_capacity=24, interference_prob=0.25, interference_mean_us=4.0,
+                       stall_rate_per_us=1.0 / 40.0, stall_mean_us=6.0)
+    return SweepGrid.of_points(pts), cfg
+
+
+def test_stage_length_matches_the_kernel_source():
+    src = (Path(sweep_kernel.__file__).parents[1] / "csrc" / "slot_sweep.cu").read_text()
+    assert f"constexpr int kStageSlots = {sweep_kernel.STAGE_SLOTS};" in src
+
+
+@pytest.mark.parametrize("one_queue", (True, False), ids=("one queue", "up to four"))
+@pytest.mark.parametrize("live", tuple(EDGE_SLOTS))
+@pytest.mark.parametrize("n_points", EDGE_POINTS)
+def test_plain_version_does_not_depend_on_its_chunk_length(n_points, live, one_queue,
+                                                           monkeypatch):
+    """What the kernel's producers rely on: the state-free part of a run can
+    be made for any run of slots (the draws are counter-based, the stall
+    end and schedule pointer carry across), so the plain version gives the
+    same bits at chunks of 16 slots, of the kernel's stage length and of its
+    default, at the ring's edges."""
+    grid, cfg = _edge_case(n_points, live, one_queue)
+    args, params = batched.sweep_inputs(grid, cfg, 0.5, CPU)
+    assert params.live_slots() == EDGE_SLOTS[live]
+    assert all(params.flags.values()) and params.n_windows > 1 and args[7] is not None
+    outs = []
+    for chunk in (16, sweep_kernel.STAGE_SLOTS, None):
+        if chunk is not None:
+            monkeypatch.setattr(sweep_ops, "_CHUNK_ELEMS", chunk * n_points)
+        else:
+            monkeypatch.undo()
+        outs.append(reference_slot_sweep(*args, params))
+    assert float(outs[0]["wakeups"].sum()) > 0
+    for out in outs[1:]:
+        for name in (*STAT_NAMES, "win", "backlog"):
+            assert torch.equal(out[name], outs[0][name]), name
+
+
 @pytest.mark.gpu
 def test_kernel_equals_plain_version_on_the_card():
     if not torch.cuda.is_available():
@@ -420,3 +489,15 @@ def test_kernel_equals_plain_version_on_the_card():
             torch.testing.assert_close(out[name], plain[name], rtol=0, atol=0)
         for name in (*STAT_NAMES, "win", "backlog"):
             torch.testing.assert_close(out[name], plain[name], rtol=RTOL, atol=1e-3)
+    # the ring's edges, both builds, partial warps: bit for bit
+    for n_points, live, one_queue in ((n, lv, oq) for n in EDGE_POINTS for lv in EDGE_SLOTS
+                                      for oq in (True, False)):
+        grid, c = _edge_case(n_points, live, one_queue)
+        args, params = batched.sweep_inputs(grid, c, 0.5, "cuda")
+        build = (4, 1) if int(args[3].max()) == 1 else (4, 4)
+        on_build = slot_sweep.launches_by_build.get(build, 0)
+        out = slot_sweep(*args, params=params)
+        assert slot_sweep.launches_by_build[build] == on_build + 1
+        plain = reference_slot_sweep(*args, params)
+        for name in (*STAT_NAMES, "win", "backlog"):
+            assert torch.equal(out[name], plain[name]), (n_points, live, one_queue, name)
