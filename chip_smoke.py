@@ -6,9 +6,9 @@ Phases, each a hard failure (nonzero exit, no result line):
 
 1. the card (nvidia-smi name and power limit), torch/CUDA versions, and the
    build of every kernel of ``src/repro_torch/kernels`` (flash attention,
-   decode attention, SSD chunk scan, the sweep; one nvcc per source, in
+   decode attention, SSD chunk scan, the two sweeps; one nvcc per source, in
    parallel), with every kernel's registers and spills (the wgmma kernel,
-   the mma decode split, the K3 kernels and the sweep must not spill);
+   the mma decode split, the K3 kernels and the sweeps must not spill);
 2. each kernel against its plain PyTorch version on the card, at the
    serving path's shapes, the reference test sweep's and the full widths of
    gemma-2b, gemma2-2b and mamba2-370m, with the tolerance stated per case;
@@ -51,6 +51,27 @@ spill; their registers, static shared memory and ring sizes are printed):
   launch with every counter set to 0 just before, the exact identities at
   every point.
 
+Then the event-jump sweep S2 (``adaptive_sweep``, the reference's
+``runtime/batched_adaptive.py`` ``lax.scan``; one thread a point), built in
+phase 1 (its builds <4, 1> and <4, 4> must not spill):
+
+- phase 2: the kernel against its plain version, every output bit-equal: m
+  1-4 x n_queues 1-4 (and one queue a point) quiet, noisy and scheduled
+  with windows and deep C-states, a budget short enough for the tail's
+  pacing (forced steps), the main path's grid cut in duration only, and 1,
+  5 and 33 points; a diverging point reported with its step;
+- phase 3: the kernel timed at sweep_frontier's full grid (quiet, noisy) and
+  stepping.py's three loads, beside S1 on the same grid (live steps against
+  slots), its bound, the plain version over its first 300 steps and the
+  spread of live steps over a warp's points;
+- the band phase holds S2 too, against the event engine and, on 8-seed
+  means, against S1;
+- the calibration path, the slice's main path: ``build_operating_table(
+  stepping="adaptive")`` over sweep_frontier's lattice, uncut, with three
+  event-engine spot checks, in one S2 launch; ``table.save``; ``Server(engine,
+  MetronomePolicy(cfg), operating_table=path)`` on phase 4's gemma-2b engine,
+  serving N/N through K1's ``"wgmma"`` route.
+
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -64,6 +85,7 @@ reports whether each gives this kernel's bits (``phase_sweep_source_ab``).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import statistics
@@ -178,12 +200,14 @@ def phase_card() -> None:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     from repro_torch.kernels import _build
+    from repro_torch.kernels.adaptive_sweep import kernel as as_kernel
     from repro_torch.kernels.decode_attention import kernel as da_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.slot_sweep import kernel as sweep_kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     builds = {"flash_attention.cu": fa_kernel.build, "decode_attention.cu": da_kernel.build,
-              "ssd_scan.cu": ssd_kernel.build, "slot_sweep.cu": sweep_kernel.build}
+              "ssd_scan.cu": ssd_kernel.build, "slot_sweep.cu": sweep_kernel.build,
+              "adaptive_sweep.cu": as_kernel.build}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         for future in [pool.submit(fn) for fn in builds.values()]:
@@ -223,6 +247,16 @@ def phase_card() -> None:
     if set(kernels) != want or any(spills for _, spills, _ in kernels.values()):
         fail(f"want the 4 slot_sweep_kernel builds (<4, 1> and <4, 4>, each with 3 and 6 "
              f"producer warps), none spilling; ptxas gave {kernels}")
+    # S2: the (M_MAX, Q_MAX) builds <4, 1> and <4, 4>, one thread a point,
+    # built with -fmad=false; neither may spill
+    kernels = ptxas_kernels(_build.BUILD_INFO["adaptive_sweep.cu"]["log"])
+    for name, (regs, spills, smem) in kernels.items():
+        log(f"  {name}: {regs} registers, {spills} bytes of spill stores + loads, {smem} "
+            "bytes of static shared memory (no dynamic shared memory)")
+    want = {f"adaptive_sweep_kernel<4, {q}>" for q in (1, 4)}
+    if set(kernels) != want or any(spills for _, spills, _ in kernels.values()):
+        fail(f"want the 2 adaptive_sweep_kernel builds (<4, 1> and <4, 4>), none spilling; "
+             f"ptxas gave {kernels}")
     from repro_torch.runtime.batched import sweep_inputs
     for name, grid, cfg, slot_us in sweep_settings()[:2]:       # quiet; stalls on
         _, params = sweep_inputs(grid, cfg, slot_us, "cpu")
@@ -236,13 +270,13 @@ def phase_card() -> None:
 
 def ptxas_kernels(log_text: str) -> dict[str, tuple[int, int, int]]:
     """``nvcc -Xptxas -v`` output -> {kernel<[types, ]ints>: (registers, spill
-    bytes, static shared memory bytes)} for every kernel of the four
+    bytes, static shared memory bytes)} for every kernel of the five
     sources."""
     out, name, spills = {}, None, 0
     for ln in log_text.splitlines():
         if m := re.search(r"Compiling entry function '.*?(flash_fwd_\w+?|decode_split_mma_bf16|"
                           r"decode_split|decode_combine|ssd_chunk_state|ssd_chunk_out|"
-                          r"slot_sweep_kernel)"
+                          r"slot_sweep_kernel|adaptive_sweep_kernel)"
                           r"I((?:f|13__nv_bfloat16|S\d*_)*)((?:Li\d+E)+)", ln):
             # a repeated type is a substitution (S<n>_); only bf16 repeats
             types = ["float" if t == "f" else "bf16"
@@ -857,7 +891,7 @@ def phase_serve() -> dict:
         profile(f"prefill S={SERVE_BUCKETS[-1]}", model.prefill, params, {"tokens": toks})
         profile("decode step (4 slots)", model.decode_step, params, dtoks, cache, dpos)
     return {"launches": launches, "by_route": by_route, **other_launches,
-            "decode_by_route": decode_by_route}
+            "decode_by_route": decode_by_route, "engine": engine}
 
 
 # -- S1: the fixed-slot sweep (runtime/batched.py's lax.scan) ----------------
@@ -1128,11 +1162,12 @@ def phase_compare_sweep() -> dict:
     return {"max_abs_err": max_abs, "builds": builds}
 
 
-def check_builds_compared(name: str, compared: set) -> None:
-    """Fail unless every build ``slot_sweep`` launched since its counters
-    were reset was held against the plain version in phase 2."""
+def check_builds_compared(name: str, compared: set, wrapper=None) -> None:
+    """Fail unless every build ``wrapper`` (default ``slot_sweep``) launched
+    since its counters were reset was held against the plain version in
+    phase 2."""
     from repro_torch.kernels.slot_sweep import slot_sweep
-    launched = set(slot_sweep.launches_by_build)
+    launched = set((wrapper or slot_sweep).launches_by_build)
     if not launched <= compared:
         fail(f"{name} launched builds {sorted(launched - compared)} that phase 2 did not "
              "compare with the plain version")
@@ -1367,9 +1402,18 @@ def phase_sweep_source_ab(sources: list[str]) -> list[dict]:
     return rows
 
 
+BAND_SEEDS = 8      # S2 against S1: each band config at its seed and 7 more
+
+
 def _band_check(name, pts, cfg, lat_abs, lat_rel, cpu_abs, cpu_rel, loss_abs=None) -> None:
-    """tests/test_batched_engine.py's parity band: the sweep kernel (one
-    launch for the points) against the port's event engine, point by point."""
+    """tests/test_batched_engine.py's parity band: both sweep kernels, S1
+    and S2, against the port's event engine point by point at each config's
+    seed, as the reference holds them; and S2 against S1 in the same band on
+    the means over ``BAND_SEEDS`` seeds a config (its seed, then seed +
+    1000 k), since the two kernels draw independent sample paths and one
+    seed's noise alone can cross the noisy band (the reference's own noisy
+    band test fails on its own draws; PERF.md, PR 20).  One launch of each
+    kernel covers every seed."""
     from repro_torch.core import MetronomeConfig
     from repro_torch.runtime import (
         MetronomePolicy,
@@ -1378,39 +1422,75 @@ def _band_check(name, pts, cfg, lat_abs, lat_rel, cpu_abs, cpu_rel, loss_abs=Non
         simulate_batch,
         simulate_run,
     )
-    bs = simulate_batch(SweepGrid.of_points(pts), cfg, slot_us=0.5)
-    check_sweep_invariants(name, bs, cfg.energy_model)
-    worst, bad = {"lat": 0.0, "cpu": 0.0, "wake": 0.0, "loss": 0.0}, []
+    n = len(pts)
+    grid = SweepGrid.of_points([dict(p, seed=p["seed"] + 1000 * k)
+                                for k in range(BAND_SEEDS) for p in pts])
+    runs = {"S1": simulate_batch(grid, cfg, slot_us=0.5),
+            "S2": simulate_batch(grid, cfg, slot_us=0.5, stepping="adaptive")}
+    for tag, bs in runs.items():
+        check_sweep_invariants(f"{name} ({tag})", bs, cfg.energy_model)
+    events = [simulate_run(MetronomePolicy(MetronomeConfig(
+        m=p["m"], v_target_us=p["t_s_us"], t_long_us=p["t_l_us"],
+        ts_min_us=min(1.0, p["t_s_us"])), adaptive=False),
+        PoissonWorkload(p["rate_mpps"]), cfg) for p in pts]
+    bad = []
+    for tag, bs in runs.items():
+        worst = {"lat": 0.0, "cpu": 0.0, "wake": 0.0, "loss": 0.0}
+        for i, (p, rs) in enumerate(zip(pts, events, strict=True)):
+            lat_b, lat_e = float(bs.mean_latency_us[i]), rs.mean_sojourn_us
+            cpu_b, cpu_e = float(bs.cpu_fraction[i]), rs.cpu_fraction
+            loss_b, loss_e = float(bs.loss_fraction[i]), rs.loss_fraction
+            wake = abs(float(bs.wakeups[i]) - rs.wakeups) / max(rs.wakeups, 1)
+            ok = (abs(lat_b - lat_e) <= max(lat_abs, lat_rel * lat_e)
+                  and abs(cpu_b - cpu_e) <= cpu_abs + cpu_rel * cpu_e and wake <= 0.15)
+            if loss_abs is None:
+                ok &= loss_b < 1e-3 and loss_e < 1e-3
+            else:
+                ok &= abs(loss_b - loss_e) <= loss_abs
+            worst["lat"] = max(worst["lat"], abs(lat_b - lat_e) / max(lat_abs, lat_rel * lat_e))
+            worst["cpu"] = max(worst["cpu"], abs(cpu_b - cpu_e) / (cpu_abs + cpu_rel * cpu_e))
+            worst["wake"] = max(worst["wake"], wake / 0.15)
+            worst["loss"] = max(worst["loss"], abs(loss_b - loss_e))
+            if not ok:
+                bad.append(f"{tag} point {i} {p}: latency {lat_b:.2f} vs {lat_e:.2f} us, cpu "
+                           f"{cpu_b:.4f} vs {cpu_e:.4f}, wakeups {bs.wakeups[i]:.0f} vs "
+                           f"{rs.wakeups}, loss {loss_b:.4f} vs {loss_e:.4f}")
+        log(f"  {name}, {tag} vs the event engine: {n} configs at {cfg.duration_us:g} us, worst "
+            "share of the band: " + ", ".join(f"{k} {v:.2f}" for k, v in worst.items()
+                                             if k != "loss")
+            + f", loss gap {worst['loss']:.4f}")
+
+    def by_seed(bs, metric):
+        return getattr(bs, metric).reshape(BAND_SEEDS, n)
+
+    lat_f, lat_a = by_seed(runs["S1"], "mean_latency_us"), by_seed(runs["S2"], "mean_latency_us")
+    cpu_f, cpu_a = by_seed(runs["S1"], "cpu_fraction"), by_seed(runs["S2"], "cpu_fraction")
+    loss_f, loss_a = by_seed(runs["S1"], "loss_fraction"), by_seed(runs["S2"], "loss_fraction")
+    lat_share = np.abs(lat_a - lat_f) / np.maximum(lat_abs, lat_rel * lat_f)
+    worst = {"lat": 0.0, "cpu": 0.0, "loss": 0.0}
     for i, p in enumerate(pts):
-        rs = simulate_run(MetronomePolicy(MetronomeConfig(
-            m=p["m"], v_target_us=p["t_s_us"], t_long_us=p["t_l_us"],
-            ts_min_us=min(1.0, p["t_s_us"])), adaptive=False),
-            PoissonWorkload(p["rate_mpps"]), cfg)
-        lat_b, lat_e = float(bs.mean_latency_us[i]), rs.mean_sojourn_us
-        cpu_b, cpu_e = float(bs.cpu_fraction[i]), rs.cpu_fraction
-        loss_b, loss_e = float(bs.loss_fraction[i]), rs.loss_fraction
-        wake = abs(float(bs.wakeups[i]) - rs.wakeups) / max(rs.wakeups, 1)
-        ok = (abs(lat_b - lat_e) <= max(lat_abs, lat_rel * lat_e)
-              and abs(cpu_b - cpu_e) <= cpu_abs + cpu_rel * cpu_e and wake <= 0.15)
-        if loss_abs is None:
-            ok &= loss_b < 1e-3 and loss_e < 1e-3
-        else:
-            ok &= abs(loss_b - loss_e) <= loss_abs
-        worst["lat"] = max(worst["lat"], abs(lat_b - lat_e) / max(lat_abs, lat_rel * lat_e))
-        worst["cpu"] = max(worst["cpu"], abs(cpu_b - cpu_e) / (cpu_abs + cpu_rel * cpu_e))
-        worst["wake"] = max(worst["wake"], wake / 0.15)
-        worst["loss"] = max(worst["loss"], abs(loss_b - loss_e))
-        if not ok:
-            bad.append(f"point {i} {p}: latency {lat_b:.2f} vs {lat_e:.2f} us, cpu "
-                       f"{cpu_b:.4f} vs {cpu_e:.4f}, wakeups {bs.wakeups[i]:.0f} vs "
-                       f"{rs.wakeups}, loss {loss_b:.4f} vs {loss_e:.4f}")
-    log(f"  {name}: {len(pts)} configs at {cfg.duration_us:g} us, worst share of the band: "
-        + ", ".join(f"{k} {v:.2f}" for k, v in worst.items() if k != "loss")
-        + f", loss gap {worst['loss']:.4f} {'ok' if not bad else 'FAIL'}")
+        lf, la = float(lat_f[:, i].mean()), float(lat_a[:, i].mean())
+        cf, ca = float(cpu_f[:, i].mean()), float(cpu_a[:, i].mean())
+        loss_gap = abs(float(loss_a[:, i].mean()) - float(loss_f[:, i].mean()))
+        worst["lat"] = max(worst["lat"], abs(la - lf) / max(lat_abs, lat_rel * lf))
+        worst["cpu"] = max(worst["cpu"], abs(ca - cf) / (cpu_abs + cpu_rel * cf))
+        worst["loss"] = max(worst["loss"], loss_gap)
+        if (abs(la - lf) > max(lat_abs, lat_rel * lf) or abs(ca - cf) > cpu_abs + cpu_rel * cf
+                or (loss_abs is not None and loss_gap > loss_abs)):
+            bad.append(f"S2 vs S1 point {i} {p}: mean over {BAND_SEEDS} seeds latency {la:.2f} vs "
+                       f"{lf:.2f} us, cpu {ca:.4f} vs {cf:.4f}, loss gap {loss_gap:.4f}")
+    s1, s2 = runs["S1"], runs["S2"]
+    log(f"  {name}, S2 vs S1 on {BAND_SEEDS}-seed means: worst share of the band: lat "
+        f"{worst['lat']:.2f}, cpu {worst['cpu']:.2f}, loss gap {worst['loss']:.4f} (one seed's "
+        f"latency share: at the configs' seeds {float(lat_share[0].max()):.2f}, over all "
+        f"{BAND_SEEDS} {float(lat_share.max()):.2f}); live steps "
+        f"{float(s2.n_steps.mean()):.0f} a point against {float(s1.n_steps.mean()):.0f} slots "
+        f"({100 * float(s2.n_steps.mean()) / float(s1.n_steps.mean()):.1f}%) "
+        f"{'ok' if not bad else 'FAIL'}")
     for line in bad:
         log(f"    {line}")
     if bad:
-        fail(f"{name}: the sweep kernel leaves the reference's parity band")
+        fail(f"{name}: a sweep kernel leaves the reference's parity band")
 
 
 def _band_configs(n: int, seed: int) -> list[dict]:
@@ -1425,19 +1505,22 @@ def _band_configs(n: int, seed: int) -> list[dict]:
     return pts
 
 
-def phase_sweep_bands(compared: set) -> None:
-    """tests/test_batched_engine.py's parity bands (:20-35) through the
-    kernel: 24 random quiet configs (mean sojourn within max(1.5 us, 12%),
+def phase_sweep_bands(compared: set, compared_s2: set) -> None:
+    """tests/test_batched_engine.py's parity bands (:20-35) through both
+    kernels: 24 random quiet configs (mean sojourn within max(1.5 us, 12%),
     cpu within 0.02 + 5%, wakeups within 15%, no loss) and the 16 configs
     of its interference environment (max(4.5 us, 22%), 0.025 + 6%, loss
-    within 0.03), each against the port's event engine at 120,000 us, and
-    the exact identities of both sweeps."""
+    within 0.03), each against the port's event engine at 120,000 us, S2
+    against S1 in the same bands on 8-seed means (``_band_check``), and the
+    exact identities of every sweep."""
+    from repro_torch.kernels.adaptive_sweep.ops import adaptive_sweep
     from repro_torch.kernels.slot_sweep import slot_sweep
     from repro_torch.runtime import HR_SLEEP_MODEL, SimRunConfig
     t0 = time.perf_counter()
-    log("band phase: slot_sweep against the port's event engine (simulate_run) inside "
-        "the reference's parity bands")
+    log("band phase: slot_sweep (S1) and adaptive_sweep (S2) against the port's event engine "
+        "(simulate_run), and S2 against S1, inside the reference's parity bands")
     slot_sweep.launches_by_build = {}
+    adaptive_sweep.launches_by_build = {}
     _band_check("24 quiet configs", _band_configs(24, 42),
                 SimRunConfig(duration_us=120_000.0, sleep_model=HR_SLEEP_MODEL),
                 1.5, 0.12, 0.02, 0.05)
@@ -1445,6 +1528,7 @@ def phase_sweep_bands(compared: set) -> None:
                 SimRunConfig(duration_us=120_000.0, sleep_model=HR_SLEEP_MODEL, **BAND_NOISY),
                 4.5, 0.22, 0.025, 0.06, loss_abs=0.03)
     check_builds_compared("the band phase", compared)
+    check_builds_compared("the band phase", compared_s2, adaptive_sweep)
     log(f"  band phase took {time.perf_counter() - t0:.1f} s")
 
 
@@ -1454,13 +1538,19 @@ def phase_sweep_main(compared: set) -> dict:
     with every launch counter set to 0 just before and read just after:
     exactly one slot_sweep launch and no other kernel.  Then the exact
     identities at every point, and a few points as ``RunStats``."""
-    from repro_torch.kernels import decode_attention, flash_attention, slot_sweep, ssd_scan
+    from repro_torch.kernels import (
+        adaptive_sweep,
+        decode_attention,
+        flash_attention,
+        slot_sweep,
+        ssd_scan,
+    )
     from repro_torch.runtime import SimRunConfig, simulate_batch
     t0 = time.perf_counter()
     log("main path (S1): simulate_batch over sweep_frontier's full quiet grid")
     grid = frontier_grid()
     cfg = SimRunConfig(duration_us=FRONTIER_US)
-    counters = (flash_attention, decode_attention, ssd_scan, slot_sweep)
+    counters = (flash_attention, decode_attention, ssd_scan, slot_sweep, adaptive_sweep)
     for k in counters:
         k.launches = 0
     slot_sweep.launches_by_build = {}
@@ -1470,7 +1560,7 @@ def phase_sweep_main(compared: set) -> dict:
     launches = {k.__name__: k.launches for k in counters}
     builds = dict(slot_sweep.launches_by_build)
     if launches != {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 0,
-                    "slot_sweep": 1}:
+                    "slot_sweep": 1, "adaptive_sweep": 0}:
         fail(f"simulate_batch launched {launches}; want exactly one slot_sweep launch")
     check_builds_compared("the main path", compared)
     if len(bs) != len(grid) or bs.reshaped("cpu_fraction").shape != grid.shape:
@@ -1495,6 +1585,466 @@ def phase_sweep_main(compared: set) -> dict:
         log(f"    RunStats {line}")
     log(f"  main path (S1) took {time.perf_counter() - t0:.1f} s")
     return {"launches": launches["slot_sweep"], "host_s": host_s}
+
+
+# -- S2: the event-jump sweep (runtime/batched_adaptive.py's lax.scan) --------
+
+# benchmarks/stepping.py's full grid (:44-51): T_S 50 us, T_L 500 us, M 3, two
+# queues, 48 seeds a load, 120 ms, HR_SLEEP_MODEL; one simulate_batch a load
+STEPPING_RHOS = (0.2, 0.45, 0.7)
+ADAPTIVE_PLAIN_STEPS = 300
+FRONTIER_TARGET_US = 15.0       # benchmarks/sweep_frontier.py's latency target (:51)
+
+
+def stepping_grid(rho: float):
+    from repro_torch.runtime import HR_SLEEP_MODEL, SimRunConfig, SweepGrid
+    pts = [dict(t_s_us=50.0, t_l_us=500.0, m=3, n_queues=2, rate_mpps=rho * MU_MPPS, seed=s)
+           for s in range(48)]
+    return SweepGrid.of_points(pts), SimRunConfig(duration_us=120_000.0,
+                                                  sleep_model=HR_SLEEP_MODEL)
+
+
+def adaptive_settings():
+    """(name, grid, cfg, slot_us): the sweeps S2's phase 3 times, each as the
+    repo runs it: sweep_frontier's full grid (quiet, noisy), then
+    stepping.py's three loads."""
+    from repro_torch.runtime import SimRunConfig
+    out = [("sweep_frontier full, quiet", frontier_grid(),
+            SimRunConfig(duration_us=FRONTIER_US), 0.5),
+           ("sweep_frontier full, noisy", frontier_grid(),
+            SimRunConfig(duration_us=FRONTIER_US, **FRONTIER_NOISY), 0.5)]
+    for rho in STEPPING_RHOS:
+        grid, cfg = stepping_grid(rho)
+        out.append((f"stepping.py rho {rho}", grid, cfg, 0.5))
+    return out
+
+
+def adaptive_compare_cases():
+    """(name, grid, cfg, slot_us): S2 against its plain version.  16 points,
+    every (m, n_queues) in 1..4 x 1..4 (and one queue throughout: the other
+    build), quiet, noisy (sleep tails, interference, stall windows) and
+    scheduled (per-point schedules, windows of 130 us, deep C-states); a grid
+    whose budget is short (slots of 10 us cap it at 157 steps) so that the
+    last eighth paces every point (forced steps); the main path's grid,
+    sweep_frontier's 2016 points in its quiet and noisy config, cut in
+    duration only; and 1, 5 and 33 points (a lone lane, a partial warp, a
+    warp and one more)."""
+    from repro_torch.runtime import (
+        DEEP_CSTATE_ENERGY_MODEL,
+        HR_SLEEP_MODEL,
+        RampSchedule,
+        SimRunConfig,
+        SleepModel,
+        StepSchedule,
+        SweepGrid,
+    )
+    tail = SleepModel(base_us=2.8, slope=0.027, sigma_us=0.5, tail_prob=0.01,
+                      tail_mean_us=40.0)
+    noisy = dict(BAND_NOISY, stall_rate_per_us=1.0 / 400.0)
+
+    def multi(seed, scheds=(), t_s=(4.0, 40.0), one_queue=False):
+        rng = np.random.default_rng(seed)
+        pts = []
+        for m in (1, 2, 3, 4):
+            for q in (1, 2, 3, 4):
+                pts.append(dict(t_s_us=float(rng.uniform(*t_s)),
+                                t_l_us=float(rng.uniform(100.0, 600.0)), m=m,
+                                n_queues=1 if one_queue else q,
+                                rate_mpps=float(rng.uniform(0.1, 0.9) * MU_MPPS * q / 2.0),
+                                seed=int(rng.integers(0, 3))))
+        for i, s in enumerate(scheds):
+            pts[i]["schedule"] = s
+        return SweepGrid.of_points(pts)
+
+    scheds = [StepSchedule(times_us=(0.0, 600.0), scales=(0.3, 1.6)),
+              RampSchedule(t_start_us=200.0, t_end_us=1_200.0, scale_from=0.2,
+                           scale_to=1.5)] * 4
+    quiet = SimRunConfig(duration_us=1_500.0, sleep_model=HR_SLEEP_MODEL)
+    noisy_cfg = SimRunConfig(duration_us=1_500.0, queue_capacity=64, sleep_model=tail, **noisy)
+    sched_cfg = SimRunConfig(duration_us=1_500.0, window_us=130.0,
+                             energy_model=DEEP_CSTATE_ENERGY_MODEL)
+    cases = []
+    for one_queue in (False, True):
+        tag = ", one queue a point" if one_queue else ""
+        cases += [(f"m 1-4 x n_queues 1-4, quiet{tag}", multi(1, one_queue=one_queue), quiet,
+                   0.5),
+                  (f"m 1-4 x n_queues 1-4, noisy{tag}", multi(2, one_queue=one_queue),
+                   noisy_cfg, 0.5),
+                  (f"m 1-4 x n_queues 1-4, scheduled{tag}",
+                   multi(3, scheds, one_queue=one_queue), sched_cfg, 0.5),
+                  (f"tail pacing (slots of 10 us){tag}",
+                   multi(5, t_s=(20.0, 60.0), one_queue=one_queue), noisy_cfg, 10.0)]
+    cut_us = 2_000.0
+    cases += [(f"sweep_frontier full grid, quiet, first {cut_us:g} us", frontier_grid(),
+               SimRunConfig(duration_us=cut_us), 0.5),
+              (f"sweep_frontier full grid, noisy, first {cut_us:g} us", frontier_grid(),
+               SimRunConfig(duration_us=cut_us, **FRONTIER_NOISY), 0.5)]
+    pool = multi(2)
+    for n in (1, 5, 33):
+        pts = [pool.point(i % len(pool)) for i in range(n)]
+        cases.append((f"{n} points, noisy", SweepGrid.of_points(pts), noisy_cfg, 0.5))
+        cases.append((f"{n} points, noisy, tail pacing", SweepGrid.of_points(pts), noisy_cfg,
+                      10.0))
+    return cases
+
+
+def adaptive_first_divergence(args, params, i: int) -> int:
+    """The first step after which point ``i``'s outputs differ between S2
+    and its plain version: both run the point alone under the batch's step
+    budget (its draws depend on its seed and the step alone) for prefixes of
+    the run (``run_steps``), and a bisection finds the shortest that
+    differs."""
+    from repro_torch.kernels.adaptive_sweep.ops import adaptive_sweep, reference_adaptive_sweep
+    one = [None if a is None else a[i:i + 1].contiguous() for a in args]
+
+    def differs(n: int) -> bool:
+        p = dataclasses.replace(params, run_steps=n)
+        out, ref = adaptive_sweep(*one, params=p), reference_adaptive_sweep(*one, p)
+        return not all(torch.equal(out[k], ref[k]) for k in out)
+
+    lo, hi = 0, params.max_steps
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if differs(mid):
+            hi = mid
+        else:
+            lo = mid
+    return hi - 1
+
+
+def warp_spread(n_steps) -> dict:
+    """Live steps of a sweep's points by warp (32 points in grid order, as
+    the kernel lays them out): a warp runs as long as its longest point, so
+    the sum over warps of (longest - mean) is the lanes' idle time."""
+    s = n_steps.double().cpu().numpy()
+    pad = (-len(s)) % 32
+    w = np.pad(s, (0, pad), constant_values=np.nan).reshape(-1, 32)
+    longest, mean = np.nanmax(w, 1), np.nanmean(w, 1)
+    return {"warps": len(w), "steps_max": float(s.max()), "steps_mean": float(s.mean()),
+            "warp_longest_max": float(longest.max()),
+            "warp_longest_over_mean": float(np.mean(longest / np.maximum(mean, 1.0))),
+            "lane_busy_share": float(s.sum() / (longest * np.sum(~np.isnan(w), 1)).sum())}
+
+
+def phase_compare_adaptive() -> dict:
+    """S2 against its plain version on the card (``adaptive_compare_cases``):
+    every output bit-equal (the same float32 operations in the same order, no
+    fma contraction, the same math library); a point that differs is
+    reported with the step where it diverges.  Returns the max abs error and
+    the builds compared."""
+    from repro_torch.kernels.adaptive_sweep.ops import adaptive_sweep, reference_adaptive_sweep
+    from repro_torch.runtime.batched_adaptive import adaptive_sweep_inputs
+    t0 = time.perf_counter()
+    log("phase 2: adaptive_sweep (S2) vs plain version: m 1-4 x n_queues 1-4 quiet, noisy and "
+        "scheduled, a budget short enough for tail pacing, the main path's grid "
+        "(sweep_frontier, 2016 points) cut in duration only, and 1, 5, 33 points; every output "
+        "bit-equal")
+    adaptive_sweep.launches = 0
+    adaptive_sweep.launches_by_build = {}
+    cases = adaptive_compare_cases()
+    max_abs, failed, forced_seen = 0.0, [], False
+    for name, grid, cfg, slot_us in cases:
+        args, params = adaptive_sweep_inputs(grid, cfg, slot_us, "cuda")
+        before = dict(adaptive_sweep.launches_by_build)
+        out = adaptive_sweep(*args, params=params)
+        (build,) = [b for b, n in adaptive_sweep.launches_by_build.items()
+                    if n != before.get(b, 0)]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ref = reference_adaptive_sweep(*args, params)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t1
+        outputs = [k for k in out if out[k].numel()]
+        exact = [k for k in outputs if torch.equal(out[k], ref[k])]
+        finite = all(bool(torch.isfinite(v).all()) for v in out.values())
+        done = bool((out["sim_time"] == np.float32(cfg.duration_us)).all())
+        abs_err = max(float((out[k].double() - ref[k].double()).abs().max()) for k in outputs)
+        forced = float(out["forced_steps"].sum())
+        forced_seen |= forced > 0
+        ok = exact == outputs and finite and done
+        sp = warp_spread(out["n_steps"])
+        log(f"  {name}: {len(grid)} points, build <{build[0]}, {build[1]}>, flags "
+            f"{params.flags}, budget {params.max_steps} steps, live steps max "
+            f"{sp['steps_max']:.0f} mean {sp['steps_mean']:.1f}, forced {forced:.0f}, "
+            f"{params.n_windows} windows: max_abs_err={abs_err:.3e}; bit-equal: {len(exact)} "
+            f"of {len(outputs)} outputs"
+            f"{'' if exact == outputs else ' ' + str(sorted(set(outputs) - set(exact)))}; "
+            f"every point at its duration: {done}; plain {plain_s:.2f} s "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(name)
+            diff = sum((out[k] != ref[k]).reshape(len(grid), -1).any(1).to(torch.int64)
+                       for k in outputs)
+            for i in torch.nonzero(diff).flatten().tolist()[:3]:
+                p = grid.point(i)
+                log(f"    point {i} (m={p['m']} n_queues={p['n_queues']} seed={p['seed']}) "
+                    f"diverges at step {adaptive_first_divergence(args, params, i)}")
+        max_abs = max(max_abs, abs_err)
+    builds = set(adaptive_sweep.launches_by_build)
+    if adaptive_sweep.launches != len(cases) or builds != {(4, 1), (4, 4)}:
+        fail(f"adaptive_sweep counted {adaptive_sweep.launches} launches "
+             f"({adaptive_sweep.launches_by_build}) for {len(cases)} calls of two builds")
+    if not forced_seen:
+        fail("no phase-2 case of adaptive_sweep reached the tail's pacing (forced steps)")
+    if failed:
+        fail(f"adaptive_sweep disagrees with its plain version ({'; '.join(failed)})")
+    log(f"  phase 2 (adaptive_sweep) took {time.perf_counter() - t0:.1f} s")
+    return {"max_abs_err": max_abs, "builds": builds}
+
+
+def adaptive_bound(args, params, out) -> dict:
+    """Least time for an event-jump sweep's work on the card, counted from
+    the code (csrc/adaptive_sweep.cu) for this run's points and live steps,
+    as ``sweep_bound`` counts S1's.  Every live step draws the queues'
+    normals (one Philox block, 60 int32 operations; a shift and a convert a
+    word used; a Box-Muller pair is a log, a sqrt, a cos and a sin and 7
+    float32 operations) and makes the jump: a wake bound 2 float32
+    operations a thread; a queue's drain and fill bounds 14 and a division
+    each (a reciprocal on the special-function unit and 4 float32
+    operations), its arrivals a square root (one special-function
+    operation and 4 float32) and 16, its drain, room, vacation and sums 12;
+    a thread's countdown and wake test 3; the jump's mins, floor and
+    forced test 14, the step's sums 22 (+6 with windows: a product, a
+    convert and 5 sums), the step index's convert 1.  A step where a thread
+    re-arms also draws its overshoot, as S1's (counted at the fewest such
+    steps, re-arms / m); an expected stall start (rate x duration a point)
+    draws one block, two logs and 6 float32 operations.  Bytes: each input
+    read once (7 words a point and its schedule rows), each output written
+    once (16 words a point and its windows).  Returns the time by resource
+    and the largest, the bound."""
+    m = args[2].double().cpu().numpy()
+    q = args[3].double().cpu().numpy()
+    n = out["n_steps"].double().cpu().numpy()
+    fl = {k: float(v) for k, v in params.flags.items()}
+    pq, pm = np.ceil(q / 2.0), np.ceil(m / 2.0)
+    win = 1.0 if params.n_windows else 0.0
+    rearms = (out["ts_arms"].double().cpu().numpy()
+              + out["busy_tries"].double().cpu().numpy())
+    rs = rearms / m
+    stalls = fl["stall"] * params.stall_rate_per_us * params.duration_us
+    int32 = n * (60.0 + 2.0 * pq) + 18.0 + stalls * 62.0 \
+        + rs * (fl["sigma"] * (60.0 + 2.0 * pm) + (fl["tail"] + fl["intf"]) * (60.0 + m))
+    cvt = n * (2.0 * pq + 1.0 + win) + stalls * 2.0 \
+        + rs * (fl["sigma"] * 2.0 * pm + (fl["tail"] + fl["intf"]) * m)
+    sfu = n * (4.0 * pq + 3.0 * q) + stalls * 2.0 + rs * fl["sigma"] * 4.0 * pm
+    f32 = n * (7.0 * pq + 2.0 * m + 56.0 * q + 3.0 * m + 14.0 + 22.0 + 6.0 * win) \
+        + stalls * 6.0 \
+        + rs * (fl["sigma"] * (7.0 * pm + 3.0 * m) + (fl["tail"] + fl["intf"]) * m) \
+        + 2.0 * rearms
+    ops = {"f32": float(f32.sum()), "int32": float(int32.sum()), "cvt": float(cvt.sum()),
+           "sfu": float(sfu.sum())}
+    nbytes = 4.0 * (23 * len(m) + out["win"].numel())
+    if args[7] is not None:
+        nbytes += 4.0 * (args[7].numel() + args[8].numel())
+    times = {"f32": ops["f32"] / PEAK_F32_OPS * 1e3,
+             "int32": ops["int32"] / PEAK_INT32_OPS * 1e3,
+             "cvt": ops["cvt"] / PEAK_SFU_OPS * 1e3,
+             "sfu": ops["sfu"] / PEAK_SFU_OPS * 1e3,
+             "bytes": nbytes / PEAK_BYTES_PER_S * 1e3}
+    worst = max(times, key=times.get)
+    point_steps = float(n.sum())
+    per = {k: v / point_steps for k, v in (*ops.items(), ("bytes", nbytes))}
+    return {"bound_ms": times[worst], "bound_by": "bytes" if worst == "bytes" else "operations",
+            "bound_resource": worst, "bound_times_ms": times, "point_steps": point_steps,
+            "per_point_step": per}
+
+
+def phase_time_adaptive(compared: set, compared_s1: set) -> list[dict]:
+    """S2 at the repo's sweep shapes (``adaptive_settings``): median of 5
+    CUDA-event timings after 1 warm-up, each behind the device-side spin; S1
+    timed the same way on the same grid (its slots beside S2's live steps);
+    the plain version measured over its first ``ADAPTIVE_PLAIN_STEPS`` steps;
+    the bound from the code's operations (``adaptive_bound``); the spread of
+    live steps over each warp's points.  One launch a sweep, every build
+    among those phase 2 compared; the exact identities at every point."""
+    from repro_torch.kernels.adaptive_sweep.ops import adaptive_sweep, reference_adaptive_sweep
+    from repro_torch.kernels.slot_sweep import slot_sweep
+    from repro_torch.runtime.batched import simulate_batch, sweep_inputs
+    from repro_torch.runtime.batched_adaptive import adaptive_sweep_inputs
+    t0 = time.perf_counter()
+    log("phase 3: adaptive_sweep (S2) at the repo's sweep shapes: kernel median of 5 CUDA-event "
+        "timings after 1 warm-up; S1 (slot_sweep) the same way on the same grid; plain version "
+        f"measured over its first {ADAPTIVE_PLAIN_STEPS} steps; bound from the code's operations "
+        "(adaptive_bound); live steps by warp")
+    rows = []
+    for name, grid, cfg, slot_us in adaptive_settings():
+        args, params = adaptive_sweep_inputs(grid, cfg, slot_us, "cuda")
+        adaptive_sweep.launches = 0
+        adaptive_sweep.launches_by_build = {}
+        ms = time_ms(adaptive_sweep, *args, params=params, iters=5, warmup=1)
+        if adaptive_sweep.launches != 6:
+            fail(f"{name}: adaptive_sweep counted {adaptive_sweep.launches} launches for 6 calls")
+        (build,) = adaptive_sweep.launches_by_build
+        check_builds_compared(name, compared, adaptive_sweep)
+        out = adaptive_sweep(*args, params=params)
+        bs = simulate_batch(grid, cfg, slot_us=slot_us, stepping="adaptive")
+        if not all(np.array_equal(getattr(bs, k), out[k].double().cpu().numpy())
+                   for k in ("wakeups", "n_steps", "energy_uj")):
+            fail(f"{name}: simulate_batch(stepping='adaptive') differs from its launch")
+        check_sweep_invariants(f"{name} (S2)", bs, cfg.energy_model)
+        if not np.all(bs.sim_time_us == np.float32(cfg.duration_us)):
+            fail(f"{name}: a point of the event-jump sweep ended before its duration")
+        s1_args, s1_params = sweep_inputs(grid, cfg, slot_us, "cuda")
+        slot_sweep.launches_by_build = {}
+        s1_ms = time_ms(slot_sweep, *s1_args, params=s1_params, iters=5, warmup=1)
+        check_builds_compared(f"{name} (S1)", compared_s1)
+        cut = dataclasses.replace(params, run_steps=ADAPTIVE_PLAIN_STEPS)
+        plain_ms = time_ms(reference_adaptive_sweep, *args, cut, iters=1, warmup=0)
+        b = adaptive_bound(args, params, out)
+        sp = warp_spread(out["n_steps"])
+        rate = b["point_steps"] / (ms / 1e3)
+        n_slots = s1_params.live_slots()
+        rows.append({
+            "name": name, "ms": ms, "plain_ms": plain_ms, "plain_steps": ADAPTIVE_PLAIN_STEPS,
+            "library_ms": None, "launches": 1, "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"], "bound_resource": b["bound_resource"],
+            "point_steps_per_s": rate, "build": f"<{build[0]}, {build[1]}>",
+            "s1_ms": s1_ms, "s1_slots": n_slots, "budget": params.max_steps, **sp,
+            "forced_steps": float(out["forced_steps"].sum()),
+            "shape": f"{len(grid)} points, budget {params.max_steps} steps, live steps max "
+                     f"{sp['steps_max']:.0f} mean {sp['steps_mean']:.1f} (S1: {n_slots} "
+                     f"slots), m <= {int(grid.m.max())}, n_queues <= "
+                     f"{int(grid.n_queues.max())}, flags {params.flags}; plain_ms over the "
+                     f"first {ADAPTIVE_PLAIN_STEPS} steps"})
+        log(f"  {name}: {len(grid)} points, build <{build[0]}, {build[1]}>, budget "
+            f"{params.max_steps} steps: kernel {ms:.3f} ms ({rate:.4e} point-steps/s); live "
+            f"steps max {sp['steps_max']:.0f} mean {sp['steps_mean']:.1f} against S1's "
+            f"{n_slots} slots (S1 {s1_ms:.3f} ms on this grid: S2 {s1_ms / ms:.2f}x faster); "
+            f"warps {sp['warps']}, longest point of a warp {sp['warp_longest_over_mean']:.2f}x "
+            f"its mean, lanes busy {100 * sp['lane_busy_share']:.1f}% of the warps' steps; "
+            f"forced steps {float(out['forced_steps'].sum()):.0f}; plain {plain_ms:.1f} ms "
+            f"measured for {ADAPTIVE_PLAIN_STEPS} steps; library none; bound "
+            f"{b['bound_ms'] * 1e3:.2f} us ({b['bound_resource']}; " + ", ".join(
+                f"{k} {v * 1e3:.2f} us" for k, v in b["bound_times_ms"].items())
+            + f"), {100 * b['bound_ms'] / ms:.4f}% of it; per point-step " + ", ".join(
+                f"{k} {v:.3g}" for k, v in b["per_point_step"].items())
+            + f"; mean latency {float(np.mean(bs.mean_latency_us)):.2f} us, cpu "
+            f"{float(np.mean(bs.cpu_fraction)):.3f}")
+    log(f"  phase 3 (adaptive_sweep) took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def phase_calibration_main(engine, compared: set) -> dict:
+    """The calibration path, the slice's main path, with every launch counter
+    set to 0 just before and read just after:
+    ``build_operating_table(stepping="adaptive")`` on sweep_frontier's
+    lattice and config, uncut (2016 points, 50 ms, slots of 0.5 us, target
+    15 us, loss 1e-3, spot_check=3: three points re-run through the port's
+    event engine; a CalibrationMismatch fails the run), in exactly one S2
+    launch; ``table.save`` to a temporary path; ``Server(engine,
+    MetronomePolicy(cfg), operating_table=path)`` on phase 4's gemma-2b
+    engine serving a few requests, its pollers sleeping on the OS timer,
+    flash attention's launches all on the ``"wgmma"`` route."""
+    import tempfile
+
+    from repro_torch.core import MetronomeConfig
+    from repro_torch.core.hr_sleep import _get_cal as hr_sleep_cal
+    from repro_torch.core.hr_sleep import make_hr_sleep
+    from repro_torch.kernels import (
+        adaptive_sweep,
+        decode_attention,
+        flash_attention,
+        slot_sweep,
+        ssd_scan,
+    )
+    from repro_torch.runtime import (
+        MetronomePolicy,
+        OperatingTable,
+        SimRunConfig,
+        build_operating_table,
+    )
+    from repro_torch.serving import Request, Server
+    t0 = time.perf_counter()
+    f = FRONTIER
+    log("main path (calibration): build_operating_table(stepping='adaptive') over "
+        "sweep_frontier's lattice, uncut, spot_check=3 -> table.save -> Server(engine, "
+        "MetronomePolicy(cfg), operating_table=path) serving gemma-2b")
+    counters = (flash_attention, decode_attention, ssd_scan, slot_sweep, adaptive_sweep)
+    for k in counters:
+        k.launches = 0
+    adaptive_sweep.launches_by_build = {}
+    flash_attention.launches_by_route = {"wgmma": 0, "simt": 0}
+    t1 = time.perf_counter()
+    table = build_operating_table(
+        rhos=f["rhos"], target_mean_latency_us=FRONTIER_TARGET_US, t_s_grid=f["t_s_grid"],
+        t_l_grid=f["t_l_grid"], m_grid=f["m_grid"], cfg=SimRunConfig(duration_us=FRONTIER_US),
+        seeds=f["seeds"], slot_us=0.5, max_loss=1e-3, spot_check=3, stepping="adaptive")
+    build_s = time.perf_counter() - t1
+    after_build = {k.__name__: k.launches for k in counters}
+    if after_build != {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 0,
+                       "slot_sweep": 0, "adaptive_sweep": 1}:
+        fail(f"build_operating_table launched {after_build}; want exactly one adaptive_sweep")
+    check_builds_compared("the calibration path", compared, adaptive_sweep)
+    for p in table.points:
+        log(f"    rho {p.rho:.2f}: T_S {p.t_s_us:.2f} us, T_L {p.t_l_us:.0f} us, M {p.m}, mean "
+            f"latency {p.mean_latency_us:.2f} us, cpu {p.cpu_fraction:.4f}, loss "
+            f"{p.loss_fraction:.2e}, meets target {p.meets_target}")
+    if not all(p.meets_target for p in table.points):
+        fail("the calibrated table misses the latency target at some load")
+    cpus = [p.cpu_fraction for p in table.points]
+    if cpus != sorted(cpus):
+        fail(f"the calibrated table's CPU does not rise with load: {cpus}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "operating_table.json"
+        table.save(path)
+        loaded = OperatingTable.load(path)
+        if loaded != table:
+            fail("the saved operating table does not load back equal")
+        policy = MetronomePolicy(MetronomeConfig(m=3, v_target_us=2_000.0,
+                                                 t_long_us=50_000.0))
+        # the table's timeouts are tens of us, under hr_sleep's spin margin
+        # (hundreds of us on the card's host; logged below): hr_sleep would
+        # then spin every sleep out holding the GIL, and three spinning
+        # pollers starved the engine's thread (4 requests not done in 120 s;
+        # PERF.md, PR 20).  The OS timer alone (spin_cap_ns=0) releases it.
+        server = Server(engine, policy, operating_table=path,
+                        sleep_fn=make_hr_sleep(spin_cap_ns=0))
+    ctl = policy.controller
+    margin_ns = hr_sleep_cal().margin_ns
+    if server.operating_table != table or ctl.feedforward != table:
+        fail("Server(operating_table=path) did not install the table")
+    ts0, tl0 = ctl.t_short_us, ctl.t_long_us
+    want_ts, want_tl = table.timeouts_us(ctl.rho)
+    if abs(ts0 - want_ts) > 1e-9 * max(1.0, want_ts):
+        fail(f"the controller starts at T_S {ts0} us, the table gives {want_ts} at rho "
+             f"{ctl.rho}")
+    rng = np.random.default_rng(1)
+    lens = (64, 300, 900, 40)
+    reqs = [Request(prompt=[int(t) for t in rng.integers(1, engine.model.cfg.vocab_size, n)],
+                    max_new_tokens=8) for n in lens]
+    server.start()
+    for r in reqs:
+        r.arrival_ns = time.monotonic_ns()
+        server.submit(r)
+        time.sleep(rng.exponential(1.0 / 20.0))
+    done = all(r.wait(120.0) for r in reqs)
+    stats = server.stop()
+    launches = {k.__name__: k.launches for k in counters}
+    by_route = dict(flash_attention.launches_by_route)
+    if not done:
+        fail(f"the calibrated server did not complete every request within 120 s: tokens "
+             f"{[len(r.tokens) for r in reqs]}, wakeups {stats.wakeups}, busy tries "
+             f"{stats.busy_tries}, cycles {stats.cycles}, launches {launches}, controller rho "
+             f"{ctl.rho:.3f} T_S {ctl.t_short_us:.2f} us T_L {ctl.t_long_us:.1f} us")
+    completed = sum(len(r.tokens) == 8 for r in reqs)
+    n_layers = engine.model.cfg.n_layers
+    want = {"flash_attention": n_layers * len(reqs), "decode_attention": 0, "ssd_scan": 0,
+            "slot_sweep": 0, "adaptive_sweep": 1}
+    if completed != len(reqs) or launches != want or by_route != {
+            "wgmma": n_layers * len(reqs), "simt": 0}:
+        fail(f"calibrated serving: completed {completed}/{len(reqs)}, launches {launches} "
+             f"(want {want}), flash attention by route {by_route}")
+    log(f"  table from one adaptive_sweep launch in {build_s:.3f} s host clock (sweep, guard, "
+        f"3 event-engine spot checks); server from {path.name}: controller starts at rho "
+        f"{ctl.rho:.3f}, T_S {ts0:.2f} us, T_L {tl0:.0f} us (the table's "
+        f"{want_ts:.2f} / {want_tl:.0f}; hr_sleep's spin margin on this host {margin_ns} ns); "
+        f"completed={completed}/{len(reqs)} "
+        f"cpu={stats.cpu_fraction:.3f}; after serving rho {ctl.rho:.3f}, T_S "
+        f"{ctl.t_short_us:.2f} us, T_L {ctl.t_long_us:.0f} us; launches {launches}, flash "
+        f"attention by route {by_route}")
+    log(f"  main path (calibration) took {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches["adaptive_sweep"], "build_s": build_s,
+            "table": [dataclasses.asdict(p) for p in table.points]}
 
 
 def profile(name: str, fn, *args, kernel: tuple[str, str] = ("flash_attention", "flash_fwd"),
@@ -1564,9 +2114,12 @@ def main() -> int:
     ssd_rows = phase_time_ssd()
     served = phase_serve()
     sweep_cmp = phase_compare_sweep()
+    s2_cmp = phase_compare_adaptive()
     sweep_rows = phase_time_sweep(sweep_cmp["builds"])
-    phase_sweep_bands(sweep_cmp["builds"])
+    s2_rows = phase_time_adaptive(s2_cmp["builds"], sweep_cmp["builds"])
+    phase_sweep_bands(sweep_cmp["builds"], s2_cmp["builds"])
     sweep_main = phase_sweep_main(sweep_cmp["builds"])
+    calibration = phase_calibration_main(served["engine"], s2_cmp["builds"])
     # K1 has one kernel per type: bf16 ("wgmma", the serving path; its
     # numbers at the largest prefill bucket, every row beside them) and f32
     # ("simt", on no model path: launches are its timing phase's, the
@@ -1624,6 +2177,21 @@ def main() -> int:
         "max_abs_err": sweep_cmp["max_abs_err"], **{k: row[k] for k in keys},
         "shape": f"{row['name']}: {row['shape']}", **{k: row[k] for k in extra},
         "rows": [{k: r[k] for k in ("name", "shape", *keys, *extra)} for r in sweep_rows[1:]]})
+    # S2, the event-jump sweep: launches are its main path's (one
+    # build_operating_table over sweep_frontier's lattice); its numbers at
+    # that grid (quiet), the other sweeps of its phase 3 in "rows"
+    row = s2_rows[0]
+    extra = ("build", "bound_resource", "point_steps_per_s", "plain_steps", "budget",
+             "steps_max", "steps_mean", "warp_longest_over_mean", "lane_busy_share", "s1_ms",
+             "s1_slots", "forced_steps")
+    kernels.append({
+        "name": "adaptive_sweep", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/adaptive_sweep.cu",
+        "replaces": "src/repro/runtime/batched_adaptive.py:197",
+        "launches": calibration["launches"], "max_abs_err": s2_cmp["max_abs_err"],
+        **{k: row[k] for k in keys}, "shape": f"{row['name']}: {row['shape']}",
+        **{k: row[k] for k in extra},
+        "rows": [{k: r[k] for k in ("name", "shape", *keys, *extra)} for r in s2_rows[1:]]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -331,7 +331,9 @@ def reference_slot_sweep(t_s, t_l, m, nq, lam, seed_lo, seed_hi, sched_edges, sc
     return out
 
 
-def _check(cols: dict, sched_edges, sched_scales, params: SweepParams) -> None:
+def check_columns(cols: dict, sched_edges, sched_scales, sleep_states) -> None:
+    """The checks both sweep wrappers make on their per-point columns,
+    schedule rows and sleep states (shapes, types, bounds, one device)."""
     n = cols["t_s"].shape[0]
     for name, t in cols.items():
         if t.dim() != 1 or t.shape[0] != n:
@@ -352,9 +354,8 @@ def _check(cols: dict, sched_edges, sched_scales, params: SweepParams) -> None:
             f"the sweep kernel takes m <= {MAX_THREADS} and n_queues <= {MAX_QUEUES} a "
             f"point (every grid of the repo fits); got m up to {m_max}, n_queues up to "
             f"{q_max}")
-    if not 1 <= len(params.sleep_states) <= MAX_SLEEP_STATES:
-        raise ValueError(f"1 to {MAX_SLEEP_STATES} sleep states, got "
-                         f"{len(params.sleep_states)}")
+    if not 1 <= len(sleep_states) <= MAX_SLEEP_STATES:
+        raise ValueError(f"1 to {MAX_SLEEP_STATES} sleep states, got {len(sleep_states)}")
     if (sched_edges is None) != (sched_scales is None):
         raise ValueError("pass both sched_edges and sched_scales, or neither")
     if sched_edges is not None and (
@@ -364,13 +365,17 @@ def _check(cols: dict, sched_edges, sched_scales, params: SweepParams) -> None:
         raise ValueError(f"schedules: want float32 ({n}, n_seg) edges and scales, got "
                          f"{tuple(sched_edges.shape)} {sched_edges.dtype} and "
                          f"{tuple(sched_scales.shape)} {sched_scales.dtype}")
-    if params.n_windows and not (params.window_us > 0 and params.n_win_pad >= params.n_windows):
-        raise ValueError("windows need window_us > 0 and n_win_pad >= n_windows")
     devices = {t.device for t in cols.values()}
     if sched_edges is not None:
         devices |= {sched_edges.device, sched_scales.device}
     if len(devices) != 1:
         raise ValueError(f"inputs on several devices: {sorted(map(str, devices))}")
+
+
+def _check(cols: dict, sched_edges, sched_scales, params: SweepParams) -> None:
+    check_columns(cols, sched_edges, sched_scales, params.sleep_states)
+    if params.n_windows and not (params.window_us > 0 and params.n_win_pad >= params.n_windows):
+        raise ValueError("windows need window_us > 0 and n_win_pad >= n_windows")
 
 
 def slot_sweep(t_s, t_l, m, nq, lam, seed_lo, seed_hi, sched_edges=None, sched_scales=None,

@@ -1,13 +1,15 @@
 """repro_torch.runtime — retrieval policies, queues, workloads, the
 threaded ``Runtime``, the paper's discrete-event simulator
 (``simulate_run``), load schedules (copied from ``repro.runtime``), co-run
-apps, and the batched fixed-slot sweep.
+apps, the batched sweeps and the calibration layer.
 
-``simulate_batch`` runs a whole ``SweepGrid`` in one launch of the
-hand-written CUDA kernel ``repro_torch.kernels.slot_sweep`` (its plain
-version with ``device="cpu"``).  ``MatmulAppLoad`` is a ``torch.matmul``
-tenant.  Calibration (``build_operating_table``), the event-jump
-(adaptive) sweep and the fleet engine come in later slices.
+``simulate_batch`` runs a whole ``SweepGrid`` in one launch of a
+hand-written CUDA kernel: ``repro_torch.kernels.slot_sweep`` (fixed slots)
+or, with ``stepping="adaptive"``, ``repro_torch.kernels.adaptive_sweep``
+(event jumps); their plain versions with ``device="cpu"``.
+``build_operating_table`` distils such a sweep into an ``OperatingTable``
+(``calibrate``).  ``MatmulAppLoad`` is a ``torch.matmul`` tenant.  The fleet
+engine comes in a later slice.
 """
 
 from .apps import (
@@ -83,15 +85,20 @@ from .workload import (
     Workload,
 )
 
-# The batched engine imports torch and the kernel package; load it lazily,
-# as the reference does, so the numpy-only event sim / threaded / serving
-# paths do not pay for them.
+# The batched engine (and the calibration layer on top of it) import torch
+# and the kernel package; load them lazily, as the reference does, so the
+# numpy-only event sim / threaded / serving paths do not pay for them.
 _LAZY_SUBMODULE = {
     "SweepGrid": "batched",
     "BatchStats": "batched",
     "simulate_batch": "batched",
     "unsupported_config_fields": "batched",
     "validate_batched_config": "batched",
+    "OperatingPoint": "calibrate",
+    "OperatingTable": "calibrate",
+    "CalibrationMismatch": "calibrate",
+    "build_operating_table": "calibrate",
+    "schedule_spot_check": "calibrate",
 }
 
 
@@ -161,6 +168,11 @@ __all__ = [
     "simulate_batch",
     "unsupported_config_fields",
     "validate_batched_config",
+    "OperatingPoint",
+    "OperatingTable",
+    "CalibrationMismatch",
+    "build_operating_table",
+    "schedule_spot_check",
     "AppLoad",
     "DutyCycleBurner",
     "MatmulAppLoad",

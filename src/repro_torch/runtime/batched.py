@@ -24,8 +24,9 @@ What differs from the reference:
   - ``device`` picks where the sweep runs: CUDA (the default) launches the
     kernel or raises, ``"cpu"`` runs its plain PyTorch version (a Python
     loop over slots, for tests at small sizes);
-  - only ``stepping="fixed"`` is ported; the event-jump sweep
-    (``batched_adaptive``) is a later slice of the port;
+  - ``stepping="adaptive"`` runs the event-jump sweep of
+    ``batched_adaptive`` in one launch of the kernel
+    ``repro_torch.kernels.adaptive_sweep``;
   - nothing is compiled per shape, so the reference's
     ``CompileCache``/``compile_cache_stats`` have no counterpart: the
     kernel is built once, at first use, and the slot loop stops at the
@@ -47,7 +48,7 @@ from .simcore import SimRunConfig
 from .stats import Reservoir, RunStats, WindowedSeries
 
 __all__ = ["SweepGrid", "BatchStats", "simulate_batch", "bucket_steps", "energy_arm_cost",
-           "unsupported_config_fields", "validate_batched_config"]
+           "unsupported_config_fields", "validate_batched_config", "grid_columns"]
 
 
 def bucket_steps(n: int, *, base: int = 64, ratio: float = 1.25) -> int:
@@ -404,6 +405,13 @@ def sweep_inputs(grid: SweepGrid, cfg: SimRunConfig, slot_us: float,
         n_windows=n_windows,
         n_win_pad=bucket_steps(n_windows, base=8) if n_windows else 0,
         window_us=float(cfg.window_us))
+    return grid_columns(grid, n_seg, sched_edges, sched_scales, device), params
+
+
+def grid_columns(grid: SweepGrid, n_seg: int, sched_edges, sched_scales, device) -> tuple:
+    """The per-point inputs both sweep kernels take, on ``device``: T_S,
+    T_L, M, n_queues, the offered rate, the seed's two 32-bit words, and the
+    schedule rows (``None`` for a stationary batch)."""
     seed64 = np.asarray(grid.seed, dtype=np.uint64)
 
     def col(values, dtype):
@@ -412,13 +420,12 @@ def sweep_inputs(grid: SweepGrid, cfg: SimRunConfig, slot_us: float,
     def words(values):            # uint32 -> the same bits as int32
         return col(values.astype(np.uint32).view(np.int32), torch.int32)
 
-    args = (col(grid.t_s_us, torch.float32), col(grid.t_l_us, torch.float32),
+    return (col(grid.t_s_us, torch.float32), col(grid.t_l_us, torch.float32),
             col(grid.m, torch.int32), col(grid.n_queues, torch.int32),
             col(grid.rate_mpps, torch.float32),
             words(seed64 & np.uint64(0xFFFFFFFF)), words(seed64 >> np.uint64(32)),
             col(sched_edges, torch.float32) if n_seg else None,
             col(sched_scales, torch.float32) if n_seg else None)
-    return args, params
 
 
 def stats_from_outputs(grid: SweepGrid, cfg: SimRunConfig, slot_us: float,
@@ -462,19 +469,34 @@ def simulate_batch(grid: SweepGrid, cfg: SimRunConfig | None = None, *,
     adaptation series (``BatchStats.windows(i)``).  Binned time series
     remain event-engine-only and raise (``validate_batched_config``).
 
+    ``stepping`` selects the kernel: ``"fixed"`` (default) steps uniform
+    ``slot_us`` slots (``slot_sweep``); ``"adaptive"`` steps event-jump
+    macro-slots (``batched_adaptive``, the ``adaptive_sweep`` kernel) —
+    same statistics, same parity bands, steps proportional to the event
+    count instead of simulated time.
+
     ``device`` (default ``"cuda"``) is where the sweep runs: a CUDA device
     launches the kernel (or raises), ``"cpu"`` runs its plain version.
-    ``stepping="adaptive"`` (the event-jump kernel) is not ported yet and
-    raises ``NotImplementedError``.
     """
     cfg = cfg or SimRunConfig()
     validate_batched_config(cfg)
     if stepping not in ("fixed", "adaptive"):
         raise ValueError(
             f"stepping must be 'fixed' or 'adaptive', got {stepping!r}")
+    device = resolve_device(device)
     if stepping == "adaptive":
-        raise NotImplementedError(
-            "stepping='adaptive' (the event-jump sweep of the reference's "
-            "batched_adaptive.py) is not ported yet: it comes with kernel S2, "
-            "ROADMAP.md Queue 1 item 2; use stepping='fixed'")
-    return _fixed_sweep(grid, cfg, float(slot_us), resolve_device(device))
+        from .batched_adaptive import adaptive_sweep_arrays
+        vals, win_np, back_f, simt, scan_len = adaptive_sweep_arrays(
+            grid, cfg, float(slot_us), device)
+        return BatchStats(
+            grid=grid, cfg=cfg, slot_us=float(slot_us),
+            offered=vals["offered"], dropped=vals["dropped"],
+            serviced=vals["serviced"], wakeups=vals["wakeups"],
+            busy_tries=vals["busy_tries"], cycles=vals["cycles"],
+            awake_us=vals["awake_us"], lat_area=vals["lat_area"],
+            vac_sum=vals["vac_sum"], nv_sum=vals["nv_sum"],
+            ts_arms=vals["ts_arms"], energy_uj=vals["energy_uj"],
+            win=win_np, stepping="adaptive", scan_len=int(scan_len),
+            n_steps=vals["n_steps"], forced_steps=vals["forced_steps"],
+            sim_time_us=simt, final_backlog=back_f)
+    return _fixed_sweep(grid, cfg, float(slot_us), device)

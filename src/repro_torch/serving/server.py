@@ -71,17 +71,14 @@ class Server:
         progress lands in ``stats.app_ops`` / ``stats.app_cpu_ns``."""
         self.engine = engine
         self.policy = policy
-        # calibrated operating table: accept a ready table (anything with
-        # the controller's ``lookup``) and install it as the policy
-        # controller's feed-forward term so the server starts at
-        # pre-validated operating points.  Loading one from a path needs
-        # the port's calibration layer, which comes in a later slice.
+        # calibrated operating table (repro_torch.runtime.calibrate): accept a
+        # ready table or a path to one saved by build_operating_table,
+        # and install it as the policy controller's feed-forward term so
+        # the server starts at pre-validated operating points
         if isinstance(operating_table, (str, bytes)) or hasattr(
                 operating_table, "__fspath__"):
-            raise NotImplementedError(
-                "Server(operating_table=<path>) needs repro_torch.runtime."
-                "calibrate, which comes with the calibration slice (ROADMAP "
-                "Queue 1); pass a ready table object")
+            from repro_torch.runtime.calibrate import OperatingTable
+            operating_table = OperatingTable.load(operating_table)
         self.operating_table = operating_table
         if operating_table is not None:
             ctl = getattr(policy, "controller", None)

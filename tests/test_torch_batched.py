@@ -16,7 +16,7 @@ another order, which moves a sum by ~1e-7 relative).
 
 Then the Philox contract against Random123's known answers, the sweep's
 exact invariants, the port's own surface (no fallback from CUDA, the
-kernel's bounds, the adaptive stepping's refusal, the reference's
+kernel's bounds, the adaptive stepping's dispatch, the reference's
 engine-parity drift guard) and, on the card, the kernel against its plain
 version: counters equal, sums within 1e-5."""
 
@@ -354,10 +354,19 @@ def test_a_point_does_not_depend_on_its_batch():
 # -- the port's own surface ----------------------------------------------------
 
 def test_adaptive_stepping_names_the_slice_that_brings_it():
+    """``stepping="adaptive"`` runs the event-jump sweep (``batched_adaptive``,
+    the ``adaptive_sweep`` kernel; tests/test_torch_adaptive_sweep.py holds
+    it): on the CPU its plain version, launching neither kernel, and the
+    result names its stepping."""
+    from repro_torch.kernels.adaptive_sweep.ops import adaptive_sweep
+
     grid = SweepGrid.of_points([dict(t_s_us=10.0, t_l_us=100.0)])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        simulate_batch(grid, SimRunConfig(duration_us=100.0), stepping="adaptive",
-                       device="cpu")
+    launches = (slot_sweep.launches, adaptive_sweep.launches)
+    bs = simulate_batch(grid, SimRunConfig(duration_us=100.0), stepping="adaptive",
+                        device="cpu")
+    assert bs.stepping == "adaptive" and bs.scan_len >= float(bs.n_steps[0]) >= 1.0
+    assert (slot_sweep.launches, adaptive_sweep.launches) == launches
+    assert "batched_adaptive" in simulate_batch.__doc__
 
 
 def test_kernel_bounds_are_checked():
@@ -389,7 +398,8 @@ def test_cpu_runs_the_plain_version_and_cuda_never_falls_back():
 
 def test_engine_parity_pass_holds_on_the_port():
     """The reference's drift guard (PARITY001/002) over the port's runtime:
-    its batched.py reads or declares every SimRunConfig field."""
+    its batched.py and batched_adaptive.py each read or declare every
+    SimRunConfig field."""
     from repro.analysis.core import run_analysis
     from repro.analysis.parity import EngineParityPass
 
@@ -397,6 +407,7 @@ def test_engine_parity_pass_holds_on_the_port():
     res = run_analysis([root / "src" / "repro_torch" / "runtime"], root=root,
                        passes=[EngineParityPass()])
     assert any(f.rel.endswith("repro_torch/runtime/batched.py") for f in res.files)
+    assert any(f.rel.endswith("repro_torch/runtime/batched_adaptive.py") for f in res.files)
     assert not res.findings, [f.format() for f in res.findings]
 
 

@@ -1,6 +1,6 @@
 """tests/test_energy.py on the port: energy accounting on the port's event
-engine and on its fixed-slot sweep (the plain version of the ``slot_sweep``
-kernel on the CPU).
+engine and on both batched sweeps, fixed-slot and event-jump (the plain
+versions of the ``slot_sweep`` and ``adaptive_sweep`` kernels on the CPU).
 
 The exact conservation identity
 
@@ -10,15 +10,16 @@ The exact conservation identity
 
 plus: windowed energy sums (and the event engine's post-duration spill)
 reproduce the totals, merge/merge_all conserve energy, and the engines
-agree within the reference's pinned bands.  The adaptive stepping and the
-fleet engine are not ported yet, so their cases are left out; the plain
-sweep runs ~10^4 slots a second on the CPU, so sweeps of 20-120 ms run
-4-40 ms here (each names its cut) with the reference's checks."""
+agree within the reference's pinned bands.  The fleet engine is not ported
+yet, so its case is left out; the plain sweeps run ~10^4 slots (or
+event-jump steps) a second on the CPU, so sweeps of 20-120 ms run 4-40 ms
+here (each names its cut) with the reference's checks."""
 
 from dataclasses import replace
 
 import numpy as np
 import pytest
+import torch
 
 from repro_torch.core import MetronomeConfig
 from repro_torch.core.hr_sleep import calibrate
@@ -36,7 +37,7 @@ from repro_torch.runtime import (
 )
 from repro_torch.runtime.simcore import HR_SLEEP_MODEL, WindowAccum
 
-STEPPINGS = ("fixed",)          # the adaptive stepping is not ported
+STEPPINGS = ("fixed", "adaptive")
 
 # Same f32-accumulator rationale as test_stepping.CONS_REL: the
 # identity must hold far tighter than any physical effect, not bit-exact
@@ -48,6 +49,16 @@ CONS_REL = 2e-3
 # band leaves the same headroom ratio the latency bands do.
 E_REL, E_ABS_UJ = 0.08, 50.0
 EPP_REL, EPP_ABS_NJ = 0.08, 2.0
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The plain sweeps' small tensors gain nothing from intra-op threads;
+    one keeps a parallel test run from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _band_points(n=3, seed=11):

@@ -1,8 +1,10 @@
 """The PyTorch port stands alone: importing it loads neither jax nor any
 module of the JAX package and builds no kernel, no source file of it
 imports them, its verbatim copies of the JAX-free host modules equal the
-reference's, and the definitions its own ``runtime/apps.py`` and
-``runtime/batched.py`` keep from the reference are the reference's text."""
+reference's, and the definitions its own ``runtime/apps.py``,
+``runtime/batched.py``, ``runtime/batched_adaptive.py`` and
+``runtime/calibrate.py`` keep from the reference are the reference's text
+(imports of the reference package read as the port's)."""
 
 import ast
 import os
@@ -38,6 +40,12 @@ PINNED = {
                            "_EVENT_ENGINE_ONLY_FIELDS", "_GRID_SUPPLIED_FIELDS",
                            "_NO_SAMPLE_PATH_FIELDS", "unsupported_config_fields",
                            "validate_batched_config", "_schedule_rows"),
+    "runtime/batched_adaptive.py": ("_GRID_SUPPLIED_FIELDS", "_EVENT_ENGINE_ONLY_FIELDS",
+                                    "_NO_SAMPLE_PATH_FIELDS", "_WAKE_EPS_US", "_RATE_EPS",
+                                    "_FILL_SLACK_PKTS", "estimate_adaptive_steps"),
+    "runtime/calibrate.py": ("__all__", "CalibrationMismatch", "OperatingPoint",
+                             "OperatingTable", "analytic_guard_mask", "_event_sim_point",
+                             "schedule_spot_check"),
 }
 
 # an import statement naming jax or the reference package (not repro_torch)
@@ -52,7 +60,9 @@ def test_import_loads_no_jax_and_no_reference_module():
     assert "repro_torch.serving.server" in names and "repro_torch.launch.serve" in names
     assert {"repro_torch.kernels.decode_attention.ops", "repro_torch.kernels.ssd_scan.ops",
             "repro_torch.kernels.slot_sweep.ops", "repro_torch.runtime.batched",
-            "repro_torch.runtime.sim", "repro_torch.core.simulator"} <= set(names)
+            "repro_torch.runtime.sim", "repro_torch.core.simulator",
+            "repro_torch.kernels.adaptive_sweep.ops", "repro_torch.runtime.batched_adaptive",
+            "repro_torch.runtime.calibrate"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
@@ -122,5 +132,23 @@ def _definitions(path: Path) -> dict[str, str]:
 def test_pinned_definition_equals_reference(rel, name):
     ref, port = _definitions(REF / rel), _definitions(PORT / rel)
     assert name in ref and name in port
-    assert port[name] == ref[name]
+    assert port[name] == _REF_IMPORT.sub(r"\1repro_torch", ref[name])
+
+
+def test_build_operating_table_is_the_references_plus_device():
+    """The port's ``build_operating_table`` is the reference's text with one
+    keyword added: ``device``, in the signature, its docstring paragraph and
+    the ``simulate_batch`` call."""
+    ref = _definitions(REF / "runtime/calibrate.py")["build_operating_table"]
+    port = _definitions(PORT / "runtime/calibrate.py")["build_operating_table"]
+    added = ('    device="cuda",\n',
+             "    ``device`` (the port's one addition) is where the lattice sweep runs,\n"
+             "    passed to ``simulate_batch``: a CUDA device launches the sweep kernel,\n"
+             "    ``\"cpu\"`` runs its plain version; the event-engine spot checks run on\n"
+             "    the host either way.\n\n",
+             ", device=device")
+    for text in added:
+        assert port.count(text) == 1, text
+        port = port.replace(text, "")
+    assert port == ref
 

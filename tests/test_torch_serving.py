@@ -107,10 +107,25 @@ def test_busy_poll_server_spins_one_core():
     assert 0.9 <= stats.cpu_fraction <= 1.1
 
 
-def test_server_rejects_operating_table_path():
-    with pytest.raises(NotImplementedError, match="calibration"):
+def test_server_rejects_operating_table_path(tmp_path):
+    """A path to an operating table is loaded with ``OperatingTable.load``
+    (the reference's ``Server``): a path that names no file is refused, a
+    saved table loads and feeds the controller."""
+    from repro_torch.runtime import OperatingPoint, OperatingTable
+
+    with pytest.raises(FileNotFoundError):
         Server(_port_engine(), MetronomePolicy(MetronomeConfig()),
-               operating_table="table.json")
+               operating_table=str(tmp_path / "missing.json"))
+    table = OperatingTable(target_mean_latency_us=15.0, service_rate_mpps=29.76, points=(
+        OperatingPoint(rho=0.1, t_s_us=60.0, t_l_us=800.0, m=2, mean_latency_us=12.0,
+                       cpu_fraction=0.1, loss_fraction=0.0),
+        OperatingPoint(rho=0.9, t_s_us=10.0, t_l_us=400.0, m=3, mean_latency_us=9.0,
+                       cpu_fraction=0.9, loss_fraction=0.0)))
+    path = tmp_path / "table.json"
+    table.save(path)
+    policy = MetronomePolicy(MetronomeConfig())
+    srv = Server(_port_engine(), policy, operating_table=path)
+    assert srv.operating_table == table and policy.controller.feedforward == table
 
 
 def test_launcher_smoke_on_cpu():

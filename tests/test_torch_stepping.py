@@ -1,16 +1,18 @@
-"""tests/test_stepping.py on the port: the fixed stepping of the port's
-batched engine (the plain version of the ``slot_sweep`` kernel on the CPU):
-time accounting invariants, the slot-count ladder, nearby durations on one
-rung, and the refusal of an unknown mode.  The adaptive event-jump stepping
-and the fleet engine are not ported yet, so their cases are left out, and
-the reference's compile cache has no counterpart (nothing is compiled per
-shape).  The plain sweep runs ~10^4 slots a second on the CPU, so sweeps
-of 20-30 ms run 2-6 ms here (each names its cut) with the reference's
-checks.
+"""tests/test_stepping.py on the port: both steppings of the port's
+batched engine (the plain versions of the ``slot_sweep`` and
+``adaptive_sweep`` kernels on the CPU): time accounting invariants, the
+event-jump sweep's far fewer steps at low load, the slot-count ladder,
+nearby durations on one rung, and the refusal of an unknown mode.  The
+fleet engine is not ported yet, so its cases are left out, and the
+reference's compile cache has no counterpart (nothing is compiled per
+shape).  The plain sweeps run ~10^4 slots (or event-jump steps) a second
+on the CPU, so sweeps of 20-60 ms run 2-20 ms here (each names its cut)
+with the reference's checks.
 """
 
 import numpy as np
 import pytest
+import torch
 
 from repro_torch.runtime import SimRunConfig, SweepGrid, simulate_batch
 from repro_torch.runtime.batched import bucket_steps
@@ -19,11 +21,21 @@ from repro_torch.runtime.simcore import HR_SLEEP_MODEL
 INTERFERENCE_ENV = dict(interference_prob=0.25, interference_mean_us=20.0,
                         stall_rate_per_us=1.0 / 4000.0,
                         stall_mean_us=150.0)
-STEPPINGS = ("fixed",)          # the adaptive stepping is not ported
+STEPPINGS = ("fixed", "adaptive")
 
 # f32 accumulators drift ~1e-4 relative over 1e5 slots; the conservation
 # law must hold far tighter than any physical effect but not bit-exactly
 CONS_REL = 2e-3
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The plain sweeps' small tensors gain nothing from intra-op threads;
+    one keeps a parallel test run from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _mixed_grid(n=10, seed=3, interference=False):
@@ -95,6 +107,21 @@ def test_time_accounting_invariants(stepping, interference):
     grid, cfg = _mixed_grid(interference=interference)
     bs = simulate_batch(grid, cfg, slot_us=0.5, stepping=stepping, device="cpu")
     _check_invariants(bs, cfg, stepping)
+
+
+def test_adaptive_needs_far_fewer_steps_at_low_load():
+    """The load-proportionality claim at test scale: a rho=0.2, T_S=50us
+    point takes >= 10x fewer live scan steps than fixed (20 ms, the
+    reference 60)."""
+    pts = [dict(t_s_us=50.0, t_l_us=500.0, m=3, rate_mpps=0.2 * 29.76,
+                seed=0)]
+    cfg = SimRunConfig(duration_us=20_000.0, sleep_model=HR_SLEEP_MODEL)
+    grid = SweepGrid.of_points(pts)
+    bf = simulate_batch(grid, cfg, slot_us=0.5, device="cpu")
+    ba = simulate_batch(grid, cfg, slot_us=0.5, stepping="adaptive", device="cpu")
+    assert float(ba.n_steps[0]) * 10.0 <= float(bf.n_steps[0])
+    assert ba.scan_len * 3 <= bf.scan_len
+    assert float(ba.forced_steps[0]) == 0.0
 
 
 def test_stepping_rejects_unknown_mode():
