@@ -62,15 +62,38 @@ phase 1 (its builds <4, 1> and <4, 4> must not spill):
   5 and 33 points; a diverging point reported with its step;
 - phase 3: the kernel timed at sweep_frontier's full grid (quiet, noisy) and
   stepping.py's three loads, beside S1 on the same grid (live steps against
-  slots), its bound, the plain version over its first 300 steps and the
-  spread of live steps over a warp's points;
+  slots; at stepping.py's grids S1's bound and plain version too), its
+  bound, the plain version over its first 300 steps and the spread of live
+  steps over a warp's points;
 - the band phase holds S2 too, against the event engine and, on 8-seed
   means, against S1;
-- the calibration path, the slice's main path: ``build_operating_table(
+- the calibration path: ``build_operating_table(
   stepping="adaptive")`` over sweep_frontier's lattice, uncut, with three
   event-engine spot checks, in one S2 launch; ``table.save``; ``Server(engine,
   MetronomePolicy(cfg), operating_table=path)`` on phase 4's gemma-2b engine,
   serving N/N through K1's ``"wgmma"`` route.
+
+Then the fleet sweep S3 (``fleet_sweep``, the reference's
+``runtime/fleet.py`` ``lax.scan``; one block a point, the balancer, link
+and hedge stages as block reductions), built in phase 1 (its builds <4, 1>
+and <4, 4> must not spill):
+
+- phase 2: the kernel against its plain version, every output bit-equal, at
+  1, 3, 4, 33 and 64 hosts over 1,000-2,000 slots and 1,500 hosts (more
+  than a block's lanes) over 300: each balancer, the bottleneck link, hedge
+  deadlines 0, 20 and 80, every noise family, schedules, m x n_queues 1-4
+  and one queue a point; and host h of a uniform fleet without topology or
+  hedging equal to S1's kernel at seed s + h;
+- phase 3: the kernel timed at benchmarks/fleet.py's shapes, uncut (4, 16
+  and 64 hosts x three balancers x the hedge ladder over 60 ms of 0.5 us
+  slots, and the 1000-host x 8-point scale row), beside its bound; the
+  kernel bit-equal to its plain version on the same inputs over each
+  shape's first 801 slots, where the plain version is timed; for the
+  uniform rows, S1 on the same host rows;
+- the band phase: a 4-host uniform fleet against the merged event engine
+  at 60 ms, in the quiet bands;
+- the slice's main path: benchmarks/fleet.py's ``fleet_bench`` through
+  ``simulate_fleet``, one launch a call, the verdict at 64 hosts.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -132,17 +155,19 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def time_ms(fn, *args, iters: int = 20, warmup: int = 3, flush=None, **kwargs) -> float:
+def time_ms(fn, *args, iters: int = 20, warmup: int = 3, flush=None, return_out: bool = False,
+            **kwargs):
     """Median of ``iters`` CUDA-event timings of ``fn(*args, **kwargs)``
     after warm-up.  The card spins ~0.5 ms before each timed call (outside
     the events) while the host enqueues it, so the events time the card's
     work, not up to 0.5 ms of host-side dispatch.  With ``flush`` (a large
     tensor), it is zeroed before each timed call, outside the events, so the
-    call finds L2 cold."""
+    call finds L2 cold.  With ``return_out``, returns (the median, the last
+    call's output)."""
     for _ in range(warmup):
         fn(*args, **kwargs)
     torch.cuda.synchronize()
-    pairs = []
+    pairs, out = [], None
     for _ in range(iters):
         if flush is not None:
             flush.zero_()
@@ -150,11 +175,12 @@ def time_ms(fn, *args, iters: int = 20, warmup: int = 3, flush=None, **kwargs) -
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        fn(*args, **kwargs)
+        out = fn(*args, **kwargs)
         e1.record()
         pairs.append((e0, e1))
     torch.cuda.synchronize()
-    return statistics.median(a.elapsed_time(b) for a, b in pairs)
+    ms = statistics.median(a.elapsed_time(b) for a, b in pairs)
+    return (ms, out) if return_out else ms
 
 
 def bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
@@ -203,11 +229,12 @@ def phase_card() -> None:
     from repro_torch.kernels.adaptive_sweep import kernel as as_kernel
     from repro_torch.kernels.decode_attention import kernel as da_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.fleet_sweep import kernel as fleet_kernel
     from repro_torch.kernels.slot_sweep import kernel as sweep_kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     builds = {"flash_attention.cu": fa_kernel.build, "decode_attention.cu": da_kernel.build,
               "ssd_scan.cu": ssd_kernel.build, "slot_sweep.cu": sweep_kernel.build,
-              "adaptive_sweep.cu": as_kernel.build}
+              "adaptive_sweep.cu": as_kernel.build, "fleet_sweep.cu": fleet_kernel.build}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         for future in [pool.submit(fn) for fn in builds.values()]:
@@ -257,6 +284,19 @@ def phase_card() -> None:
     if set(kernels) != want or any(spills for _, spills, _ in kernels.values()):
         fail(f"want the 2 adaptive_sweep_kernel builds (<4, 1> and <4, 4>), none spilling; "
              f"ptxas gave {kernels}")
+    # S3: the (M_MAX, Q_MAX) builds <4, 1> and <4, 4>, one block a point,
+    # built with -fmad=false; neither may spill
+    kernels = ptxas_kernels(_build.BUILD_INFO["fleet_sweep.cu"]["log"])
+    for name, (regs, spills, smem) in kernels.items():
+        log(f"  {name}: {regs} registers, {spills} bytes of spill stores + loads, {smem} "
+            "bytes of static shared memory (no dynamic shared memory)")
+    want = {f"fleet_sweep_kernel<4, {q}>" for q in (1, 4)}
+    if set(kernels) != want or any(spills for _, spills, _ in kernels.values()):
+        fail(f"want the 2 fleet_sweep_kernel builds (<4, 1> and <4, 4>), none spilling; "
+             f"ptxas gave {kernels}")
+    for hosts in (1, 4, 64, 1000, 1500):
+        log(f"  fleet_sweep layout at {hosts} hosts: <4, 1> {fleet_kernel.layout(hosts, 1)}, "
+            f"<4, 4> {fleet_kernel.layout(hosts, 4)}")
     from repro_torch.runtime.batched import sweep_inputs
     for name, grid, cfg, slot_us in sweep_settings()[:2]:       # quiet; stalls on
         _, params = sweep_inputs(grid, cfg, slot_us, "cpu")
@@ -270,13 +310,13 @@ def phase_card() -> None:
 
 def ptxas_kernels(log_text: str) -> dict[str, tuple[int, int, int]]:
     """``nvcc -Xptxas -v`` output -> {kernel<[types, ]ints>: (registers, spill
-    bytes, static shared memory bytes)} for every kernel of the five
+    bytes, static shared memory bytes)} for every kernel of the six
     sources."""
     out, name, spills = {}, None, 0
     for ln in log_text.splitlines():
         if m := re.search(r"Compiling entry function '.*?(flash_fwd_\w+?|decode_split_mma_bf16|"
                           r"decode_split|decode_combine|ssd_chunk_state|ssd_chunk_out|"
-                          r"slot_sweep_kernel|adaptive_sweep_kernel)"
+                          r"slot_sweep_kernel|adaptive_sweep_kernel|fleet_sweep_kernel)"
                           r"I((?:f|13__nv_bfloat16|S\d*_)*)((?:Li\d+E)+)", ln):
             # a repeated type is a substitution (S<n>_); only bf16 repeats
             types = ["float" if t == "f" else "bf16"
@@ -1542,6 +1582,7 @@ def phase_sweep_main(compared: set) -> dict:
         adaptive_sweep,
         decode_attention,
         flash_attention,
+        fleet_sweep,
         slot_sweep,
         ssd_scan,
     )
@@ -1550,7 +1591,8 @@ def phase_sweep_main(compared: set) -> dict:
     log("main path (S1): simulate_batch over sweep_frontier's full quiet grid")
     grid = frontier_grid()
     cfg = SimRunConfig(duration_us=FRONTIER_US)
-    counters = (flash_attention, decode_attention, ssd_scan, slot_sweep, adaptive_sweep)
+    counters = (flash_attention, decode_attention, ssd_scan, slot_sweep, adaptive_sweep,
+                fleet_sweep)
     for k in counters:
         k.launches = 0
     slot_sweep.launches_by_build = {}
@@ -1560,7 +1602,7 @@ def phase_sweep_main(compared: set) -> dict:
     launches = {k.__name__: k.launches for k in counters}
     builds = dict(slot_sweep.launches_by_build)
     if launches != {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 0,
-                    "slot_sweep": 1, "adaptive_sweep": 0}:
+                    "slot_sweep": 1, "adaptive_sweep": 0, "fleet_sweep": 0}:
         fail(f"simulate_batch launched {launches}; want exactly one slot_sweep launch")
     check_builds_compared("the main path", compared)
     if len(bs) != len(grid) or bs.reshaped("cpu_fraction").shape != grid.shape:
@@ -1855,10 +1897,11 @@ def phase_time_adaptive(compared: set, compared_s1: set) -> list[dict]:
     timed the same way on the same grid (its slots beside S2's live steps);
     the plain version measured over its first ``ADAPTIVE_PLAIN_STEPS`` steps;
     the bound from the code's operations (``adaptive_bound``); the spread of
-    live steps over each warp's points.  One launch a sweep, every build
+    live steps over each warp's points; at stepping.py's grids also S1's
+    bound (``sweep_bound``) and S1's plain version over its first 400 slots.  One launch a sweep, every build
     among those phase 2 compared; the exact identities at every point."""
     from repro_torch.kernels.adaptive_sweep.ops import adaptive_sweep, reference_adaptive_sweep
-    from repro_torch.kernels.slot_sweep import slot_sweep
+    from repro_torch.kernels.slot_sweep import reference_slot_sweep, slot_sweep
     from repro_torch.runtime.batched import simulate_batch, sweep_inputs
     from repro_torch.runtime.batched_adaptive import adaptive_sweep_inputs
     t0 = time.perf_counter()
@@ -1888,6 +1931,17 @@ def phase_time_adaptive(compared: set, compared_s1: set) -> list[dict]:
         slot_sweep.launches_by_build = {}
         s1_ms = time_ms(slot_sweep, *s1_args, params=s1_params, iters=5, warmup=1)
         check_builds_compared(f"{name} (S1)", compared_s1)
+        s1_extra = {}
+        if name.startswith("stepping.py"):
+            # S1's own bound and plain version at stepping.py's grid, which
+            # S1's phase 3 does not time
+            s1_b = sweep_bound(s1_args, s1_params, slot_sweep(*s1_args, params=s1_params))
+            s1_cut = dataclasses.replace(s1_params, duration_us=400 * slot_us)
+            s1_extra = {"s1_bound_ms": s1_b["bound_ms"], "s1_bound_by": s1_b["bound_by"],
+                        "s1_bound_resource": s1_b["bound_resource"],
+                        "s1_plain_ms": time_ms(reference_slot_sweep, *s1_args, s1_cut, iters=1,
+                                               warmup=0),
+                        "s1_plain_slots": s1_cut.live_slots()}
         cut = dataclasses.replace(params, run_steps=ADAPTIVE_PLAIN_STEPS)
         plain_ms = time_ms(reference_adaptive_sweep, *args, cut, iters=1, warmup=0)
         b = adaptive_bound(args, params, out)
@@ -1899,7 +1953,7 @@ def phase_time_adaptive(compared: set, compared_s1: set) -> list[dict]:
             "library_ms": None, "launches": 1, "bound_ms": b["bound_ms"],
             "bound_by": b["bound_by"], "bound_resource": b["bound_resource"],
             "point_steps_per_s": rate, "build": f"<{build[0]}, {build[1]}>",
-            "s1_ms": s1_ms, "s1_slots": n_slots, "budget": params.max_steps, **sp,
+            "s1_ms": s1_ms, "s1_slots": n_slots, **s1_extra, "budget": params.max_steps, **sp,
             "forced_steps": float(out["forced_steps"].sum()),
             "shape": f"{len(grid)} points, budget {params.max_steps} steps, live steps max "
                      f"{sp['steps_max']:.0f} mean {sp['steps_mean']:.1f} (S1: {n_slots} "
@@ -1909,7 +1963,11 @@ def phase_time_adaptive(compared: set, compared_s1: set) -> list[dict]:
         log(f"  {name}: {len(grid)} points, build <{build[0]}, {build[1]}>, budget "
             f"{params.max_steps} steps: kernel {ms:.3f} ms ({rate:.4e} point-steps/s); live "
             f"steps max {sp['steps_max']:.0f} mean {sp['steps_mean']:.1f} against S1's "
-            f"{n_slots} slots (S1 {s1_ms:.3f} ms on this grid: S2 {s1_ms / ms:.2f}x faster); "
+            f"{n_slots} slots (S1 {s1_ms:.3f} ms on this grid: S2 {s1_ms / ms:.2f}x faster"
+            + (f"; S1's bound {s1_extra['s1_bound_ms'] * 1e3:.2f} us "
+               f"({s1_extra['s1_bound_resource']}), S1's plain version "
+               f"{s1_extra['s1_plain_ms']:.1f} ms measured for {s1_extra['s1_plain_slots']} "
+               "slots" if s1_extra else "") + "); "
             f"warps {sp['warps']}, longest point of a warp {sp['warp_longest_over_mean']:.2f}x "
             f"its mean, lanes busy {100 * sp['lane_busy_share']:.1f}% of the warps' steps; "
             f"forced steps {float(out['forced_steps'].sum()):.0f}; plain {plain_ms:.1f} ms "
@@ -1944,6 +2002,7 @@ def phase_calibration_main(engine, compared: set) -> dict:
         adaptive_sweep,
         decode_attention,
         flash_attention,
+        fleet_sweep,
         slot_sweep,
         ssd_scan,
     )
@@ -1959,7 +2018,8 @@ def phase_calibration_main(engine, compared: set) -> dict:
     log("main path (calibration): build_operating_table(stepping='adaptive') over "
         "sweep_frontier's lattice, uncut, spot_check=3 -> table.save -> Server(engine, "
         "MetronomePolicy(cfg), operating_table=path) serving gemma-2b")
-    counters = (flash_attention, decode_attention, ssd_scan, slot_sweep, adaptive_sweep)
+    counters = (flash_attention, decode_attention, ssd_scan, slot_sweep, adaptive_sweep,
+                fleet_sweep)
     for k in counters:
         k.launches = 0
     adaptive_sweep.launches_by_build = {}
@@ -1972,7 +2032,7 @@ def phase_calibration_main(engine, compared: set) -> dict:
     build_s = time.perf_counter() - t1
     after_build = {k.__name__: k.launches for k in counters}
     if after_build != {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 0,
-                       "slot_sweep": 0, "adaptive_sweep": 1}:
+                       "slot_sweep": 0, "adaptive_sweep": 1, "fleet_sweep": 0}:
         fail(f"build_operating_table launched {after_build}; want exactly one adaptive_sweep")
     check_builds_compared("the calibration path", compared, adaptive_sweep)
     for p in table.points:
@@ -2029,7 +2089,7 @@ def phase_calibration_main(engine, compared: set) -> dict:
     completed = sum(len(r.tokens) == 8 for r in reqs)
     n_layers = engine.model.cfg.n_layers
     want = {"flash_attention": n_layers * len(reqs), "decode_attention": 0, "ssd_scan": 0,
-            "slot_sweep": 0, "adaptive_sweep": 1}
+            "slot_sweep": 0, "adaptive_sweep": 1, "fleet_sweep": 0}
     if completed != len(reqs) or launches != want or by_route != {
             "wgmma": n_layers * len(reqs), "simt": 0}:
         fail(f"calibrated serving: completed {completed}/{len(reqs)}, launches {launches} "
@@ -2045,6 +2105,525 @@ def phase_calibration_main(engine, compared: set) -> dict:
     log(f"  main path (calibration) took {time.perf_counter() - t0:.1f} s")
     return {"launches": launches["adaptive_sweep"], "build_s": build_s,
             "table": [dataclasses.asdict(p) for p in table.points]}
+
+
+# -- S3: the fleet sweep (runtime/fleet.py's lax.scan) ------------------------
+
+# benchmarks/fleet.py's full mode (:40-56, :83-125, :147-169): rho 0.5 a host,
+# T_S 12 us, T_L 500 us, M 3, the noisy cluster's stall windows, the hedge
+# ladder, 60 ms of 0.5 us slots at 4, 16 and 64 hosts under three balancers;
+# the scale row, 1000 hosts x 8 points over 5 ms of 1 us slots
+FLEET_STALLS = dict(stall_rate_per_us=2.5e-4, stall_mean_us=150.0)
+FLEET_HEDGES = (0.0, 80.0, 40.0, 20.0)
+FLEET_SIZES = (4, 16, 64)
+FLEET_US = 60_000.0
+FLEET_SCALE_HOSTS, FLEET_SCALE_US = 1000, 5_000.0
+# the plain version runs, and the kernel is held to it, over this prefix of
+# every phase-3 shape: least-loaded's snapshot (every 400 slots) refreshes
+# twice after slot 0
+FLEET_PLAIN_SLOTS = 801
+FLEET_COUNTERS = ("wakeups", "busy_tries", "cycles", "ts_arms")
+
+
+def fleet_lbs(n_hosts: int) -> dict:
+    """benchmarks/fleet.py's three balancers (:94-101)."""
+    from repro_torch.runtime import FleetConfig
+    return {"uniform": FleetConfig(n_hosts=n_hosts),
+            "weighted": FleetConfig(n_hosts=n_hosts, lb="weighted",
+                                    host_weights=tuple(1.0 + 0.5 * (h % 2)
+                                                       for h in range(n_hosts))),
+            "least-loaded": FleetConfig(n_hosts=n_hosts, lb="least-loaded", lb_stale_us=200.0)}
+
+
+def fleet_settings():
+    """(name, fgrid, cfg, slot_us): benchmarks/fleet.py's simulate_fleet
+    calls, uncut: each size x balancer over the hedge ladder, then the scale
+    row."""
+    from repro_torch.runtime import FleetConfig, FleetGrid, SimRunConfig
+    cfg = SimRunConfig(duration_us=FLEET_US, **FLEET_STALLS)
+    out = []
+    for hosts in FLEET_SIZES:
+        for lb, fleet in fleet_lbs(hosts).items():
+            out.append((f"H{hosts}/{lb}", FleetGrid.product(
+                fleet=fleet, t_s_us=(12.0,), t_l_us=(500.0,), rate_mpps=(0.5 * MU_MPPS * hosts,),
+                m=(3,), hedge_deadline_us=FLEET_HEDGES), cfg, 0.5))
+    h = FLEET_SCALE_HOSTS
+    out.append((f"scale: {h} hosts x 8 points", FleetGrid.product(
+        fleet=FleetConfig(n_hosts=h), t_s_us=(12.0,), t_l_us=(500.0,), m=(3,),
+        rate_mpps=(0.35 * MU_MPPS * h, 0.55 * MU_MPPS * h), hedge_deadline_us=FLEET_HEDGES),
+        SimRunConfig(duration_us=FLEET_SCALE_US, **FLEET_STALLS), 1.0))
+    return out
+
+
+def fleet_points(n_hosts, hedges, scheduled, one_queue):
+    """16 points: every (m, n_queues) in 1..4 x 1..4 (one queue throughout
+    with ``one_queue``), knobs from a seed, fleet rates; hedge deadlines
+    cycle over ``hedges``; with ``scheduled`` every other point on a step
+    schedule."""
+    from repro_torch.runtime import StepSchedule
+    rng = np.random.default_rng(n_hosts)
+    pts = []
+    for m in (1, 2, 3, 4):
+        for q in (1, 2, 3, 4):
+            p = dict(t_s_us=float(rng.uniform(4.0, 40.0)),
+                     t_l_us=float(rng.uniform(100.0, 600.0)), m=m,
+                     n_queues=1 if one_queue else q,
+                     rate_mpps=float(rng.uniform(0.2, 0.8) * MU_MPPS * q / 2.0 * n_hosts),
+                     seed=int(rng.integers(0, 3)), hedge_deadline_us=hedges[len(pts) % len(hedges)])
+            if scheduled and len(pts) % 2:
+                p["schedule"] = StepSchedule(times_us=(0.0, 400.0), scales=(0.4, 1.5))
+            pts.append(p)
+    return pts
+
+
+def fleet_compare_cases():
+    """(name, fgrid, cfg, slot_us): S3 against its plain version.  Every
+    noise family (overshoot noise and tail, interference, stall windows),
+    queues of 64 packets so that drops happen, hedge deadlines 0, 20 and 80
+    cycling over the points, every other point on a step schedule: 1 host
+    (a lone lane; its duplicates come back to it), 3 (weighted, a
+    bottleneck link), 4 (least-loaded refreshing every 10 slots, both
+    builds), 33 (least-loaded, link: two warps), 64 (uniform, link), each
+    over 2,000 slots (1,000 at 33 hosts), and 1,500 hosts (more than a
+    block's 256 lanes: six hosts a lane, their states in global scratch)
+    over 300 slots; m x n_queues 1-4 (<4, 4>) or one queue a point (<4, 1>,
+    the build of benchmarks/fleet.py's grids)."""
+    from repro_torch.runtime import FleetConfig, FleetGrid, SimRunConfig, SleepModel
+    tail = SleepModel(base_us=2.8, slope=0.027, sigma_us=0.5, tail_prob=0.01,
+                      tail_mean_us=40.0)
+    noisy = dict(BAND_NOISY, stall_rate_per_us=1.0 / 400.0)
+    link = dict(near_cost_us=1.0, far_cost_us=5.0)
+    cases = []
+    for hosts, kw, slots, one_queue in (
+            (1, dict(near_cost_us=2.0), 2_000, True),
+            (3, dict(lb="weighted", host_weights=(1.0, 2.0, 3.0), far_fraction=0.34,
+                     link_rate_mpps=10.0, **link), 2_000, False),
+            (4, dict(lb="least-loaded", lb_stale_us=5.0), 2_000, True),
+            (4, dict(lb="least-loaded", lb_stale_us=5.0), 2_000, False),
+            (33, dict(lb="least-loaded", lb_stale_us=5.0, far_fraction=0.5,
+                      link_rate_mpps=300.0, **link), 1_000, False),
+            (64, dict(far_fraction=0.25, link_rate_mpps=400.0, **link), 2_000, True),
+            (1_500, dict(lb="least-loaded", lb_stale_us=2.0, far_fraction=0.5,
+                         link_rate_mpps=10_000.0, **link), 300, False)):
+        cfg = SimRunConfig(duration_us=0.5 * slots, sleep_model=tail, queue_capacity=64,
+                           **noisy)
+        fleet = FleetConfig(n_hosts=hosts, **kw)
+        name = (f"{hosts} host{'s' if hosts > 1 else ''}, {fleet.lb}"
+                f"{', link' if fleet.link_rate_mpps else ''}, "
+                f"{'one queue' if one_queue else 'm x n_queues 1-4'}, {slots} slots")
+        cases.append((name, FleetGrid.of_points(
+            fleet_points(hosts, (0.0, 20.0, 80.0), True, one_queue), fleet=fleet), cfg, 0.5))
+    return cases
+
+
+def phase_compare_fleet() -> dict:
+    """S3 against its plain version on the card (``fleet_compare_cases``):
+    every output bit-equal (the same float32 operations in the same order,
+    the host sums in the kernel's tree, no fma contraction, the same math
+    library).  Then the per-host rule on the card: with uniform shares and
+    topology and hedging off, host h of a point seeded s equals S1's kernel
+    at seed s + h and rate float32(rate) x float32(1/H), every output bit
+    for bit, at 4 and 33 hosts.  Returns the max abs error and the builds
+    compared."""
+    from repro_torch.kernels.fleet_sweep import fleet_sweep, reference_fleet_sweep
+    from repro_torch.kernels.fleet_sweep.ops import STAT_NAMES as FLEET_STATS
+    from repro_torch.kernels.slot_sweep import slot_sweep
+    from repro_torch.kernels.slot_sweep.ops import STAT_NAMES
+    from repro_torch.runtime import FleetConfig, FleetGrid, SimRunConfig, SweepGrid
+    from repro_torch.runtime.batched import sweep_inputs
+    from repro_torch.runtime.fleet import fleet_inputs
+    t0 = time.perf_counter()
+    log("phase 2: fleet_sweep (S3) vs plain version: 1, 3, 4, 33, 64 hosts over 1,000-2,000 "
+        "slots and 1,500 hosts over 300, each balancer, topology, hedge deadlines 0/20/80, "
+        "every noise family, schedules, m x n_queues 1-4 and one queue; every output "
+        "bit-equal; then the per-host rule against S1's kernel")
+    fleet_sweep.launches = 0
+    fleet_sweep.launches_by_build = {}
+    cases = fleet_compare_cases()
+    max_abs, failed = 0.0, []
+    for name, fgrid, cfg, slot_us in cases:
+        args, params, fparams = fleet_inputs(fgrid, cfg, slot_us, "cuda")
+        before = dict(fleet_sweep.launches_by_build)
+        out = fleet_sweep(*args, params=params, fleet=fparams)
+        (build,) = [b for b, n in fleet_sweep.launches_by_build.items()
+                    if n != before.get(b, 0)]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ref = reference_fleet_sweep(*args, params, fparams)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t1
+        exact = [k for k in FLEET_STATS if torch.equal(out[k], ref[k])]
+        finite = all(bool(torch.isfinite(out[k]).all()) for k in FLEET_STATS)
+        abs_err = max(float((out[k].double() - ref[k].double()).abs().max()) for k in FLEET_STATS)
+        hedged = float(out["hedge_dup"].sum())
+        ok = len(exact) == len(FLEET_STATS) and finite and float(out["wakeups"].sum()) > 0
+        log(f"  {name}: {len(fgrid)} points x {fparams.n_hosts} hosts, build <{build[0]}, "
+            f"{build[1]}>, flags {params.flags}, {params.live_slots()} slots: max_abs_err="
+            f"{abs_err:.3e}; bit-equal: {len(exact)} of {len(FLEET_STATS)} outputs"
+            f"{'' if len(exact) == len(FLEET_STATS) else ' ' + str(sorted(set(FLEET_STATS) - set(exact)))}"
+            f"; hedge_dup {hedged:.1f}, topo_area {float(out['topo_area'].sum()):.1f}; plain "
+            f"{plain_s:.2f} s {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(name)
+        max_abs = max(max_abs, abs_err)
+    builds = set(fleet_sweep.launches_by_build)
+    if fleet_sweep.launches != len(cases) or builds != {(4, 1), (4, 4)}:
+        fail(f"fleet_sweep counted {fleet_sweep.launches} launches "
+             f"({fleet_sweep.launches_by_build}) for {len(cases)} calls of two builds")
+    # the per-host rule: S3's host h is S1 at seed s + h
+    noisy = SimRunConfig(duration_us=1_000.0, queue_capacity=64,
+                         **dict(BAND_NOISY, stall_rate_per_us=1.0 / 400.0))
+    for hosts in (4, 33):
+        pts = fleet_points(hosts, (0.0,), True, False)
+        fgrid = FleetGrid.of_points(pts, fleet=FleetConfig(n_hosts=hosts))
+        args, params, fparams = fleet_inputs(fgrid, noisy, 0.5, "cuda")
+        out = fleet_sweep(*args, params=params, fleet=fparams)
+        share = np.float32(1.0 / hosts)
+        rows = SweepGrid.of_points([
+            dict(p, seed=p["seed"] + h, rate_mpps=float(np.float32(p["rate_mpps"]) * share))
+            for p in pts for h in range(hosts)])
+        s1_args, s1_params = sweep_inputs(rows, noisy, 0.5, "cuda")
+        s1 = slot_sweep(*s1_args, params=s1_params)
+        same = [k for k in STAT_NAMES if torch.equal(out[k].flatten(), s1[k])]
+        log(f"  per-host rule at {hosts} hosts ({len(pts)} points, m x n_queues 1-4, "
+            f"schedules, noisy, {params.live_slots()} slots): S3 host h == S1 at seed s + h on "
+            f"{len(same)} of {len(STAT_NAMES)} outputs "
+            f"{'ok' if len(same) == len(STAT_NAMES) else 'FAIL'}")
+        if len(same) != len(STAT_NAMES):
+            failed.append(f"per-host rule at {hosts} hosts")
+    # the wrapper checks its bounds: five threads a point is refused
+    args, params, fparams = fleet_inputs(cases[0][1], cases[0][2], 0.5, "cuda")
+    try:
+        fleet_sweep(args[0], args[1], torch.full_like(args[2], 5), *args[3:], params=params,
+                    fleet=fparams)
+    except ValueError as err:
+        log(f"  m=5 refused: {err}")
+    else:
+        fail("fleet_sweep took m=5")
+    if failed:
+        fail(f"fleet_sweep disagrees with its plain version or S1 ({'; '.join(failed)})")
+    log(f"  phase 2 (fleet_sweep) took {time.perf_counter() - t0:.1f} s")
+    return {"max_abs_err": max_abs, "builds": builds}
+
+
+def fleet_bound(args, params, fparams, out) -> dict:
+    """Least time for a fleet sweep's work on the card, counted from the code
+    (csrc/fleet_sweep.cu) for this run's points, hosts and slots: each
+    (point, host) as a point of S1's count (``sweep_bound``: its draws and
+    its slot body), plus the cross-host stages' operations a host-slot.
+    Least-loaded: the softmax's negation, product, subtraction and max (4),
+    its exp (1 special-function operation), its sum (1), the share's
+    division (a reciprocal and 4 float32) and product (1), the two
+    reductions' tree (2), the snapshot's queue sum every stale_every slots;
+    topology: the rack delay's product and sum (2), the far rack's sum and
+    the b1 reduction's tree (2), and, a point-slot, the link's product,
+    subtraction, max and division (1 special-function operation and 7);
+    hedging, at points with a deadline: the gate's product, subtraction and
+    division (1 + 6), exp (1), sum and division (1 + 5), the duplicates'
+    products, sum and argmin (4) and the second reduction's tree (2), and,
+    a point-slot, the injection into two hosts' queues (8 a queue).  Bytes:
+    each input read once (8 words a point, its schedule rows, H shares),
+    each output written once (14 words a host)."""
+    n_pts, n_h = out["offered"].shape
+    m = args[2].repeat_interleave(n_h)
+    q = args[3].repeat_interleave(n_h)
+    rows_out = {"ts_arms": out["ts_arms"].flatten(), "busy_tries": out["busy_tries"].flatten(),
+                "win": torch.empty(0)}
+    s1 = sweep_bound([None, None, m, q, None, None, None, None, None], params, rows_out)
+    ops = dict(s1["ops"])
+    n = float(params.live_slots())
+    host_slots = n_pts * n_h * n
+    hedged = float((args[7] > 0).sum()) * n_h * n
+    f32 = sfu = 0.0
+    if fparams.lb_code == 2:
+        f32 += host_slots * (4 + 1 + 4 + 1 + 2 + float(q.double().mean()) / fparams.stale_every_slots)
+        sfu += host_slots * 2
+    if fparams.topo_on or hedged:
+        f32 += host_slots * 2
+    if fparams.topo_on:
+        f32 += host_slots * 2
+        if fparams.link_on:
+            f32 += n_pts * n * 7
+            sfu += n_pts * n
+    f32 += hedged * (6 + 5 + 4 + 2) + float((args[7] > 0).sum()) * n * 8 * float(args[3].double().mean()) * 2
+    sfu += hedged * 3
+    ops["f32"] += f32
+    ops["sfu"] += sfu
+    nbytes = 4.0 * (8 * n_pts + 14 * n_pts * n_h + n_h)
+    if args[8] is not None:
+        nbytes += 4.0 * (args[8].numel() + args[9].numel())
+    times = {"f32": ops["f32"] / PEAK_F32_OPS * 1e3,
+             "int32": ops["int32"] / PEAK_INT32_OPS * 1e3,
+             "cvt": ops["cvt"] / PEAK_SFU_OPS * 1e3,
+             "sfu": ops["sfu"] / PEAK_SFU_OPS * 1e3,
+             "bytes": nbytes / PEAK_BYTES_PER_S * 1e3}
+    worst = max(times, key=times.get)
+    per = {k: v / host_slots for k, v in (*ops.items(), ("bytes", nbytes))}
+    return {"bound_ms": times[worst], "bound_by": "bytes" if worst == "bytes" else "operations",
+            "bound_resource": worst, "bound_times_ms": times, "host_slots": host_slots,
+            "per_host_slot": per}
+
+
+def phase_time_fleet(compared: set, compared_s1: set) -> list[dict]:
+    """S3 at benchmarks/fleet.py's shapes, uncut (``fleet_settings``): the
+    median of 3 CUDA-event timings of the kernel (its first launch of each
+    shape is phase 2's or its predecessor's: every launch after the build
+    is warm), each behind the device-side spin; host-slots per second; the
+    bound (``fleet_bound``); the kernel against its plain version on the
+    same inputs with the duration cut to the first ``FLEET_PLAIN_SLOTS``
+    slots, every output bit-equal (the main path's shapes, balancers and
+    stall windows, which phase 2's cases do not take), the plain version's
+    time from that one call; for the uniform rows S1 (``slot_sweep``) on
+    the same P x H rows as independent points (what the hosts cost without
+    the balancer, topology and hedging stages: their rates differ from the
+    fleet's by the rounding of float32(rate) x float32(1/H) alone).  There
+    is no PyTorch call that computes a sweep.  Returns the rows, each with
+    its outputs for the main path's cross-check."""
+    from repro_torch.kernels.fleet_sweep import fleet_sweep, reference_fleet_sweep
+    from repro_torch.kernels.fleet_sweep.ops import STAT_NAMES as FLEET_STATS
+    from repro_torch.kernels.slot_sweep import slot_sweep
+    from repro_torch.runtime import SweepGrid
+    from repro_torch.runtime.batched import sweep_inputs
+    from repro_torch.runtime.fleet import fleet_inputs
+    t0 = time.perf_counter()
+    log("phase 3: fleet_sweep (S3) at benchmarks/fleet.py's shapes, uncut: kernel median of 3 "
+        "CUDA-event timings; the kernel bit-equal to its plain version over the first "
+        f"{FLEET_PLAIN_SLOTS} slots, the plain version timed there; S1 on the same host rows "
+        "(uniform rows); bound from the code's operations (fleet_bound)")
+    rows = []
+    for name, fgrid, cfg, slot_us in fleet_settings():
+        args, params, fparams = fleet_inputs(fgrid, cfg, slot_us, "cuda")
+        fleet_sweep.launches = 0
+        fleet_sweep.launches_by_build = {}
+        ms, out = time_ms(fleet_sweep, *args, iters=3, warmup=0, return_out=True,
+                          params=params, fleet=fparams)
+        cut = dataclasses.replace(params, duration_us=FLEET_PLAIN_SLOTS * slot_us)
+        if fparams.lb_code == 2 and (cut.live_slots() - 1) // fparams.stale_every_slots < 2:
+            fail(f"{name}: {cut.live_slots()} slots refresh least-loaded's snapshot fewer than "
+                 "twice after slot 0")
+        kern = fleet_sweep(*args, params=cut, fleet=fparams)
+        if fleet_sweep.launches != 4:
+            fail(f"{name}: fleet_sweep counted {fleet_sweep.launches} launches for 4 calls")
+        (build,) = fleet_sweep.launches_by_build
+        check_builds_compared(name, compared, fleet_sweep)
+        plain_ms, plain = time_ms(reference_fleet_sweep, *args, cut, fparams, iters=1,
+                                  warmup=0, return_out=True)
+        differ = [k for k in FLEET_STATS if not torch.equal(kern[k], plain[k])]
+        if differ or float(kern["wakeups"].sum()) <= 0:
+            fail(f"{name}: fleet_sweep differs from its plain version over {cut.live_slots()} "
+                 f"slots on {differ}")
+        b = fleet_bound(args, params, fparams, out)
+        n_live = params.live_slots()
+        rate = b["host_slots"] / (ms / 1e3)
+        s1_ms = None
+        if fparams.lb_code == 0:
+            n_h = fparams.n_hosts
+            share = np.float32(1.0 / n_h)
+            grid = SweepGrid.of_points([
+                dict(fgrid.grid.point(i), seed=int(fgrid.grid.seed[i]) + h,
+                     rate_mpps=float(np.float32(fgrid.grid.rate_mpps[i]) * share))
+                for i in range(len(fgrid)) for h in range(n_h)])
+            s1_args, s1_params = sweep_inputs(grid, cfg, slot_us, "cuda")
+            slot_sweep.launches_by_build = {}
+            s1_ms = time_ms(slot_sweep, *s1_args, params=s1_params, iters=3, warmup=1)
+            check_builds_compared(f"{name} (S1)", compared_s1)
+        rows.append({
+            "name": name, "ms": ms, "plain_ms": plain_ms, "plain_slots": cut.live_slots(),
+            "library_ms": None, "launches": 1, "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"], "bound_resource": b["bound_resource"],
+            "host_slots_per_s": rate, "build": f"<{build[0]}, {build[1]}>", "s1_ms": s1_ms,
+            "shape": f"{len(fgrid)} points x {fparams.n_hosts} hosts x {n_live} slots of "
+                     f"{slot_us} us, lb {fgrid.fleet.lb}, hedge {list(FLEET_HEDGES)}, stalls; "
+                     f"plain_ms over the first {cut.live_slots()} slots",
+            "out": out})
+        log(f"  {name}: {len(fgrid)} points x {fparams.n_hosts} hosts x {n_live} slots, build "
+            f"<{build[0]}, {build[1]}>: kernel {ms:.3f} ms ({rate:.4e} host-slots/s, "
+            f"{1e3 * ms / n_live:.3f} us a slot); bit-equal to the plain version over "
+            f"{cut.live_slots()} slots on {len(FLEET_STATS)} of {len(FLEET_STATS)} outputs, "
+            f"hedge_dup {float(kern['hedge_dup'].sum()):.1f}; plain {plain_ms:.1f} ms measured for "
+            f"{cut.live_slots()} slots ({plain_ms * n_live / cut.live_slots() / 1e3:.0f} s "
+            f"scaled to {n_live} slots, not measured); "
+            + (f"S1 on the {len(fgrid) * fparams.n_hosts} host rows {s1_ms:.3f} ms "
+               f"(S3 {ms / s1_ms:.2f}x); " if s1_ms else "")
+            + f"library none; bound {b['bound_ms'] * 1e3:.2f} us ({b['bound_resource']}; "
+            + ", ".join(f"{k} {v * 1e3:.2f} us" for k, v in b["bound_times_ms"].items())
+            + f"), {100 * b['bound_ms'] / ms:.4f}% of it; per host-slot " + ", ".join(
+                f"{k} {v:.3g}" for k, v in b["per_host_slot"].items()))
+    log(f"  phase 3 (fleet_sweep) took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def check_fleet_identities(name: str, fs, em) -> None:
+    """The exact identities of a fleet sweep at every (point, host), to
+    float32 rounding: energy = active power x awake + per-arm charges;
+    counters whole numbers; no duplicates where a point does not hedge and
+    no network delay without a topology; every output finite."""
+    rel = max(SWEEP_RTOL, float(fs.n_steps.max()) * 2.0 ** -24)
+    arm_s = np.array([em.arm_energy_uj(t) for t in fs.fgrid.grid.t_s_us])[:, None]
+    arm_l = np.array([em.arm_energy_uj(t) for t in fs.fgrid.grid.t_l_us])[:, None]
+    pred = em.active_power_w * fs.awake_us + fs.ts_arms * arm_s + fs.busy_tries * arm_l
+    f = fs.fgrid.fleet
+    checks = {
+        "energy": bool(np.all(np.abs(fs.energy_uj - pred) <= rel * np.maximum(pred, 1.0))),
+        "counts": all(np.array_equal(getattr(fs, k), np.round(getattr(fs, k)))
+                      for k in FLEET_COUNTERS),
+        "hedge": bool(np.all(fs.hedge_dup[fs.fgrid.hedge_deadline_us <= 0] == 0.0)),
+        "topology": bool(f.near_cost_us or f.far_cost_us or f.link_rate_mpps
+                         or np.all(fs.topo_area == 0.0)),
+        "finite": all(bool(np.isfinite(getattr(fs, k)).all()) for k in (
+            "offered", "serviced", "dropped", "awake_us", "lat_area", "energy_uj",
+            "hedge_dup", "topo_area")),
+        "shape": fs.serviced.shape == (len(fs.fgrid), f.n_hosts)}
+    if not all(checks.values()):
+        fail(f"{name}: the fleet sweep breaks an exact identity: {checks}")
+
+
+def phase_fleet_band(compared: set) -> None:
+    """tests/test_fleet.py::test_fleet_matches_merged_event_engine_hosts at
+    its 60 ms on the card: a uniform fleet of 4 hosts (seed 5, 0.4 mu a
+    host, slots of 0.5 us) against the ``RunStats.merge_all`` of 4 runs of
+    the port's event engine at rate/4 (seeds 5..8), in the quiet bands:
+    mean sojourn within max(1.5 us, 12%), fleet cores within 4 x (0.02 +
+    5% a host), loss under 1e-3 on both sides; with shard=False and True,
+    which must agree bit for bit (one device)."""
+    from repro_torch.core import MetronomeConfig
+    from repro_torch.kernels.fleet_sweep import fleet_sweep
+    from repro_torch.runtime import (
+        FleetConfig,
+        FleetGrid,
+        MetronomePolicy,
+        SimRunConfig,
+        simulate_fleet,
+        simulate_fleet_run,
+    )
+    t0 = time.perf_counter()
+    hosts, seed, rate_h = 4, 5, 0.4 * MU_MPPS
+    cfg = SimRunConfig(duration_us=60_000.0)
+    fgrid = FleetGrid.product(fleet=FleetConfig(n_hosts=hosts), t_s_us=(12.0,),
+                              t_l_us=(500.0,), m=(3,), rate_mpps=(rate_h * hosts,),
+                              seeds=(seed,))
+    fleet_sweep.launches_by_build = {}
+    runs = [simulate_fleet(fgrid, cfg, slot_us=0.5, shard=shard) for shard in (False, True)]
+    check_builds_compared("the fleet band", compared, fleet_sweep)
+    if not all(np.array_equal(getattr(runs[0], k), getattr(runs[1], k))
+               for k in ("serviced", "lat_area", "awake_us", "energy_uj")):
+        fail("simulate_fleet(shard=True) differs from shard=False on one device")
+    fs = runs[0]
+    check_fleet_identities("the fleet band", fs, cfg.energy_model)
+    events = simulate_fleet_run(
+        lambda h: MetronomePolicy(MetronomeConfig(m=3, v_target_us=12.0, t_long_us=500.0,
+                                                  ts_min_us=1.0), adaptive=False),
+        rate_h * hosts, cfg, FleetConfig(n_hosts=hosts))
+    merged = events[0].merge_all(events[1:])
+    lat_f, lat_e = float(fs.mean_latency_us[0]), merged.mean_sojourn_us
+    cpu_f, cpu_e = float(fs.total_cpu_cores[0]), merged.cpu_fraction
+    loss_f, loss_e = float(fs.loss_fraction[0]), merged.loss_fraction
+    lat_band, cpu_band = max(1.5, 0.12 * lat_e), hosts * (0.02 + 0.05 * cpu_e / hosts)
+    ok = (abs(lat_f - lat_e) <= lat_band and abs(cpu_f - cpu_e) <= cpu_band
+          and loss_f < 1e-3 and loss_e < 1e-3)
+    log(f"band phase (S3): fleet of {hosts} hosts vs the merged event engine at 60 ms: mean "
+        f"sojourn {lat_f:.3f} vs {lat_e:.3f} us ({abs(lat_f - lat_e) / lat_band:.2f} of the "
+        f"band), cores {cpu_f:.4f} vs {cpu_e:.4f} ({abs(cpu_f - cpu_e) / cpu_band:.2f} of the "
+        f"band), loss {loss_f:.2e} vs {loss_e:.2e}; shard=True == shard=False; "
+        f"{time.perf_counter() - t0:.1f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the fleet sweep leaves the merged event engine's quiet band")
+
+
+def phase_fleet_main(compared: set, timed: list[dict]) -> dict:
+    """The fleet's main path, benchmarks/fleet.py's ``fleet_bench`` (full
+    mode) through ``repro_torch.runtime``, with every launch counter set to
+    0 just before and read just after: the busy-poll comparator's mean from
+    the port's event engine (once), one ``simulate_fleet`` per size x
+    balancer over the hedge ladder (60 ms of 0.5 us slots, stall windows),
+    the verdict at 64 hosts (the best hedged uniform point burns fewer than
+    64 cores with p99.9 at or under the busy-poll fleet's), and the scale
+    row; exactly one fleet_sweep launch a ``simulate_fleet`` and no other
+    kernel.  Each result equals phase 3's launch of its shape bit for bit
+    (the kernel is deterministic), and keeps the exact identities."""
+    from repro_torch.kernels import (
+        adaptive_sweep,
+        decode_attention,
+        flash_attention,
+        fleet_sweep,
+        slot_sweep,
+        ssd_scan,
+    )
+    from repro_torch.runtime import (
+        BusyPollPolicy,
+        PoissonWorkload,
+        hedged_latency_quantile,
+        simulate_fleet,
+        simulate_run,
+    )
+    t0 = time.perf_counter()
+    log("main path (S3): benchmarks/fleet.py's fleet_bench, full mode, through "
+        "repro_torch.runtime.simulate_fleet")
+    settings = fleet_settings()
+    tail_prob = min(FLEET_STALLS["stall_rate_per_us"] * FLEET_STALLS["stall_mean_us"], 0.5)
+    tail_scale = FLEET_STALLS["stall_mean_us"]
+    counters = (flash_attention, decode_attention, ssd_scan, slot_sweep, adaptive_sweep,
+                fleet_sweep)
+    for k in counters:
+        k.launches = 0
+    fleet_sweep.launches_by_build = {}
+    t1 = time.perf_counter()
+    busy = simulate_run(BusyPollPolicy(), PoissonWorkload(0.5 * MU_MPPS), settings[0][2])
+    busy_mean = float(busy.mean_sojourn_us)
+    results, verdicts, rows = [], [], []
+    for name, fgrid, cfg, slot_us in settings:
+        t2 = time.perf_counter()
+        fs = simulate_fleet(fgrid, cfg, slot_us=slot_us)
+        results.append((name, fs, time.perf_counter() - t2))
+    host_s = time.perf_counter() - t1
+    launches = {k.__name__: k.launches for k in counters}
+    if launches != {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 0,
+                    "slot_sweep": 0, "adaptive_sweep": 0, "fleet_sweep": len(settings)}:
+        fail(f"fleet_bench launched {launches}; want one fleet_sweep launch for each of its "
+             f"{len(settings)} simulate_fleet calls")
+    check_builds_compared("the fleet main path", compared, fleet_sweep)
+    for (name, fs, wall), row in zip(results, timed, strict=True):
+        check_fleet_identities(name, fs, fs.cfg.energy_model)
+        if fs.backend != "fleet_sweep" or not all(
+                np.array_equal(getattr(fs, k), row["out"][k].double().cpu().numpy())
+                for k in ("serviced", "lat_area", "awake_us", "hedge_dup", "energy_uj")):
+            fail(f"{name}: simulate_fleet ({fs.backend}) differs from phase 3's launch")
+        n_h = fs.n_hosts
+        if name.startswith("scale"):
+            ph = len(fs) * n_h
+            rows.append(f"{name}: {wall:.3f} s host clock, {ph / wall:.0f} points x hosts/s, "
+                        f"{ph * int(fs.cfg.duration_us / fs.slot_us) / wall:.3g} host-slots/s")
+            continue
+        busy_p999 = hedged_latency_quantile(0.999, np.full(n_h, busy_mean),
+                                            hedge_deadline_us=0.0, tail_prob=tail_prob,
+                                            tail_scale_us=tail_scale)
+        for i in range(len(fs)):
+            d = float(fs.fgrid.hedge_deadline_us[i])
+            p999 = fs.quantile(i, 0.999)
+            rows.append(f"fleet/{name}/D{d:g}: cores {float(fs.total_cpu_cores[i]):.3f}, p999 "
+                        f"{p999:.1f} us, mean {float(fs.mean_latency_us[i]):.2f} us, loss "
+                        f"{float(fs.loss_fraction[i]):.4f}, offered with hedges "
+                        f"{float(fs.offered_with_hedges[i]):.0f}")
+            if "/uniform" in name and d > 0.0:
+                verdicts.append((n_h, d, float(fs.total_cpu_cores[i]), p999, busy_p999))
+    hosts = FLEET_SIZES[-1]
+    best = min((v for v in verdicts if v[0] == hosts), key=lambda v: v[3])
+    _, best_d, best_cpu, best_p999, busy_p999 = best
+    ok = bool(best_cpu < hosts and best_p999 <= busy_p999)
+    log(f"  busy-poll mean {busy_mean:.3f} us (event engine, one host at rho 0.5); "
+        f"{len(settings)} simulate_fleet calls in {host_s:.2f} s host clock; launches {launches}, "
+        f"builds {fleet_sweep.launches_by_build}")
+    for line in rows:
+        log(f"    {line}")
+    log(f"  verdict at {hosts} hosts: best hedged uniform point D={best_d:g} us burns "
+        f"{best_cpu:.2f} cores (busy-poll {hosts}) at p99.9 {best_p999:.1f} us (busy-poll "
+        f"{busy_p999:.1f} us): {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the hedged Metronome fleet does not beat the busy-poll fleet on cores and p99.9")
+    log(f"  main path (S3) took {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches["fleet_sweep"], "host_s": host_s,
+            "verdict": {"n_hosts": hosts, "hedge_deadline_us": best_d, "cpu_cores": best_cpu,
+                        "p999_us": best_p999, "busy_poll_p999_us": busy_p999}}
 
 
 def profile(name: str, fn, *args, kernel: tuple[str, str] = ("flash_attention", "flash_fwd"),
@@ -2120,6 +2699,10 @@ def main() -> int:
     phase_sweep_bands(sweep_cmp["builds"], s2_cmp["builds"])
     sweep_main = phase_sweep_main(sweep_cmp["builds"])
     calibration = phase_calibration_main(served["engine"], s2_cmp["builds"])
+    s3_cmp = phase_compare_fleet()
+    s3_rows = phase_time_fleet(s3_cmp["builds"], sweep_cmp["builds"])
+    phase_fleet_band(s3_cmp["builds"])
+    fleet_main = phase_fleet_main(s3_cmp["builds"], s3_rows)
     # K1 has one kernel per type: bf16 ("wgmma", the serving path; its
     # numbers at the largest prefill bucket, every row beside them) and f32
     # ("simt", on no model path: launches are its timing phase's, the
@@ -2184,6 +2767,7 @@ def main() -> int:
     extra = ("build", "bound_resource", "point_steps_per_s", "plain_steps", "budget",
              "steps_max", "steps_mean", "warp_longest_over_mean", "lane_busy_share", "s1_ms",
              "s1_slots", "forced_steps")
+    s1_extra = ("s1_bound_ms", "s1_bound_by", "s1_plain_ms", "s1_plain_slots")
     kernels.append({
         "name": "adaptive_sweep", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/adaptive_sweep.cu",
@@ -2191,7 +2775,22 @@ def main() -> int:
         "launches": calibration["launches"], "max_abs_err": s2_cmp["max_abs_err"],
         **{k: row[k] for k in keys}, "shape": f"{row['name']}: {row['shape']}",
         **{k: row[k] for k in extra},
-        "rows": [{k: r[k] for k in ("name", "shape", *keys, *extra)} for r in s2_rows[1:]]})
+        "rows": [{**{k: r[k] for k in ("name", "shape", *keys, *extra)},
+                  **{k: r[k] for k in s1_extra if k in r}} for r in s2_rows[1:]]})
+    # S3, the fleet sweep: launches are its main path's (fleet_bench: one
+    # simulate_fleet a size x balancer, and the scale row); its numbers at
+    # the verdict's shape (64 hosts, uniform), the other rows in "rows"
+    row = next(r for r in s3_rows if r["name"] == f"H{FLEET_SIZES[-1]}/uniform")
+    extra = ("build", "bound_resource", "host_slots_per_s", "plain_slots", "s1_ms")
+    kernels.append({
+        "name": "fleet_sweep", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fleet_sweep.cu",
+        "replaces": "src/repro/runtime/fleet.py:234", "launches": fleet_main["launches"],
+        "max_abs_err": s3_cmp["max_abs_err"], **{k: row[k] for k in keys},
+        "shape": f"{row['name']}: {row['shape']}", **{k: row[k] for k in extra},
+        "verdict": fleet_main["verdict"],
+        "rows": [{k: r[k] for k in ("name", "shape", *keys, *extra)} for r in s3_rows
+                 if r is not row]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

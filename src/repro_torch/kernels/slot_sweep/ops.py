@@ -116,20 +116,23 @@ def _slot_inputs(d: dict, nows: np.ndarray, lam_q, sched_edges, sched_scales, ts
                  stall_end, n_m: int, p: SweepParams) -> dict:
     """The parts of a chunk of slots that do not depend on the simulated
     state, made for all its slots at once with the reference's float32
-    operations: per-slot arrival means and noise, re-sleep lengths, the
-    running end of the stall window (``max`` is exact, so a cumulative max
-    equals the per-slot update) and the deferred-wake targets."""
+    operations: per-slot arrival means and noise (and, with a schedule, its
+    per-slot ``scale``), re-sleep lengths, the running end of the stall
+    window (``max`` is exact, so a cumulative max equals the per-slot
+    update) and the deferred-wake targets."""
     dev, f32 = lam_q.device, torch.float32
     dt = _f32(p.slot_us)
     now = torch.from_numpy(nows).to(dev)
+    out = {}
     if sched_edges is not None:
         at = now[None, :].expand(sched_edges.shape[0], -1).contiguous()
         si = torch.searchsorted(sched_edges, at, right=True) - 1
         scale = sched_scales.gather(1, si.clamp(0, sched_edges.shape[1] - 1)).T
         mu_a = lam_q * scale[:, :, None] * dt
+        out["scale"] = scale
     else:
         mu_a = (lam_q * dt).expand(len(nows), -1, -1)
-    out = {"mu_a": mu_a, "noise": torch.sqrt(mu_a) * d["z_q"]}
+    out.update(mu_a=mu_a, noise=torch.sqrt(mu_a) * d["z_q"])
     fl = p.flags
     over = torch.full(d["z_q"].shape[:2] + (n_m,), _f32(p.base_us), dtype=f32, device=dev)
     if fl["sigma"]:

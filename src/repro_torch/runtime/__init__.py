@@ -8,8 +8,10 @@ hand-written CUDA kernel: ``repro_torch.kernels.slot_sweep`` (fixed slots)
 or, with ``stepping="adaptive"``, ``repro_torch.kernels.adaptive_sweep``
 (event jumps); their plain versions with ``device="cpu"``.
 ``build_operating_table`` distils such a sweep into an ``OperatingTable``
-(``calibrate``).  ``MatmulAppLoad`` is a ``torch.matmul`` tenant.  The fleet
-engine comes in a later slice.
+(``calibrate``).  ``simulate_fleet`` runs a ``FleetGrid`` (hosts behind a
+load balancer, with topology and hedging) in one launch of
+``repro_torch.kernels.fleet_sweep`` (``fleet``).  ``MatmulAppLoad`` is a
+``torch.matmul`` tenant.
 """
 
 from .apps import (
@@ -99,6 +101,9 @@ _LAZY_SUBMODULE = {
     "CalibrationMismatch": "calibrate",
     "build_operating_table": "calibrate",
     "schedule_spot_check": "calibrate",
+    "FleetGrid": "fleet",
+    "FleetStats": "fleet",
+    "simulate_fleet": "fleet",
 }
 
 
@@ -173,6 +178,9 @@ __all__ = [
     "CalibrationMismatch",
     "build_operating_table",
     "schedule_spot_check",
+    "FleetGrid",
+    "FleetStats",
+    "simulate_fleet",
     "AppLoad",
     "DutyCycleBurner",
     "MatmulAppLoad",

@@ -10,8 +10,9 @@ The exact conservation identity
 
 plus: windowed energy sums (and the event engine's post-duration spill)
 reproduce the totals, merge/merge_all conserve energy, and the engines
-agree within the reference's pinned bands.  The fleet engine is not ported
-yet, so its case is left out; the plain sweeps run ~10^4 slots (or
+agree within the reference's pinned bands.  The fleet's case runs its fixed
+stepping (the plain version of the ``fleet_sweep`` kernel); its event-jump
+half comes with that sweep.  The plain sweeps run ~10^4 slots (or
 event-jump steps) a second on the CPU, so sweeps of 20-120 ms run 4-40 ms
 here (each names its cut) with the reference's checks."""
 
@@ -285,6 +286,38 @@ def test_run_stats_merge_and_merge_all_conserve_energy():
     w = rolled.windows
     assert w.energy_uj.sum() + w.spill_energy_uj \
         == pytest.approx(rolled.energy_uj, rel=1e-9)
+
+
+def test_fleet_energy_per_host_identity_and_cluster_rollup():
+    """The fixed stepping of the reference's test (the event-jump fleet
+    sweep is not ported yet); cut from 20 ms to 4 ms."""
+    from repro_torch.runtime.fleet import FleetGrid, simulate_fleet
+    from repro_torch.runtime.simcore import FleetConfig
+
+    em = DEEP_CSTATE_ENERGY_MODEL
+    cfg = SimRunConfig(duration_us=4_000.0, sleep_model=HR_SLEEP_MODEL,
+                       energy_model=em)
+    fg = FleetGrid.product(fleet=FleetConfig(n_hosts=3),
+                           t_s_us=(25.0,), t_l_us=(300.0,),
+                           rate_mpps=(0.4 * 29.76 * 3,),
+                           m=(2,), n_queues=(1,), seeds=(0,))
+    arm_s, arm_l = em.arm_energy_uj(25.0), em.arm_energy_uj(300.0)
+    for st in ("fixed",):
+        fs = simulate_fleet(fg, cfg, slot_us=0.5, shard=False, stepping=st,
+                            device="cpu")
+        pred = (em.active_power_w * fs.awake_us
+                + fs.ts_arms * arm_s + fs.busy_tries * arm_l)
+        np.testing.assert_allclose(fs.energy_uj, pred, rtol=CONS_REL,
+                                   atol=1.0)
+        assert float(fs.total_energy_uj[0]) \
+            == pytest.approx(float(fs.energy_uj[0].sum()), rel=1e-6)
+        assert np.all(fs.host_power_w > 0.0)
+        assert float(fs.energy_per_packet_nj[0]) > 0.0
+        # cluster rollup through RunStats.merge_all conserves energy
+        hosts = fs.host_run_stats(0)
+        rolled = hosts[0].merge_all(hosts[1:])
+        assert rolled.energy_uj == pytest.approx(
+            float(fs.total_energy_uj[0]), rel=1e-6, abs=1.0)
 
 
 # ------------------------------------------------- cross-engine parity

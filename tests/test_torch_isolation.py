@@ -2,9 +2,10 @@
 module of the JAX package and builds no kernel, no source file of it
 imports them, its verbatim copies of the JAX-free host modules equal the
 reference's, and the definitions its own ``runtime/apps.py``,
-``runtime/batched.py``, ``runtime/batched_adaptive.py`` and
-``runtime/calibrate.py`` keep from the reference are the reference's text
-(imports of the reference package read as the port's)."""
+``runtime/batched.py``, ``runtime/batched_adaptive.py``,
+``runtime/calibrate.py`` and ``runtime/fleet.py`` keep from the reference
+are the reference's text (imports of the reference package read as the
+port's)."""
 
 import ast
 import os
@@ -46,6 +47,7 @@ PINNED = {
     "runtime/calibrate.py": ("__all__", "CalibrationMismatch", "OperatingPoint",
                              "OperatingTable", "analytic_guard_mask", "_event_sim_point",
                              "schedule_spot_check"),
+    "runtime/fleet.py": ("__all__", "_LB_CODE", "FleetGrid", "FleetStats"),
 }
 
 # an import statement naming jax or the reference package (not repro_torch)
@@ -62,7 +64,8 @@ def test_import_loads_no_jax_and_no_reference_module():
             "repro_torch.kernels.slot_sweep.ops", "repro_torch.runtime.batched",
             "repro_torch.runtime.sim", "repro_torch.core.simulator",
             "repro_torch.kernels.adaptive_sweep.ops", "repro_torch.runtime.batched_adaptive",
-            "repro_torch.runtime.calibrate"} <= set(names)
+            "repro_torch.runtime.calibrate", "repro_torch.kernels.fleet_sweep.ops",
+            "repro_torch.runtime.fleet"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
@@ -103,6 +106,24 @@ def test_runtime_import_builds_no_kernel():
         "from repro_torch.kernels import _build\n"
         "print(lazy, _build.BUILD_INFO, _build._libs)\n"
         "sys.exit(1 if lazy or _build.BUILD_INFO or _build._libs else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_fleet_import_loads_no_jax_and_builds_no_kernel():
+    """``from repro_torch.runtime import FleetGrid, FleetStats,
+    simulate_fleet`` loads neither jax nor a module of the reference, and
+    builds and loads no kernel library."""
+    code = (
+        "import sys\n"
+        "from repro_torch.runtime import FleetGrid, FleetStats, simulate_fleet\n"
+        "from repro_torch.kernels import _build\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "print(bad, _build.BUILD_INFO, _build._libs)\n"
+        "sys.exit(1 if bad or _build.BUILD_INFO or _build._libs else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120,
                           env={**os.environ, "PYTHONPATH": str(ROOT / "src")})

@@ -2,12 +2,13 @@
 batched engine (the plain versions of the ``slot_sweep`` and
 ``adaptive_sweep`` kernels on the CPU): time accounting invariants, the
 event-jump sweep's far fewer steps at low load, the slot-count ladder,
-nearby durations on one rung, and the refusal of an unknown mode.  The
-fleet engine is not ported yet, so its cases are left out, and the
-reference's compile cache has no counterpart (nothing is compiled per
-shape).  The plain sweeps run ~10^4 slots (or event-jump steps) a second
-on the CPU, so sweeps of 20-60 ms run 2-20 ms here (each names its cut)
-with the reference's checks.
+nearby durations on one rung, and the refusal of an unknown mode, by the
+batched engine and by the fleet engine.  The fleet's event-jump stepping is
+not ported yet, so its parity case is left out, and the reference's
+compile cache has no counterpart (nothing is compiled per shape).  The
+plain sweeps run ~10^4 slots (or event-jump steps) a second on the CPU, so
+sweeps of 20-60 ms run 2-20 ms here (each names its cut) with the
+reference's checks.
 """
 
 import numpy as np
@@ -128,6 +129,18 @@ def test_stepping_rejects_unknown_mode():
     grid, cfg = _mixed_grid(n=1)
     with pytest.raises(ValueError, match="stepping"):
         simulate_batch(grid, cfg, stepping="magic", device="cpu")
+
+
+def test_fleet_stepping_rejects_unknown_mode():
+    from repro_torch.runtime.fleet import FleetGrid, simulate_fleet
+    from repro_torch.runtime.simcore import FleetConfig
+
+    fg = FleetGrid.product(fleet=FleetConfig(n_hosts=2),
+                           t_s_us=(20.0,), t_l_us=(200.0,),
+                           rate_mpps=(5.0,))
+    with pytest.raises(ValueError, match="stepping"):
+        simulate_fleet(fg, SimRunConfig(duration_us=1_000.0),
+                       stepping="magic", device="cpu")
 
 
 # ---------------------------------------------------------------- caching
