@@ -74,16 +74,21 @@ phase 1 (its builds <4, 1> and <4, 4> must not spill):
   serving N/N through K1's ``"wgmma"`` route.
 
 Then the fleet sweep S3 (``fleet_sweep``, the reference's
-``runtime/fleet.py`` ``lax.scan``; one block a point, the balancer, link
-and hedge stages as block reductions), built in phase 1 (its builds <4, 1>
-and <4, 4> must not spill):
+``runtime/fleet.py`` ``lax.scan``; one block a point: up to 256 hosts,
+producer warps make every host's draws into a ring in shared memory and
+consumer warps, a host a lane, run the state machine and the balancer,
+link and hedge stages as reductions on a named barrier; beyond, the
+scratch route), built in phase 1 (its builds <4, 1> and <4, 4> of both
+routes must not spill; the ring's layout is printed at 4-1000 hosts):
 
 - phase 2: the kernel against its plain version, every output bit-equal, at
   1, 3, 4, 33 and 64 hosts over 1,000-2,000 slots and 1,500 hosts (more
   than a block's lanes) over 300: each balancer, the bottleneck link, hedge
   deadlines 0, 20 and 80, every noise family, schedules, m x n_queues 1-4
-  and one queue a point; and host h of a uniform fleet without topology or
-  hedging equal to S1's kernel at seed s + h;
+  and one queue a point; at the ring's edges (1, 5 and 33 hosts over 4C -
+  1, 4C and 4C + 1 slots, least-loaded refreshing every 1, 3 and 7 slots);
+  and host h of a uniform fleet without topology or hedging equal to S1's
+  kernel at seed s + h;
 - phase 3: the kernel timed at benchmarks/fleet.py's shapes, uncut (4, 16
   and 64 hosts x three balancers x the hedge ladder over 60 ms of 0.5 us
   slots, and the 1000-host x 8-point scale row), beside its bound; the
@@ -104,6 +109,12 @@ times this checkout's sweep kernel against other sources with its C
 interface (a parent commit's ``csrc/slot_sweep.cu``, a variant) at phase
 3's five sweeps, in the order this, SRC1 .. SRCn, SRCn .. SRC1, this, and
 reports whether each gives this kernel's bits (``phase_sweep_source_ab``).
+
+    python3 chip_smoke.py --fleet-ab SRC [SRC ...]
+
+does the same for the fleet sweep kernel (a parent commit's
+``csrc/fleet_sweep.cu``, a variant with the same C interface and scratch
+layout) at phase 3's ten shapes, uncut (``phase_fleet_source_ab``).
 """
 
 from __future__ import annotations
@@ -284,19 +295,32 @@ def phase_card() -> None:
     if set(kernels) != want or any(spills for _, spills, _ in kernels.values()):
         fail(f"want the 2 adaptive_sweep_kernel builds (<4, 1> and <4, 4>), none spilling; "
              f"ptxas gave {kernels}")
-    # S3: the (M_MAX, Q_MAX) builds <4, 1> and <4, 4>, one block a point,
-    # built with -fmad=false; neither may spill
+    # S3: the (M_MAX, Q_MAX) builds <4, 1> and <4, 4> of each route, one
+    # block a point, built with -fmad=false; none may spill.  The ring route
+    # (up to 256 hosts: consumer and producer warps) takes its ring as
+    # dynamic shared memory, sized per launch; the scratch route (beyond 256
+    # hosts) none
     kernels = ptxas_kernels(_build.BUILD_INFO["fleet_sweep.cu"]["log"])
     for name, (regs, spills, smem) in kernels.items():
         log(f"  {name}: {regs} registers, {spills} bytes of spill stores + loads, {smem} "
-            "bytes of static shared memory (no dynamic shared memory)")
-    want = {f"fleet_sweep_kernel<4, {q}>" for q in (1, 4)}
+            "bytes of static shared memory")
+    want = {f"{k}<4, {q}>" for k in ("fleet_sweep_kernel", "fleet_scratch_kernel")
+            for q in (1, 4)}
     if set(kernels) != want or any(spills for _, spills, _ in kernels.values()):
-        fail(f"want the 2 fleet_sweep_kernel builds (<4, 1> and <4, 4>), none spilling; "
-             f"ptxas gave {kernels}")
-    for hosts in (1, 4, 64, 1000, 1500):
-        log(f"  fleet_sweep layout at {hosts} hosts: <4, 1> {fleet_kernel.layout(hosts, 1)}, "
-            f"<4, 4> {fleet_kernel.layout(hosts, 4)}")
+        fail(f"want the 4 fleet sweep builds (fleet_sweep_kernel and fleet_scratch_kernel, "
+             f"<4, 1> and <4, 4>), none spilling; ptxas gave {kernels}")
+    stalls = 8   # the stall bit of the source's flags: the largest ring
+    for hosts in (4, 16, 64, 256, 1000):
+        lays = {q: fleet_kernel.layout(hosts, q, stalls) for q in (1, 4)}
+        log(f"  fleet_sweep layout at {hosts} hosts, stalls on: <4, 1> {lays[1]}, <4, 4> "
+            f"{lays[4]}")
+        for q, lay in lays.items():
+            ring = fleet_kernel.ring_bytes(hosts, q, True)
+            if lay["ring_bytes"] != ring or ring > 232_448 or (
+                    ring and lay["stage_slots"] != fleet_kernel.STAGE_SLOTS):
+                fail(f"fleet_sweep layout {lay} at {hosts} hosts: want the ring of "
+                     f"kernel.ring_bytes ({ring} bytes, {fleet_kernel.STAGE_SLOTS} slots a "
+                     "stage) in at most 227 KB of shared memory")
     from repro_torch.runtime.batched import sweep_inputs
     for name, grid, cfg, slot_us in sweep_settings()[:2]:       # quiet; stalls on
         _, params = sweep_inputs(grid, cfg, slot_us, "cpu")
@@ -316,7 +340,8 @@ def ptxas_kernels(log_text: str) -> dict[str, tuple[int, int, int]]:
     for ln in log_text.splitlines():
         if m := re.search(r"Compiling entry function '.*?(flash_fwd_\w+?|decode_split_mma_bf16|"
                           r"decode_split|decode_combine|ssd_chunk_state|ssd_chunk_out|"
-                          r"slot_sweep_kernel|adaptive_sweep_kernel|fleet_sweep_kernel)"
+                          r"slot_sweep_kernel|adaptive_sweep_kernel|fleet_sweep_kernel|"
+                          r"fleet_scratch_kernel)"
                           r"I((?:f|13__nv_bfloat16|S\d*_)*)((?:Li\d+E)+)", ln):
             # a repeated type is a substitution (S<n>_); only bf16 repeats
             types = ["float" if t == "f" else "bf16"
@@ -2216,15 +2241,64 @@ def fleet_compare_cases():
     return cases
 
 
+def fleet_edge_cases():
+    """(name, fgrid, cfg, slot_us): S3's ring at its edges, the cases of
+    tests/test_torch_fleet.py's ``_edge_case``: least-loaded with the link
+    and hedging on, every noise family, queues of 24 packets, four points
+    (m = n_queues = 1..4, deadlines 0, 0.2, 1 and 5 us, a step schedule
+    changing inside a stage, a ramp), at 1, 5 and 33 hosts, over 4 C - 1,
+    4 C and 4 C + 1 slots (C slots a stage: the ring wraps at 2 C), the
+    snapshot refreshed every 1, 3 and 7 slots."""
+    from repro_torch.kernels.fleet_sweep import kernel as fleet_kernel
+    from repro_torch.runtime import (
+        FleetConfig,
+        FleetGrid,
+        RampSchedule,
+        SimRunConfig,
+        SleepModel,
+        StepSchedule,
+    )
+    c = fleet_kernel.STAGE_SLOTS
+    sleep = SleepModel(base_us=2.8, slope=0.027, sigma_us=0.5, tail_prob=0.2, tail_mean_us=6.0)
+    scheds = (None, StepSchedule(times_us=(0.0, 3.2), scales=(0.5, 1.6)),
+              RampSchedule(t_start_us=1.1, t_end_us=14.3, scale_from=0.3, scale_to=1.4),
+              StepSchedule(times_us=(0.0, 9.7), scales=(1.3, 0.6)))
+    cases = []
+    for hosts in (1, 5, 33):
+        for live in (4 * c - 1, 4 * c, 4 * c + 1):
+            for stale in (1, 3, 7):
+                rng = np.random.default_rng(hosts)
+                pts = []
+                for i, deadline in enumerate((0.0, 0.2, 1.0, 5.0)):
+                    p = dict(t_s_us=float(rng.uniform(1.5, 4.0)),
+                             t_l_us=float(rng.uniform(6.0, 20.0)), m=i + 1, n_queues=i + 1,
+                             seed=int(rng.integers(0, 5)),
+                             rate_mpps=float(rng.uniform(0.5, 1.0) * MU_MPPS * (i + 1) / 2.0
+                                             * hosts),
+                             hedge_deadline_us=deadline)
+                    if scheds[i] is not None:
+                        p["schedule"] = scheds[i]
+                    pts.append(p)
+                fleet = FleetConfig(n_hosts=hosts, lb="least-loaded", lb_stale_us=0.5 * stale,
+                                    far_fraction=0.6, near_cost_us=1.0, far_cost_us=5.0,
+                                    link_rate_mpps=8.0 * hosts)
+                cfg = SimRunConfig(duration_us=0.5 * live, queue_capacity=24, sleep_model=sleep,
+                                   interference_prob=0.25, interference_mean_us=4.0,
+                                   stall_rate_per_us=1.0 / 10.0, stall_mean_us=3.0)
+                cases.append((f"{hosts} hosts, {live} slots, refresh every {stale}",
+                              FleetGrid.of_points(pts, fleet=fleet), cfg, 0.5))
+    return cases
+
+
 def phase_compare_fleet() -> dict:
     """S3 against its plain version on the card (``fleet_compare_cases``):
     every output bit-equal (the same float32 operations in the same order,
     the host sums in the kernel's tree, no fma contraction, the same math
-    library).  Then the per-host rule on the card: with uniform shares and
-    topology and hedging off, host h of a point seeded s equals S1's kernel
-    at seed s + h and rate float32(rate) x float32(1/H), every output bit
-    for bit, at 4 and 33 hosts.  Returns the max abs error and the builds
-    compared."""
+    library), and at the ring's edges (``fleet_edge_cases``).  Then the
+    per-host rule on the card: with uniform shares and topology and hedging
+    off, host h of a point seeded s equals S1's kernel at seed s + h and
+    rate float32(rate) x float32(1/H), every output bit for bit, at 4 and
+    33 hosts.  Returns the max abs error and the builds compared."""
     from repro_torch.kernels.fleet_sweep import fleet_sweep, reference_fleet_sweep
     from repro_torch.kernels.fleet_sweep.ops import STAT_NAMES as FLEET_STATS
     from repro_torch.kernels.slot_sweep import slot_sweep
@@ -2235,8 +2309,8 @@ def phase_compare_fleet() -> dict:
     t0 = time.perf_counter()
     log("phase 2: fleet_sweep (S3) vs plain version: 1, 3, 4, 33, 64 hosts over 1,000-2,000 "
         "slots and 1,500 hosts over 300, each balancer, topology, hedge deadlines 0/20/80, "
-        "every noise family, schedules, m x n_queues 1-4 and one queue; every output "
-        "bit-equal; then the per-host rule against S1's kernel")
+        "every noise family, schedules, m x n_queues 1-4 and one queue; the ring's edges; "
+        "every output bit-equal; then the per-host rule against S1's kernel")
     fleet_sweep.launches = 0
     fleet_sweep.launches_by_build = {}
     cases = fleet_compare_cases()
@@ -2270,6 +2344,21 @@ def phase_compare_fleet() -> dict:
     if fleet_sweep.launches != len(cases) or builds != {(4, 1), (4, 4)}:
         fail(f"fleet_sweep counted {fleet_sweep.launches} launches "
              f"({fleet_sweep.launches_by_build}) for {len(cases)} calls of two builds")
+    # the ring's edges: every output bit-equal
+    edges = fleet_edge_cases()
+    edge_failed = []
+    for name, fgrid, cfg, slot_us in edges:
+        args, params, fparams = fleet_inputs(fgrid, cfg, slot_us, "cuda")
+        out = fleet_sweep(*args, params=params, fleet=fparams)
+        ref = reference_fleet_sweep(*args, params, fparams)
+        differ = [k for k in FLEET_STATS if not torch.equal(out[k], ref[k])]
+        if differ or float(out["hedge_dup"].sum()) <= 0:
+            edge_failed.append(f"{name}: {differ}")
+    log(f"  ring edges ({len(edges)} cases: 1, 5, 33 hosts x 4C-1, 4C, 4C+1 slots x refresh "
+        f"every 1, 3, 7; least-loaded, link, hedging, every noise family, schedules): "
+        f"{len(edges) - len(edge_failed)} of {len(edges)} bit-equal in every output"
+        + (f"; FAIL {edge_failed}" if edge_failed else ""))
+    failed += [f"ring edge {e}" for e in edge_failed]
     # the per-host rule: S3's host h is S1 at seed s + h
     noisy = SimRunConfig(duration_us=1_000.0, queue_capacity=64,
                          **dict(BAND_NOISY, stall_rate_per_us=1.0 / 400.0))
@@ -2314,7 +2403,10 @@ def fleet_bound(args, params, fparams, out) -> dict:
     Least-loaded: the softmax's negation, product, subtraction and max (4),
     its exp (1 special-function operation), its sum (1), the share's
     division (a reciprocal and 4 float32) and product (1), the two
-    reductions' tree (2), the snapshot's queue sum every stale_every slots;
+    reductions' tree (2) and the snapshot's queue sum, all once every
+    stale_every slots, when the snapshot refreshes (the shares hold between
+    refreshes; ``bound_ms_softmax_every_slot`` is the bound with all but the
+    queue sum counted every slot);
     topology: the rack delay's product and sum (2), the far rack's sum and
     the b1 reduction's tree (2), and, a point-slot, the link's product,
     subtraction, max and division (1 special-function operation and 7);
@@ -2335,9 +2427,12 @@ def fleet_bound(args, params, fparams, out) -> dict:
     host_slots = n_pts * n_h * n
     hedged = float((args[7] > 0).sum()) * n_h * n
     f32 = sfu = 0.0
+    # least-loaded: float32 and special-function operations a host-refresh
+    lb_f32 = 4 + 1 + 4 + 1 + 2 + float(q.double().mean())
+    refreshes = host_slots / fparams.stale_every_slots
     if fparams.lb_code == 2:
-        f32 += host_slots * (4 + 1 + 4 + 1 + 2 + float(q.double().mean()) / fparams.stale_every_slots)
-        sfu += host_slots * 2
+        f32 += refreshes * lb_f32
+        sfu += refreshes * 2
     if fparams.topo_on or hedged:
         f32 += host_slots * 2
     if fparams.topo_on:
@@ -2352,16 +2447,24 @@ def fleet_bound(args, params, fparams, out) -> dict:
     nbytes = 4.0 * (8 * n_pts + 14 * n_pts * n_h + n_h)
     if args[8] is not None:
         nbytes += 4.0 * (args[8].numel() + args[9].numel())
-    times = {"f32": ops["f32"] / PEAK_F32_OPS * 1e3,
-             "int32": ops["int32"] / PEAK_INT32_OPS * 1e3,
-             "cvt": ops["cvt"] / PEAK_SFU_OPS * 1e3,
-             "sfu": ops["sfu"] / PEAK_SFU_OPS * 1e3,
-             "bytes": nbytes / PEAK_BYTES_PER_S * 1e3}
+
+    def least_time(ops):
+        return {"f32": ops["f32"] / PEAK_F32_OPS * 1e3,
+                "int32": ops["int32"] / PEAK_INT32_OPS * 1e3,
+                "cvt": ops["cvt"] / PEAK_SFU_OPS * 1e3,
+                "sfu": ops["sfu"] / PEAK_SFU_OPS * 1e3,
+                "bytes": nbytes / PEAK_BYTES_PER_S * 1e3}
+    times = least_time(ops)
     worst = max(times, key=times.get)
+    every_slot = dict(ops)
+    if fparams.lb_code == 2:
+        every_slot["f32"] += (host_slots - refreshes) * (lb_f32 - float(q.double().mean()))
+        every_slot["sfu"] += (host_slots - refreshes) * 2
     per = {k: v / host_slots for k, v in (*ops.items(), ("bytes", nbytes))}
     return {"bound_ms": times[worst], "bound_by": "bytes" if worst == "bytes" else "operations",
             "bound_resource": worst, "bound_times_ms": times, "host_slots": host_slots,
-            "per_host_slot": per}
+            "per_host_slot": per,
+            "bound_ms_softmax_every_slot": max(least_time(every_slot).values())}
 
 
 def phase_time_fleet(compared: set, compared_s1: set) -> list[dict]:
@@ -2447,9 +2550,70 @@ def phase_time_fleet(compared: set, compared_s1: set) -> list[dict]:
                f"(S3 {ms / s1_ms:.2f}x); " if s1_ms else "")
             + f"library none; bound {b['bound_ms'] * 1e3:.2f} us ({b['bound_resource']}; "
             + ", ".join(f"{k} {v * 1e3:.2f} us" for k, v in b["bound_times_ms"].items())
-            + f"), {100 * b['bound_ms'] / ms:.4f}% of it; per host-slot " + ", ".join(
+            + f"), {100 * b['bound_ms'] / ms:.4f}% of it"
+            + (f" (with the softmax every slot: {b['bound_ms_softmax_every_slot'] * 1e3:.2f} us)"
+               if fparams.lb_code == 2 else "")
+            + "; per host-slot " + ", ".join(
                 f"{k} {v:.3g}" for k, v in b["per_host_slot"].items()))
     log(f"  phase 3 (fleet_sweep) took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def launch_fleet(args, params, fparams, lib=None):
+    """One launch of the fleet sweep kernel past its wrapper (so that no
+    launch counter moves), for ``--fleet-ab``'s comparison of two sources
+    (``lib``, default this checkout's): its stats (14, P, H)."""
+    from repro_torch.kernels.fleet_sweep.kernel import launch_fleet_sweep
+    from repro_torch.kernels.fleet_sweep.ops import STAT_NAMES as FLEET_STATS
+    cols = dict(zip(("t_s", "t_l", "m", "nq", "lam", "seed_lo", "seed_hi", "hedge_d"),
+                    args[:8]))
+    stats = torch.empty((len(FLEET_STATS), args[0].shape[0], fparams.n_hosts),
+                        dtype=torch.float32, device="cuda")
+    launch_fleet_sweep(cols, args[8], args[9], params, fparams, stats,
+                       m_max=int(args[2].max()), q_max=int(args[3].max()), lib=lib)
+    return stats
+
+
+def phase_fleet_source_ab(sources: list[str]) -> list[dict]:
+    """``--fleet-ab SRC...``: this checkout's fleet sweep kernel against
+    other sources with the same C interface and scratch layout as
+    ``csrc/fleet_sweep.cu`` (a parent commit's, a variant), each built with
+    the same flags, at phase 3's ten shapes (``fleet_settings``), uncut.
+    Each is timed as the median of 3 CUDA-event timings after 1 warm-up, in
+    the order this, SRC1 .. SRCn, SRCn .. SRC1, this (A B B A for one
+    source), all launched the same way (``launch_fleet``); every output of
+    each source is compared bit for bit with this checkout's (reported, not
+    required: a variant may compute something else)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fleet_sweep import kernel as fleet_kernel
+    from repro_torch.runtime.fleet import fleet_inputs
+    named = {"this": fleet_kernel._SOURCE, **{s: str(Path(s).resolve()) for s in sources}}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(named)) as pool:
+        libs = dict(zip(named, pool.map(fleet_kernel.build, named.values())))
+    log(f"fleet A/B: built {len(named)} sources in parallel in {time.perf_counter() - t0:.2f} s")
+    for name, source in named.items():
+        info = _build.BUILD_INFO[source]
+        log(f"  {name}: nvcc {info['seconds']:.2f} s; ptxas {ptxas_kernels(info['log'])}")
+    order = [*named, *reversed(named)]
+    rows = []
+    for name, fgrid, cfg, slot_us in fleet_settings():
+        args, params, fparams = fleet_inputs(fgrid, cfg, slot_us, "cuda")
+        outs = {k: launch_fleet(args, params, fparams, lib) for k, lib in libs.items()}
+        equal = {k: torch.equal(outs["this"], o) for k, o in outs.items() if k != "this"}
+        times = {k: [] for k in named}
+        for k in order:
+            times[k].append(time_ms(launch_fleet, args, params, fparams, libs[k], iters=3,
+                                    warmup=1))
+        n_live = params.live_slots()
+        log(f"  {name} ({len(fgrid)} points x {fparams.n_hosts} hosts x {n_live} slots), order "
+            f"{' '.join(order)}: " + "; ".join(
+                f"{k} " + ", ".join(f"{t:.3f}" for t in ts) + " ms ("
+                f"{1e3 * statistics.mean(ts) / n_live:.4f} us a slot)" for k, ts in times.items())
+            + f"; bit-equal to this: {equal}")
+        rows.append({"name": name, "points": len(fgrid), "hosts": fparams.n_hosts,
+                     "slots": n_live, "times_ms": times, "bit_equal": equal})
+    log(f"fleet A/B took {time.perf_counter() - t0:.1f} s")
     return rows
 
 
@@ -2682,6 +2846,12 @@ def main() -> int:
                             "--format=csv,noheader"], capture_output=True, text=True,
                            check=True).stdout.strip().splitlines()[0])
         print(json.dumps({"sweep_ab": phase_sweep_source_ab(sys.argv[2:])}), flush=True)
+        return 0
+    if sys.argv[1:2] == ["--fleet-ab"]:
+        log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"], capture_output=True, text=True,
+                           check=True).stdout.strip().splitlines()[0])
+        print(json.dumps({"fleet_ab": phase_fleet_source_ab(sys.argv[2:])}), flush=True)
         return 0
     phase_card()
     route_err = phase_compare()

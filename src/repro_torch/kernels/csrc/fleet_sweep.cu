@@ -15,9 +15,8 @@
 //                  snapshot of the hosts' backlogs taken before the step
 //                  whenever t % stale_every == 0 (slot 0 included);
 //   host step      every host runs the single-host slot body of S1
-//                  (csrc/slot_sweep.cu's state machine, in its one-thread
-//                  form: one thread a host, draws inline) at its share of
-//                  the rate;
+//                  (csrc/slot_sweep.cu's state machine) at its share of the
+//                  rate;
 //   topology       admissions pay the rack cost, a far host's also the
 //                  bottleneck link's wait 1 / max(link - far_rate, (1 -
 //                  0.98) link), far_rate the far hosts' admissions x (1/dt),
@@ -40,27 +39,71 @@
 // Noise: S1's Philox contract (kernels/slot_sweep/philox.py), host h of a point
 // keyed as ((seed_lo + h) mod 2^32, seed_hi): the reference's per-host key
 // (fleet.py:243-249), so host h draws the stream of a single-host point seeded
-// seed + h.  A draw is made only where it is used (as in S1).
+// seed + h.  The generator is counter-based: a value drawn at a slot where no
+// thread uses it changes nothing, so the ring route draws every family at
+// every slot, and the values it uses are the contract's.
 //
-// Design (a simple kernel that is right; PERF.md holds its times):
-//  1. One block a point, max(W, 32) threads.  A point's hosts meet every slot
-//     (the balancer reads all backlogs, the link all admissions, the hedge all
-//     backlogs), so they share a block and meet in shared memory and warp
-//     shuffles, not through device memory.  Thread j < W runs hosts j, j + W,
-//     ...; with H <= 256 that is one host, whose whole state stays in
-//     registers across slots.  Beyond 256 hosts a thread keeps its hosts'
-//     states in a global scratch (point, word, host), coalesced across the
-//     block, and loads and stores one host at a time.  Any H >= 1 runs.
-//  2. Each slot: the balancer's max and sum (least-loaded only), the host
-//     step, one reduction for the far rack's admissions and b1 (topology /
-//     hedging on), one for the duplicates landing on b1 and b2 (hedging on),
-//     then each host's topology and injection.  A reduction is warp shuffles
-//     plus, above 32 lanes, one round through shared memory: 2
-//     __syncthreads.
-//  3. The time is one block's chain of slots: the fleet grids of the repo have
-//     4-8 points, so 4-8 of 132 SMs work; the card's throughput is no limit.
-//  4. M_MAX and Q_MAX are template parameters (<4, 1> and <4, 4>, as S1's);
+// What binds: the fleet grids have 4-8 points and a point's hosts meet every
+// slot (the balancer reads all backlogs, the link all admissions, the hedge
+// all backlogs), so a point is one block and the time of a call is one
+// block's dependent chain of slots; the card's throughput is no limit.  With
+// S1's one-thread body (draws inline) on each host thread, a slot took
+// 2.03-2.90 us on an H100 (PERF.md §5).  The design takes every draw off the
+// chain and keeps the rest of it short:
+//  1. Warp specialisation (the ring route, H <= 256).  A block is a point:
+//     consumer warps, max(1, W / 32) of them, one host a lane with its whole
+//     state in registers, run only the state machine (the plain version's
+//     slot loop after the draws) and the cross-host stages; producer warps
+//     make every host's state-free values at every slot: the arrival normals,
+//     the overshoot (drawn every slot, not lazily), the stall window a slot
+//     opens (its end, or -inf), the re-arm jitter, and the schedule's scale.
+//     The producer count is a launch-time number (producers()): six warps
+//     beside one consumer warp (warps 1-3 and 5-7), four beside two (warps 2,
+//     3, 6 and 7), one a consumer warp beside four or eight.  A warp issues
+//     on scheduler warp % 4, and a producer on a consumer's scheduler slowed
+//     the consumer, so below four consumer warps the warps on the consumers'
+//     schedulers idle (PERF.md §6 has the counts measured).  A producer lane
+//     takes the stage's (slot, host) items in turn, so any H keeps them all
+//     busy.  The block is at most 16 warps, and its launch bounds hold every
+//     thread to 128 registers.
+//  2. A ring of kStages stages in dynamic shared memory, each kStageSlots
+//     slots x the fields of W host lanes, laid out [slot][field][lane] (one
+//     conflict-free word a lane), the slot's scale after them; the stall
+//     fields only when stalls are on.  Hand-off by mbarriers: full[s] (every
+//     producer lane arrives, the consumers wait) and empty[s] (every consumer
+//     lane arrives, the producers wait), with phase parities.  The consumer
+//     loads slot k + 1's fields before it runs slot k.
+//  3. Host reductions on a named barrier (bar.sync 1, consumer threads), which
+//     the producers never join: a __syncthreads there would deadlock, as a
+//     producer waits on an empty barrier that the consumers release only after
+//     the reduction.  Each reduction carries only the fields it reads (the
+//     softmax's max; its sum; the far rack's admissions), in the tree of the
+//     plain version, as a butterfly that leaves the result in every lane (no
+//     broadcast); above 32 lanes the warp results go through shared memory,
+//     double-buffered, and every warp runs the tree over them itself: one
+//     barrier a reduction.  The hedge stage is one tree, not two in turn: a
+//     node carries its two first least-loaded hosts, the first's duplicates,
+//     and its duplicates' sum with and without the first's, so the root holds
+//     b1, b2, what lands on b1 (the sum with b1's zeroed, in the tree's order)
+//     and b1's own.
+//  4. Least-loaded's softmax only on refresh slots: the snapshot, its max,
+//     its sum and each lane's share are taken when t % stale_every == 0, and
+//     lam_q = lam * share / nq stays in a register until the next (uniform and
+//     weighted: lam_q once).  The arrival mean mu_a = lam_q * scale * dt and
+//     its sqrt are cached until a refresh or a change of the schedule's
+//     scale.  The same float32 operations on the same operands: the same bits.
+//  5. M_MAX and Q_MAX are template parameters (<4, 1> and <4, 4>, as S1's);
 //     lanes past a point's m or n_queues add exact zeros.
+//  6. Beyond 256 hosts (the scratch route): a lane holds hosts j, j + 256, ...
+//     whose states live in a global scratch (point, word, host), coalesced
+//     across the block, loaded and stored one host at a time, with the
+//     one-thread body (draws inline, the overshoot lazily) and the reductions
+//     of 3 over all 256 threads (the hedge stage's two in turn).  The ring
+//     does not take it: at 1000 hosts a slot's fields fill 40 KB, so 227 KB
+//     holds five slots, and the states would still go through the cache.
+//  7. The run has the slots with float(t) * slot_us < duration (the
+//     reference's own float32 product); the host finds their count by
+//     bisection, so no slot past the run is drawn.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -70,6 +113,11 @@ namespace {
 
 constexpr int kMaxLanes = 256;
 constexpr int kMaxWarps = kMaxLanes / 32;
+constexpr int kStageSlots = 8;   // slots a stage of the ring
+constexpr int kStages = 2;
+constexpr int kMaxProducers = 8;   // producer warps at most (beside eight consumer warps)
+constexpr int kMaxThreads = 32 * (kMaxWarps + kMaxProducers);
+constexpr int kRedBarrier = 1;   // the named barrier of the host reductions
 constexpr int kMaxStates = 4;
 constexpr int kNumFParams = 24;
 constexpr int kNumHostStats = 12;
@@ -86,9 +134,63 @@ struct Params {
   float inv_soft, near_cost, far_cost, link_rate, link_floor, inv_dt, inv_mu, hedge_eps;
   float st_power[kMaxStates], st_trans[kMaxStates], st_thr[kMaxStates];
   int n_states, flags;
-  int n_points, n_hosts, n_slots, n_seg, lb, stale_every, far_count;
-  int lanes, hosts_per_lane;
+  int n_points, n_hosts, n_live, n_seg, lb, stale_every, far_count;
+  int lanes, hosts_per_lane, consumers;   // consumers: consumer threads (ring route)
 };
+
+struct Inputs {
+  const float *t_s, *t_l;
+  const int *m, *nq;
+  const float* lam;
+  const int *seed_lo, *seed_hi;
+  const float* hedge_d;
+  const float *sched_edges, *sched_scales, *shares;
+};
+
+// A ring stage's fields, per slot and host lane: the arrival normals of each
+// queue, each thread's overshoot, and with stalls on, each thread's re-arm
+// jitter and the stall end the slot opens (-inf where it opens none).
+template <int MM, int QQ>
+struct Layout {
+  static constexpr int kZ = 0, kOver = QQ, kJit = QQ + MM, kOpen = QQ + 2 * MM;
+  static __host__ __device__ int fields(int flags) {
+    return (flags & kStallOn) ? kOpen + 1 : kJit;
+  }
+  // floats of one stage: the table, then one scale a slot
+  static __host__ __device__ int stage_floats(int lanes, int flags) {
+    return kStageSlots * (fields(flags) * lanes + 1);
+  }
+  static size_t smem_bytes(int lanes, int flags) {
+    return sizeof(float) * (size_t)kStages * stage_floats(lanes, flags);
+  }
+};
+
+int lanes_for(int n_hosts) {
+  int w = 1;
+  while (w < n_hosts && w < kMaxLanes) w *= 2;
+  return w;
+}
+
+// consumer warps of a point of `lanes` host lanes, the producer warps
+// beside them, and the block's warps (the rule of the design note, 1):
+// below four consumer warps the producers take only the schedulers (warp %
+// 4) that no consumer warp is on, and the warps on the others idle
+__host__ __device__ inline int consumer_warps(int lanes) { return lanes < 32 ? 1 : lanes / 32; }
+__host__ __device__ inline int producers(int lanes) {
+  const int cw = consumer_warps(lanes);
+  return cw == 1 ? 6 : cw == 2 ? 4 : cw;
+}
+__host__ __device__ inline int block_warps(int lanes) {
+  const int cw = consumer_warps(lanes), np = producers(lanes);
+  return cw >= 4 ? cw + np : 4 * (np / (4 - cw));
+}
+// the rank among the producers of warp w >= consumer_warps, or -1 (idle)
+__host__ __device__ inline int producer_rank(int w, int lanes) {
+  const int cw = consumer_warps(lanes);
+  if (cw >= 4) return w - cw;
+  const int sched = w % 4;
+  return sched < cw ? -1 : (w / 4) * (4 - cw) + sched - cw;
+}
 
 struct Words {
   uint32_t w[4];
@@ -102,12 +204,12 @@ __device__ __forceinline__ Words philox(uint32_t c0, uint32_t c1, uint32_t c2, u
       k0 += 0x9E3779B9u;
       k1 += 0xBB67AE85u;
     }
-    const uint32_t lo0 = 0xD2511F53u * c0, hi0 = __umulhi(0xD2511F53u, c0);
-    const uint32_t lo1 = 0xCD9E8D57u * c2, hi1 = __umulhi(0xCD9E8D57u, c2);
-    c0 = hi1 ^ c1 ^ k0;
-    c1 = lo1;
-    c2 = hi0 ^ c3 ^ k1;
-    c3 = lo0;
+    // one 32 x 32 -> 64-bit product a word (IMAD.WIDE.U32)
+    const uint64_t p0 = (uint64_t)0xD2511F53u * c0, p1 = (uint64_t)0xCD9E8D57u * c2;
+    c0 = (uint32_t)(p1 >> 32) ^ c1 ^ k0;
+    c1 = (uint32_t)p1;
+    c2 = (uint32_t)(p0 >> 32) ^ c3 ^ k1;
+    c3 = (uint32_t)p0;
   }
   return {{c0, c1, c2, c3}};
 }
@@ -184,6 +286,558 @@ __device__ __forceinline__ void overshoot(int t, int m, uint32_t k0, uint32_t k1
   }
 }
 
+// this slot's duplicates of a host (hedging on)
+__device__ __forceinline__ float duplicates(float adm, float btot, float hedge_d,
+                                            float hedge_den, const Params& P) {
+  const float xg = (btot * P.inv_mu - hedge_d) / hedge_den;
+  return adm * (1.0f / (1.0f + expf(-xg)));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// Wait until the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// ---- host reductions over the W lanes of a point's hosts --------------------
+// The order of a sum: within each warp a halving tree over its L = min(W, 32)
+// lanes (lane l adds lane l + off, off = L/2 .. 1), then the same tree over
+// the W / 32 warps' sums.  Lanes >= W hold the identity.  Argmins keep the
+// lowest host index among equal values.  The trees run as butterflies
+// (__shfl_xor_sync, off = L/2 .. 1): lanes l and l ^ off combine the same two
+// values (a + b == b + a bit for bit, and every combine below is symmetric),
+// so each lane of a group of L ends with lane 0's result, the sum of the
+// tree above, and no broadcast follows.  A reduction's type carries only the
+// fields it reads: the softmax's max (MaxOf) and sum (SumOf), the far rack's
+// admissions without hedging (SumOf), the hedge stage (Hedge), and the
+// scratch route's sum and argmin (Red).
+
+__device__ __forceinline__ bool before(float v, int i, float w, int j) {
+  return v < w || (v == w && i < j);
+}
+
+struct MaxOf {
+  float v;
+  __device__ static MaxOf of(float v) { return {v}; }
+  __device__ void butterfly(int off) { v = fmaxf(v, __shfl_xor_sync(kFull, v, off)); }
+};
+
+struct SumOf {
+  float v;
+  __device__ static SumOf of(float v) { return {v}; }
+  __device__ void butterfly(int off) { v = v + __shfl_xor_sync(kFull, v, off); }
+};
+
+// A sum (SUM), an argmin over (v, i) (ARG), a max (MX).
+template <bool SUM, bool ARG, bool MX>
+struct Red {
+  float sum, v, mx;
+  int i;
+  __device__ static Red identity() { return {0.0f, INFINITY, -INFINITY, 0x7fffffff}; }
+  __device__ void butterfly(int off) {
+    if (SUM) sum = sum + __shfl_xor_sync(kFull, sum, off);
+    if (ARG) {
+      const float w = __shfl_xor_sync(kFull, v, off);
+      const int j = __shfl_xor_sync(kFull, i, off);
+      if (before(w, j, v, i)) {
+        v = w;
+        i = j;
+      }
+    }
+    if (MX) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
+  }
+};
+
+// The hedge stage in one tree: over a subtree, the two first least-loaded
+// hosts (v1, i1) and (v2, i2) after the step, the duplicates d1 of the
+// first, the sum of the subtree's duplicates (full) and that sum with the
+// first's zeroed (excl), and with the link on the far rack's admissions
+// (far; HedgeTree<false> leaves it out of the shuffles).  At the root:
+// b1 = i1, b2 = i2, what lands on b1 = excl (the plain version's host_sum
+// with b1's term zeroed: a node on b1's path adds the zeroed sum of the
+// child that holds b1 to the other child's full sum, in the tree's order),
+// b1's own = d1.
+struct Hedge {
+  float full, excl, v1, v2, d1, far;
+  int i1, i2;
+  // a host lane's leaf: it is its own first least-loaded host
+  __device__ static Hedge leaf(bool live, int h, float btot, float dup_q, float far_adm) {
+    if (!live) return {0.0f, 0.0f, INFINITY, INFINITY, 0.0f, 0.0f, 0x7fffffff, 0x7fffffff};
+    return {dup_q, 0.0f, btot, INFINITY, dup_q, far_adm, h, 0x7fffffff};
+  }
+  template <bool LINK>
+  __device__ void combine(int off) {
+    const float o_full = __shfl_xor_sync(kFull, full, off);
+    const float o_excl = __shfl_xor_sync(kFull, excl, off);
+    const float o_v1 = __shfl_xor_sync(kFull, v1, off);
+    const float o_v2 = __shfl_xor_sync(kFull, v2, off);
+    const float o_d1 = __shfl_xor_sync(kFull, d1, off);
+    const int o_i1 = __shfl_xor_sync(kFull, i1, off);
+    const int o_i2 = __shfl_xor_sync(kFull, i2, off);
+    if (LINK) far = far + __shfl_xor_sync(kFull, far, off);
+    if (before(o_v1, o_i1, v1, i1)) {   // the other subtree holds the first
+      const bool mine = before(v1, i1, o_v2, o_i2);
+      v2 = mine ? v1 : o_v2;
+      i2 = mine ? i1 : o_i2;
+      v1 = o_v1;
+      i1 = o_i1;
+      d1 = o_d1;
+      excl = full + o_excl;
+    } else {
+      if (before(o_v1, o_i1, v2, i2)) {
+        v2 = o_v1;
+        i2 = o_i1;
+      }
+      excl = excl + o_full;
+    }
+    full = full + o_full;
+  }
+};
+
+template <bool LINK>
+struct HedgeTree : Hedge {
+  __device__ void butterfly(int off) { combine<LINK>(off); }
+};
+
+// the warps' partial results (any of the types above), two buffers used in
+// turn
+struct RedShared {
+  __align__(16) unsigned char slot[2][kMaxWarps][32];
+};
+
+// The reduction of W lanes among `threads` threads (W <= 32: one warp, no
+// barrier).  `buf` alternates the shared buffers: a warp writes one only
+// after the barrier of the reduction before, which every warp passes only
+// once it has read the buffer of the one before that.  Every lane of a
+// group of W (the whole block above 32) gets the result.
+template <class T>
+__device__ __forceinline__ T reduce(T a, int W, int threads, RedShared& sh, int& buf) {
+  static_assert(sizeof(T) <= 32, "a reduction's partial result fits its shared slot");
+  const int L = W < 32 ? W : 32;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    if (off < L) a.butterfly(off);
+  }
+  if (W <= 32) return a;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) *reinterpret_cast<T*>(sh.slot[buf][warp]) = a;
+  asm volatile("bar.sync %0, %1;" ::"r"(kRedBarrier), "r"(threads) : "memory");
+  const int G = W >> 5;
+  a = *reinterpret_cast<const T*>(sh.slot[buf][lane & (G - 1)]);
+  buf ^= 1;
+#pragma unroll
+  for (int off = kMaxWarps / 2; off > 0; off >>= 1) {
+    if (off < G) a.butterfly(off);
+  }
+  return a;
+}
+
+// ---- the ring route: producers ----------------------------------------------
+
+// Producer lane `ptid` of `npt`: every state-free value of the stage's
+// (slot, host) items ptid, ptid + npt, ... (item = slot * H + host).
+template <int MM, int QQ>
+__device__ __forceinline__ void produce(int ptid, int npt, int pt, const Inputs& in, float* ring,
+                                        uint32_t full, uint32_t empty, const Params& P) {
+  using L = Layout<MM, QQ>;
+  const int W = P.lanes, H = P.n_hosts;
+  const int nf = L::fields(P.flags);
+  const int stage_floats = L::stage_floats(W, P.flags);
+  const bool stall_on = P.flags & kStallOn;
+  const int m = in.m[pt];
+  const uint32_t lo = (uint32_t)in.seed_lo[pt], hi = (uint32_t)in.seed_hi[pt];
+  const float dt = P.dt;
+  const float* edges = in.sched_edges + (size_t)pt * P.n_seg;
+  const float* scales = in.sched_scales + (size_t)pt * P.n_seg;
+  int seg = 0;
+  const int n_stages = (P.n_live + kStageSlots - 1) / kStageSlots;
+  for (int g = 0; g < n_stages; ++g) {
+    const int s = g % kStages;
+    mbar_wait(empty + 8 * s, ((g / kStages) & 1) ^ 1);
+    float* tab = ring + (size_t)s * stage_floats;
+    const int n = min(kStageSlots, P.n_live - g * kStageSlots);
+    for (int it = ptid; it < n * H; it += npt) {
+      const int k = it / H, h = it - k * H;
+      const int t = g * kStageSlots + k;
+      const float now = (float)t * dt;
+      const uint32_t k0 = lo + (uint32_t)h;
+      float* row = tab + k * nf * W + h;
+      float z[4];
+      box_muller(philox(t, kNormal, 0, 0, k0, hi), QQ, z);
+#pragma unroll
+      for (int q = 0; q < QQ; ++q) row[(L::kZ + q) * W] = z[q];
+      float over[MM];
+      overshoot<MM>(t, m, k0, hi, P, over);
+#pragma unroll
+      for (int i = 0; i < MM; ++i) row[(L::kOver + i) * W] = over[i];
+      if (stall_on) {
+        const Words st = philox(t, kStall, 0, 0, k0, hi);
+        const float end = now + P.stall_mean * expo(u01(st.w[1]));
+        row[L::kOpen * W] = u01(st.w[0]) < P.stall_p ? end : -INFINITY;
+        const Words jit = philox(t, kStall, 1, 0, k0, hi);
+#pragma unroll
+        for (int i = 0; i < MM; ++i) row[(L::kJit + i) * W] = u01(jit.w[i]);
+      }
+      if (h == 0) {
+        float scale = 1.0f;
+        if (P.n_seg > 0) {
+          while (seg + 1 < P.n_seg && edges[seg + 1] <= now) ++seg;
+          scale = scales[seg];
+        }
+        tab[kStageSlots * nf * W + k] = scale;
+      }
+    }
+    mbar_arrive(full + 8 * s);
+  }
+}
+
+// ---- the ring route: the consumers (host lanes) -----------------------------
+
+// One slot's state-free values of a host, as its lane reads them.
+template <int MM, int QQ>
+struct Slot {
+  float z[QQ], over[MM], jit[MM], open, scale;
+};
+
+template <int MM, int QQ>
+__device__ __forceinline__ void load_slot(Slot<MM, QQ>& x, const float* row, const float* scale,
+                                          int W, bool stall_on) {
+  using L = Layout<MM, QQ>;
+#pragma unroll
+  for (int q = 0; q < QQ; ++q) x.z[q] = row[(L::kZ + q) * W];
+#pragma unroll
+  for (int i = 0; i < MM; ++i) x.over[i] = row[(L::kOver + i) * W];
+  if (stall_on) {
+#pragma unroll
+    for (int i = 0; i < MM; ++i) x.jit[i] = row[(L::kJit + i) * W];
+    x.open = row[L::kOpen * W];
+  }
+  x.scale = *scale;
+}
+
+// Host lane h (live when h < H; other lanes hold the reductions' identities
+// and write nothing): S1's consumer state machine on the producers' values,
+// then the cross-host stages.  A thread's owner is -1 while it sleeps, -2
+// for a lane past the point's m, else the queue it drains.  A slot's counts
+// are whole numbers, exact in float32, counted in integers.
+template <int MM, int QQ>
+__device__ __forceinline__ void consume(int h, int pt, const Inputs& in, const float* ring,
+                                        uint32_t full, uint32_t empty, RedShared& sh,
+                                        const Params& P, float* __restrict__ stats) {
+  using L = Layout<MM, QQ>;
+  const int W = P.lanes, H = P.n_hosts, threads = P.consumers;
+  const bool live = h < H;
+  const int nf = L::fields(P.flags);
+  const int stage_floats = L::stage_floats(W, P.flags);
+  const bool stall_on = P.flags & kStallOn;
+  const bool topo = P.flags & kTopo, link = P.flags & kLink;
+  const bool balanced = P.lb == 2;
+  const float t_s = in.t_s[pt], t_l = in.t_l[pt], lam = in.lam[pt], hedge_d = in.hedge_d[pt];
+  const int m = in.m[pt], nq = in.nq[pt];
+  const float dt = P.dt, cap = P.capacity, mu_dt = P.mu_dt, mu = P.mu;
+  const float e_arm_s = arm_cost(t_s, P), e_arm_l = arm_cost(t_l, P);
+  const float ts_sleep = t_s * P.one_plus_slope, tl_sleep = t_l * P.one_plus_slope;
+  const bool hedged = hedge_d > 0.0f;
+  const float hedge_den = 0.25f * hedge_d + P.hedge_eps;
+  const float q_share = 1.0f / (float)nq;
+  const bool far = h < P.far_count;
+  // served / mu where a slot serves mu dt: the quotient, taken once
+  const float full_us = mu_dt / mu;
+  int buf = 0;
+
+  float sleep_rem[MM];
+  int attached[MM];
+  {
+    const Words w0 = philox(0, kInit, 0, 0, (uint32_t)in.seed_lo[pt] + (uint32_t)h,
+                            (uint32_t)in.seed_hi[pt]);
+#pragma unroll
+    for (int i = 0; i < MM; ++i) {
+      sleep_rem[i] = i < m ? fmaxf(u01(w0.w[i]) * t_s, dt) : INFINITY;
+      attached[i] = i < m ? -1 : -2;
+    }
+  }
+  float backlog[QQ], vac[QQ], res[QQ], mu_a[QQ], sq[QQ];
+  int occ[QQ];
+#pragma unroll
+  for (int q = 0; q < QQ; ++q) {
+    backlog[q] = vac[q] = res[q] = mu_a[q] = sq[q] = 0.0f;
+    occ[q] = 0;
+  }
+  float stall_end = -1.0f;
+  float s_off = 0.f, s_drop = 0.f, s_serv = 0.f, s_wake = 0.f, s_busy = 0.f, s_cyc = 0.f;
+  float s_awake = 0.f, s_lat = 0.f, s_vac = 0.f, s_nv = 0.f, s_ts = 0.f, s_en = 0.f;
+  float s_topo = 0.f, s_dup = 0.f;
+  // the balancer's rate a queue (least-loaded: from the last refresh), and
+  // the scale the cached arrival means were taken at (NaN: none yet)
+  float lam_q = balanced || !live ? 0.0f : lam * in.shares[h] / (float)nq;
+  float c_scale = NAN;
+  int next_refresh = 0;
+
+  const int n_stages = (P.n_live + kStageSlots - 1) / kStageSlots;
+  for (int g = 0; g < n_stages; ++g) {
+    const int s = g % kStages;
+    mbar_wait(full + 8 * s, (g / kStages) & 1);
+    const float* tab = ring + (size_t)s * stage_floats;
+    const int n = min(kStageSlots, P.n_live - g * kStageSlots);
+    const float* nrow = tab + h;
+    const float* nscale = tab + kStageSlots * nf * W;
+    Slot<MM, QQ> nx = {};
+    if (live) load_slot(nx, nrow, nscale, W, stall_on);
+    for (int k = 0; k < n; ++k) {
+      const Slot<MM, QQ> x = nx;
+      if (k + 1 < n) {
+        nrow += nf * W;
+        ++nscale;
+      }
+      if (live) load_slot(nx, nrow, nscale, W, stall_on);
+      const int t = g * kStageSlots + k;
+      const float now = (float)t * dt;
+
+      // 0. least-loaded, on refresh slots: the snapshot of the backlogs
+      // before the step, the softmax's max and sum, and the lane's rate
+      bool fresh = false;
+      if (balanced && t == next_refresh) {
+        next_refresh += P.stale_every;
+        float b = 0.f;
+#pragma unroll
+        for (int q = 0; q < QQ; ++q) b = q ? b + backlog[q] : backlog[q];
+        const float xs = live ? -b * P.inv_soft : -INFINITY;
+        const float mx = reduce(MaxOf::of(xs), W, threads, sh, buf).v;
+        const float e = live ? expf(xs - mx) : 0.0f;
+        const float den = reduce(SumOf::of(e), W, threads, sh, buf).v;
+        lam_q = lam * (e / den) / (float)nq;
+        fresh = true;
+      }
+      // the arrival means and their square roots, at a refresh or a change
+      // of the schedule's scale
+      if (fresh || !(x.scale == c_scale)) {
+        c_scale = x.scale;
+#pragma unroll
+        for (int q = 0; q < QQ; ++q) {
+          const float lq = q < nq ? lam_q : 0.0f;
+          mu_a[q] = P.n_seg > 0 ? lq * c_scale * dt : lq * dt;
+          sq[q] = sqrtf(mu_a[q]);
+        }
+      }
+      if (stall_on) stall_end = fmaxf(stall_end, x.open);
+
+      // 1. arrivals
+      float offered = 0.f, dropped = 0.f, adm_sum = 0.f;
+#pragma unroll
+      for (int q = 0; q < QQ; ++q) {
+        const float raw = res[q] + mu_a[q] + sq[q] * x.z[q];
+        const float a = fmaxf(raw, 0.0f);
+        res[q] = fminf(raw, 0.0f);
+        const float adm = fminf(a, fmaxf(cap - backlog[q], 0.0f));
+        backlog[q] = backlog[q] + adm;
+        offered = q ? offered + a : a;
+        dropped = q ? dropped + (a - adm) : a - adm;
+        adm_sum = q ? adm_sum + adm : adm;
+      }
+
+      // 2. countdown + wake; stall windows defer expiring timers
+      const bool defer = stall_on && now < stall_end;
+      bool woken[MM];
+      int n_wake = 0;
+#pragma unroll
+      for (int i = 0; i < MM; ++i) {
+        const bool sleeping = attached[i] == -1;
+        if (sleeping) sleep_rem[i] = sleep_rem[i] - dt;
+        woken[i] = sleeping && sleep_rem[i] <= 0.0f;
+        if (woken[i] && defer) {
+          woken[i] = false;
+          sleep_rem[i] = stall_end - now + x.jit[i];
+        }
+        n_wake += woken[i];
+      }
+
+      // claims, threads in index order
+      int busy = 0, cyc = 0, tsa = 0;
+      float vacs = 0.f, nvs = 0.f;
+#pragma unroll
+      for (int i = 0; i < MM; ++i) {
+        int qi = -1, eqi = -1;
+        float best = 0.f;
+#pragma unroll
+        for (int q = 0; q < QQ; ++q) {
+          const bool free_q = woken[i] && q < nq && !occ[q];
+          if (free_q && eqi < 0) eqi = q;
+          if (free_q && backlog[q] >= 1.0f && (qi < 0 || backlog[q] > best)) {
+            qi = q;
+            best = backlog[q];
+          }
+        }
+        const int cq = qi >= 0 ? qi : eqi;   // the queue whose vacation ends
+#pragma unroll
+        for (int q = 0; q < QQ; ++q) {
+          if (q == cq) {
+            vacs = vacs + vac[q];
+            vac[q] = 0.0f;
+          }
+          if (q == qi) {
+            nvs = nvs + backlog[q];
+            occ[q] = 1;
+          }
+        }
+        cyc += cq >= 0;
+        tsa += qi < 0 && eqi >= 0;
+        busy += woken[i] && cq < 0;
+        if (qi >= 0) attached[i] = qi;
+        if (woken[i] && qi < 0)
+          sleep_rem[i] = sleep_rem[i] + ((eqi >= 0 ? ts_sleep : tl_sleep) + x.over[i]);
+      }
+
+      // 3. owned queues drain at mu; 4. emptied queues release their thread
+      float served = 0.f;
+      bool q_done[QQ];
+#pragma unroll
+      for (int q = 0; q < QQ; ++q) {
+        const float sv = occ[q] ? fminf(backlog[q], mu_dt) : 0.0f;
+        backlog[q] = backlog[q] - sv;
+        served = q ? served + sv : sv;
+        q_done[q] = occ[q] && backlog[q] <= 1e-6f;
+      }
+#pragma unroll
+      for (int i = 0; i < MM; ++i) {
+        bool done = false;
+#pragma unroll
+        for (int q = 0; q < QQ; ++q) done |= attached[i] == q && q_done[q];
+        if (done) {
+          tsa += 1;
+          sleep_rem[i] = ts_sleep + x.over[i];
+          attached[i] = -1;
+        }
+      }
+
+      // 5. vacations tick on free queues; 6. Little integral; energy
+      float bsum = 0.f;
+#pragma unroll
+      for (int q = 0; q < QQ; ++q) {
+        if (q_done[q]) occ[q] = 0;
+        if (q < nq && !occ[q]) vac[q] = vac[q] + dt;
+        bsum = q ? bsum + backlog[q] : backlog[q];
+      }
+      const float wakes = (float)n_wake, fbusy = (float)busy, fcyc = (float)cyc;
+      const float ftsa = (float)tsa;
+      const float lat_area = bsum * dt;
+      const float serve_us = served == 0.0f ? 0.0f : served == mu_dt ? full_us : served / mu;
+      const float awake = wakes * P.wake_cost + serve_us;
+      const float energy = P.active_power * awake + ftsa * e_arm_s + fbusy * e_arm_l;
+      s_off = s_off + offered;
+      s_drop = s_drop + dropped;
+      s_serv = s_serv + served;
+      s_wake = s_wake + wakes;
+      s_busy = s_busy + fbusy;
+      s_cyc = s_cyc + fcyc;
+      s_awake = s_awake + awake;
+      s_lat = s_lat + lat_area;
+      s_vac = s_vac + vacs;
+      s_nv = s_nv + nvs;
+      s_ts = s_ts + ftsa;
+      s_en = s_en + energy;
+
+      // hedging: this slot's duplicates
+      float dup = 0.0f;
+      if (hedged) {
+        dup = duplicates(adm_sum, bsum, hedge_d, hedge_den, P);
+        s_dup = s_dup + dup;
+      }
+      // the far rack's admissions (link on), and with hedging one tree
+      // for b1 and b2, the first two least-loaded hosts after the step, the
+      // duplicates, split over each sender's queues, that land on b1
+      // (every host's but b1's) and b1's own (to b2)
+      const float far_adm = live && far ? adm_sum : 0.0f;
+      float far_sum = 0.0f, to_b1 = 0.0f, to_b2 = 0.0f;
+      int b1 = -1, b2 = -1;
+      if (hedged) {
+        const Hedge leaf = Hedge::leaf(live, h, bsum, dup * q_share, far_adm);
+        const Hedge r =
+            link ? static_cast<Hedge>(reduce(HedgeTree<true>{leaf}, W, threads, sh, buf))
+                 : static_cast<Hedge>(reduce(HedgeTree<false>{leaf}, W, threads, sh, buf));
+        far_sum = r.far;
+        to_b1 = r.excl;
+        to_b2 = r.d1;
+        b1 = r.i1;
+        b2 = r.i2;
+        // a lone host's duplicates come back to it
+        if (H == 1) {
+          to_b1 = to_b2;
+          b2 = b1;
+        }
+      } else if (link) {
+        far_sum = reduce(SumOf::of(far_adm), W, threads, sh, buf).v;
+      }
+      if (topo) {
+        float delay = far ? P.far_cost : P.near_cost;
+        if (link && far)
+          delay = delay + 1.0f / fmaxf(P.link_rate - far_sum * P.inv_dt, P.link_floor);
+        s_topo = s_topo + adm_sum * delay;
+      }
+      if (h == b1 || h == b2) {
+        const float tot = h == b1 ? to_b1 : to_b2;
+#pragma unroll
+        for (int q = 0; q < QQ; ++q) {
+          if (q < nq) backlog[q] = backlog[q] + fminf(tot, fmaxf(cap - backlog[q], 0.0f));
+        }
+      }
+    }
+    mbar_arrive(empty + 8 * s);
+  }
+  if (!live) return;
+  const float out[kNumStats] = {s_off, s_drop, s_serv, s_wake, s_busy, s_cyc, s_awake,
+                                s_lat, s_vac, s_nv, s_ts, s_en, s_topo, s_dup};
+#pragma unroll
+  for (int k = 0; k < kNumStats; ++k) stats[((size_t)k * P.n_points + pt) * H + h] = out[k];
+}
+
+template <int MM, int QQ>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    fleet_sweep_kernel(const Inputs in, float* __restrict__ stats, const Params P) {
+  extern __shared__ __align__(16) float ring[];
+  __shared__ __align__(8) uint64_t bars[2 * kStages];
+  __shared__ RedShared sh;
+  const int pt = blockIdx.x;
+  const int consumers = P.consumers, producer_lanes = 32 * producers(P.lanes);
+  // full[s] at full + 8 s, empty[s] at empty + 8 s
+  const uint32_t full = smem_u32(bars), empty = smem_u32(bars + kStages);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, producer_lanes);
+      mbar_init(empty + 8 * s, consumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  const int rank = producer_rank(threadIdx.x / 32, P.lanes);
+  if ((int)threadIdx.x < consumers) {
+    consume<MM, QQ>(threadIdx.x, pt, in, ring, full, empty, sh, P, stats);
+  } else if (rank >= 0) {
+    produce<MM, QQ>(32 * rank + threadIdx.x % 32, producer_lanes, pt, in, ring, full, empty, P);
+  }
+}
+
+// ---- the scratch route (more than 256 hosts) --------------------------------
+
 // One host's state, and this slot's values the cross-host stages read.
 template <int MM, int QQ>
 struct Host {
@@ -245,87 +899,7 @@ __device__ __forceinline__ void store(const Host<MM, QQ>& x, float* base, int H)
   base[(w++) * H] = x.dup;
 }
 
-// ---- block reductions over the W lanes of a point's hosts -------------------
-// The order of a sum: within each warp a halving tree over its min(W, 32)
-// lanes (lane l adds lane l + off, off = L/2 .. 1), then the same tree over
-// the W / 32 warps' sums.  Lanes >= W hold the identity.  Every thread gets
-// the result.  Argmins keep the lowest host index among equal values.
-
-struct Red {
-  float sum;
-  float v;   // argmin value
-  int i;     // argmin index
-  float mx;
-};
-
-struct RedShared {
-  float sum[kMaxWarps], v[kMaxWarps], mx[kMaxWarps];
-  int i[kMaxWarps];
-  Red out;
-};
-
-__device__ __forceinline__ void combine(Red& a, float sum, float v, int i, float mx) {
-  a.sum = a.sum + sum;
-  if (v < a.v || (v == a.v && i < a.i)) {
-    a.v = v;
-    a.i = i;
-  }
-  a.mx = fmaxf(a.mx, mx);
-}
-
-__device__ __forceinline__ void warp_tree(Red& a, int lanes) {
-  for (int off = lanes >> 1; off > 0; off >>= 1) {
-    const float s = __shfl_down_sync(kFull, a.sum, off);
-    const float v = __shfl_down_sync(kFull, a.v, off);
-    const int i = __shfl_down_sync(kFull, a.i, off);
-    const float mx = __shfl_down_sync(kFull, a.mx, off);
-    combine(a, s, v, i, mx);
-  }
-}
-
-__device__ Red block_reduce(Red a, int W, RedShared& sh) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (W <= 32) {
-    warp_tree(a, W);
-    Red r;
-    r.sum = __shfl_sync(kFull, a.sum, 0);
-    r.v = __shfl_sync(kFull, a.v, 0);
-    r.i = __shfl_sync(kFull, a.i, 0);
-    r.mx = __shfl_sync(kFull, a.mx, 0);
-    return r;
-  }
-  warp_tree(a, 32);
-  if (lane == 0) {
-    sh.sum[warp] = a.sum;
-    sh.v[warp] = a.v;
-    sh.i[warp] = a.i;
-    sh.mx[warp] = a.mx;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    const int G = W >> 5;
-    Red b;
-    b.sum = lane < G ? sh.sum[lane] : 0.0f;
-    b.v = lane < G ? sh.v[lane] : INFINITY;
-    b.i = lane < G ? sh.i[lane] : 0x7fffffff;
-    b.mx = lane < G ? sh.mx[lane] : -INFINITY;
-    warp_tree(b, G);
-    if (lane == 0) sh.out = b;
-  }
-  __syncthreads();
-  return sh.out;
-}
-
-__device__ __forceinline__ Red red_identity() {
-  Red r;
-  r.sum = 0.0f;
-  r.v = INFINITY;
-  r.i = 0x7fffffff;
-  r.mx = -INFINITY;
-  return r;
-}
-
-// ---- the single-host slot body (S1's, one thread a host) --------------------
+// the single-host slot body, one thread a host, draws inline
 template <int MM, int QQ>
 __device__ __forceinline__ void host_step(Host<MM, QQ>& x, int t, float now, float scale,
                                           float lam_q, int m, int nq, uint32_t k0, uint32_t k1,
@@ -489,30 +1063,18 @@ __device__ __forceinline__ void host_step(Host<MM, QQ>& x, int t, float now, flo
   x.btot = bsum;
 }
 
-// this slot's duplicates of a host (hedging on)
-__device__ __forceinline__ float duplicates(float adm, float btot, float hedge_d,
-                                            float hedge_den, const Params& P) {
-  const float xg = (btot * P.inv_mu - hedge_d) / hedge_den;
-  return adm * (1.0f / (1.0f + expf(-xg)));
-}
-
+// Every thread a lane of W = 256; a lane holds hosts lane, lane + W, ...
 template <int MM, int QQ>
-__global__ void __launch_bounds__(kMaxLanes)
-    fleet_sweep_kernel(const float* __restrict__ t_s_, const float* __restrict__ t_l_,
-                       const int* __restrict__ m_, const int* __restrict__ nq_,
-                       const float* __restrict__ lam_, const int* __restrict__ seed_lo,
-                       const int* __restrict__ seed_hi, const float* __restrict__ hedge_,
-                       const float* __restrict__ sched_edges,
-                       const float* __restrict__ sched_scales, const float* __restrict__ shares,
-                       float* __restrict__ stats, float* __restrict__ scratch, const Params P) {
+__global__ void __launch_bounds__(kMaxLanes, 1)
+    fleet_scratch_kernel(const Inputs in, float* __restrict__ stats, float* __restrict__ scratch,
+                         const Params P) {
   __shared__ RedShared sh;
   const int pt = blockIdx.x;
   const int lane = threadIdx.x;
   const int W = P.lanes, H = P.n_hosts, K = P.hosts_per_lane;
-  const bool active = lane < W;
-  const float t_s = t_s_[pt], t_l = t_l_[pt], lam = lam_[pt], hedge_d = hedge_[pt];
-  const int m = m_[pt], nq = nq_[pt];
-  const uint32_t lo = (uint32_t)seed_lo[pt], hi = (uint32_t)seed_hi[pt];
+  const float t_s = in.t_s[pt], t_l = in.t_l[pt], lam = in.lam[pt], hedge_d = in.hedge_d[pt];
+  const int m = in.m[pt], nq = in.nq[pt];
+  const uint32_t lo = (uint32_t)in.seed_lo[pt], hi = (uint32_t)in.seed_hi[pt];
   const float dt = P.dt;
   const float e_arm_s = arm_cost(t_s, P), e_arm_l = arm_cost(t_l, P);
   const float ts_sleep = t_s * P.one_plus_slope, tl_sleep = t_l * P.one_plus_slope;
@@ -521,11 +1083,12 @@ __global__ void __launch_bounds__(kMaxLanes)
   const float q_share = 1.0f / (float)nq;
   const bool topo = P.flags & kTopo, link = P.flags & kLink;
   float* my = scratch + (size_t)pt * host_words<MM, QQ>() * H;
+  int buf = 0;
 
   Host<MM, QQ> x;
   for (int k = 0; k < K; ++k) {
     const int h = lane + k * W;
-    if (!active || h >= H) break;
+    if (h >= H) break;
     const Words w0 = philox(0, kInit, 0, 0, lo + (uint32_t)h, hi);
 #pragma unroll
     for (int i = 0; i < MM; ++i) {
@@ -539,16 +1102,15 @@ __global__ void __launch_bounds__(kMaxLanes)
 #pragma unroll
     for (int s = 0; s < kNumStats; ++s) x.s[s] = 0.0f;
     x.adm = x.btot = x.dup = 0.0f;
-    if (K > 1) store(x, my + h, H);
+    store(x, my + h, H);
   }
 
-  const float* edges = sched_edges + (size_t)pt * P.n_seg;
-  const float* scales = sched_scales + (size_t)pt * P.n_seg;
+  const float* edges = in.sched_edges + (size_t)pt * P.n_seg;
+  const float* scales = in.sched_scales + (size_t)pt * P.n_seg;
   int seg = 0;
 
-  for (int t = 0; t < P.n_slots; ++t) {
+  for (int t = 0; t < P.n_live; ++t) {
     const float now = (float)t * dt;
-    if (!(now < P.duration)) break;
     float scale = 1.0f;
     if (P.n_seg > 0) {
       while (seg + 1 < P.n_seg && edges[seg + 1] <= now) ++seg;
@@ -559,40 +1121,40 @@ __global__ void __launch_bounds__(kMaxLanes)
     float mx = 0.0f, den = 1.0f;
     if (P.lb == 2) {
       const bool refresh = t % P.stale_every == 0;
-      Red a = red_identity();
+      MaxOf a = MaxOf::of(-INFINITY);
       for (int k = 0; k < K; ++k) {
         const int h = lane + k * W;
-        if (!active || h >= H) break;
-        if (K > 1) load(x, my + h, H);
+        if (h >= H) break;
+        load(x, my + h, H);
         if (refresh) {
           float b = 0.f;
 #pragma unroll
           for (int q = 0; q < QQ; ++q) b = q ? b + x.back[q] : x.back[q];
           x.stale = b;
-          if (K > 1) store(x, my + h, H);
+          store(x, my + h, H);
         }
-        a.mx = fmaxf(a.mx, -x.stale * P.inv_soft);
+        a.v = fmaxf(a.v, -x.stale * P.inv_soft);
       }
-      mx = block_reduce(a, W, sh).mx;
-      a = red_identity();
+      mx = reduce(a, W, W, sh, buf).v;
+      SumOf e_sum = SumOf::of(0.0f);
       for (int k = 0; k < K; ++k) {
         const int h = lane + k * W;
-        if (!active || h >= H) break;
-        if (K > 1) load(x, my + h, H);
+        if (h >= H) break;
+        load(x, my + h, H);
         const float e = expf(-x.stale * P.inv_soft - mx);
-        a.sum = k ? a.sum + e : e;
+        e_sum.v = k ? e_sum.v + e : e;
       }
-      den = block_reduce(a, W, sh).sum;
+      den = reduce(e_sum, W, W, sh, buf).v;
     }
 
     // 1. the host step, its duplicates (hedging on), and each lane's part
     // of the far rack's admissions and of b1
-    Red a = red_identity();
+    Red<true, true, false> a = Red<true, true, false>::identity();
     for (int k = 0; k < K; ++k) {
       const int h = lane + k * W;
-      if (!active || h >= H) break;
-      if (K > 1) load(x, my + h, H);
-      const float share = P.lb == 2 ? expf(-x.stale * P.inv_soft - mx) / den : shares[h];
+      if (h >= H) break;
+      load(x, my + h, H);
+      const float share = P.lb == 2 ? expf(-x.stale * P.inv_soft - mx) / den : in.shares[h];
       const float lam_q = lam * share / (float)nq;
       host_step<MM, QQ>(x, t, now, scale, lam_q, m, nq, lo + (uint32_t)h, hi, ts_sleep,
                         tl_sleep, e_arm_s, e_arm_l, P);
@@ -606,10 +1168,10 @@ __global__ void __launch_bounds__(kMaxLanes)
         a.v = x.btot;
         a.i = h;
       }
-      if (K > 1) store(x, my + h, H);
+      store(x, my + h, H);
     }
     if (!(topo || hedged)) continue;
-    const Red r1 = block_reduce(a, W, sh);
+    const Red<true, true, false> r1 = reduce(a, W, W, sh, buf);
     const int b1 = r1.i;
     float gap = 1.0f;
     if (link) gap = fmaxf(P.link_rate - r1.sum * P.inv_dt, P.link_floor);
@@ -620,11 +1182,11 @@ __global__ void __launch_bounds__(kMaxLanes)
     float to_b1 = 0.0f, to_b2 = 0.0f;
     int b2 = b1;
     if (hedged) {
-      Red c = red_identity();
+      Red<true, true, true> c = Red<true, true, true>::identity();
       for (int k = 0; k < K; ++k) {
         const int h = lane + k * W;
-        if (!active || h >= H) break;
-        if (K > 1) load(x, my + h, H);
+        if (h >= H) break;
+        load(x, my + h, H);
         const float dup = x.dup * q_share;
         const float give = h == b1 ? 0.0f : dup;
         c.sum = k ? c.sum + give : give;
@@ -635,21 +1197,17 @@ __global__ void __launch_bounds__(kMaxLanes)
           c.i = h;
         }
       }
-      const Red r2 = block_reduce(c, W, sh);
-      if (H == 1) {
-        to_b1 = r2.mx;   // a lone host's duplicates come back to it
-      } else {
-        to_b1 = r2.sum;
-        to_b2 = r2.mx;
-        b2 = r2.i;
-      }
+      const Red<true, true, true> r2 = reduce(c, W, W, sh, buf);
+      to_b1 = r2.sum;
+      to_b2 = r2.mx;
+      b2 = r2.i;
     }
 
     // 3. each host's network delay and injection
     for (int k = 0; k < K; ++k) {
       const int h = lane + k * W;
-      if (!active || h >= H) break;
-      if (K > 1) load(x, my + h, H);
+      if (h >= H) break;
+      load(x, my + h, H);
       if (topo) {
         const bool far = h < P.far_count;
         float delay = far ? P.far_cost : P.near_cost;
@@ -663,38 +1221,50 @@ __global__ void __launch_bounds__(kMaxLanes)
           if (q < nq) x.back[q] = x.back[q] + fminf(tot, fmaxf(P.capacity - x.back[q], 0.0f));
         }
       }
-      if (K > 1) store(x, my + h, H);
+      store(x, my + h, H);
     }
   }
 
   for (int k = 0; k < K; ++k) {
     const int h = lane + k * W;
-    if (!active || h >= H) break;
-    if (K > 1) load(x, my + h, H);
+    if (h >= H) break;
+    load(x, my + h, H);
 #pragma unroll
     for (int s = 0; s < kNumStats; ++s)
       stats[((size_t)s * P.n_points + pt) * H + h] = x.s[s];
   }
 }
 
-int lanes_for(int n_hosts) {
-  int w = 1;
-  while (w < n_hosts && w < kMaxLanes) w *= 2;
-  return w;
+// The slots the run has: the first t with !(float(t) * dt < duration), or
+// n_slots (float(t) * dt does not decrease with t, so bisection finds it)
+int live_slots(float dt, float duration, int n_slots) {
+  int lo = 0, hi = n_slots;
+  while (lo < hi) {
+    const int mid = lo + (hi - lo) / 2;
+    if ((float)mid * dt < duration) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
 }
 
 template <int MM, int QQ>
-cudaError_t launch(const void* const* in, void* stats, void* scratch, const Params& P,
-                   cudaStream_t st) {
-  const int threads = P.lanes < 32 ? 32 : P.lanes;
-  fleet_sweep_kernel<MM, QQ><<<P.n_points, threads, 0, st>>>(
-      static_cast<const float*>(in[0]), static_cast<const float*>(in[1]),
-      static_cast<const int*>(in[2]), static_cast<const int*>(in[3]),
-      static_cast<const float*>(in[4]), static_cast<const int*>(in[5]),
-      static_cast<const int*>(in[6]), static_cast<const float*>(in[7]),
-      static_cast<const float*>(in[8]), static_cast<const float*>(in[9]),
-      static_cast<const float*>(in[10]), static_cast<float*>(stats),
-      static_cast<float*>(scratch), P);
+cudaError_t launch(const Inputs& in, void* stats, void* scratch, Params P, cudaStream_t st) {
+  if (P.hosts_per_lane > 1) {
+    fleet_scratch_kernel<MM, QQ><<<P.n_points, kMaxLanes, 0, st>>>(
+        in, static_cast<float*>(stats), static_cast<float*>(scratch), P);
+    return cudaGetLastError();
+  }
+  const size_t smem = Layout<MM, QQ>::smem_bytes(P.lanes, P.flags);
+  cudaError_t err = cudaFuncSetAttribute(fleet_sweep_kernel<MM, QQ>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  P.consumers = 32 * consumer_warps(P.lanes);
+  const int threads = 32 * block_warps(P.lanes);
+  fleet_sweep_kernel<MM, QQ><<<P.n_points, threads, smem, st>>>(in, static_cast<float*>(stats),
+                                                                 P);
   return cudaGetLastError();
 }
 
@@ -702,16 +1272,27 @@ cudaError_t launch(const void* const* in, void* stats, void* scratch, const Para
 
 extern "C" {
 
-// Launch layout of a point of n_hosts hosts with up to q_max queues: out[0]
-// threads a block, out[1] lanes of the host reductions, out[2] hosts a lane,
-// out[3] float32 words of scratch a host (0 when a lane holds one host).
-void fleet_sweep_layout(int n_hosts, int q_max, int* out) {
+// Launch layout of a point of n_hosts hosts with up to q_max queues and the
+// noise flags `flags` (host, 8 ints out): out[0] threads a block, out[1]
+// lanes of the host reductions, out[2] hosts a lane, out[3] float32 words of
+// scratch a host (0 on the ring route, where a lane holds one host), out[4]
+// producer warps, out[5] stages of the ring, out[6] slots a stage, out[7]
+// bytes of the ring (dynamic shared memory); the last four 0 beyond 256
+// hosts (the scratch route).
+void fleet_sweep_layout(int n_hosts, int q_max, int flags, int* out) {
   const int w = lanes_for(n_hosts);
   const int k = (n_hosts + w - 1) / w;
-  out[0] = w < 32 ? 32 : w;
+  const bool ring = k == 1;
+  out[0] = ring ? 32 * block_warps(w) : kMaxLanes;
   out[1] = w;
   out[2] = k;
-  out[3] = k > 1 ? (q_max == 1 ? host_words<4, 1>() : host_words<4, 4>()) : 0;
+  out[3] = ring ? 0 : (q_max == 1 ? host_words<4, 1>() : host_words<4, 4>());
+  out[4] = ring ? producers(w) : 0;
+  out[5] = ring ? kStages : 0;
+  out[6] = ring ? kStageSlots : 0;
+  out[7] = !ring ? 0
+                 : (int)(q_max == 1 ? Layout<4, 1>::smem_bytes(w, flags)
+                                    : Layout<4, 4>::smem_bytes(w, flags));
 }
 
 // Inputs, one per point (n_points): t_s, t_l, lam (the point's fleet rate),
@@ -766,15 +1347,20 @@ int fleet_sweep_fwd(const void* t_s, const void* t_l, const void* m, const void*
   P.flags = flags;
   P.n_points = n_points;
   P.n_hosts = n_hosts;
-  P.n_slots = n_slots;
+  P.n_live = live_slots(P.dt, P.duration, n_slots);
   P.n_seg = n_seg;
   P.lb = lb;
   P.stale_every = stale_every;
   P.far_count = far_count;
   P.lanes = lanes_for(n_hosts);
   P.hosts_per_lane = (n_hosts + P.lanes - 1) / P.lanes;
-  const void* in[11] = {t_s,    t_l,     m,           nq,           lam,   seed_lo,
-                        seed_hi, hedge_d, sched_edges, sched_scales, shares};
+  P.consumers = P.lanes;
+  const Inputs in{static_cast<const float*>(t_s),          static_cast<const float*>(t_l),
+                  static_cast<const int*>(m),              static_cast<const int*>(nq),
+                  static_cast<const float*>(lam),          static_cast<const int*>(seed_lo),
+                  static_cast<const int*>(seed_hi),        static_cast<const float*>(hedge_d),
+                  static_cast<const float*>(sched_edges),  static_cast<const float*>(sched_scales),
+                  static_cast<const float*>(shares)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   build[0] = 4;
   build[1] = q_max == 1 ? 1 : 4;

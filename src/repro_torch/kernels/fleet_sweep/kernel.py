@@ -11,9 +11,15 @@ import torch
 from .._build import load_library
 from ..slot_sweep.kernel import NVCC_EXTRA
 
-__all__ = ["build", "launch_fleet_sweep", "layout"]
+__all__ = ["STAGES", "STAGE_SLOTS", "build", "launch_fleet_sweep", "layout", "ring_bytes"]
 
 _SOURCE = "fleet_sweep.cu"
+# the ring of the kernel's route up to 256 hosts: stages, and slots a stage
+# (kStages and kStageSlots of the source)
+STAGES = 2
+STAGE_SLOTS = 8
+_MAX_LANES = 256    # kMaxLanes: beyond, the scratch route (no ring)
+_M_MAX = 4          # the builds' M_MAX
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FP = ctypes.POINTER(ctypes.c_float)
 _SIGNATURES = {
@@ -23,7 +29,7 @@ _SIGNATURES = {
     # build (2 ints out), stream
     "fleet_sweep_fwd": (_I, [_P] * 13 + [_I] * 10
                         + [_FP, _I, _FP, _I, _I, ctypes.POINTER(_I), _P]),
-    "fleet_sweep_layout": (None, [_I, _I, ctypes.POINTER(_I)]),
+    "fleet_sweep_layout": (None, [_I, _I, _I, ctypes.POINTER(_I)]),
     "fleet_sweep_error_string": (ctypes.c_char_p, [_I]),
 }
 # FleetParams.constants() in the order of the source's fparams, after the
@@ -32,22 +38,53 @@ _FLEET_FPARAMS = ("inv_soft", "near_cost", "far_cost", "link_rate", "link_floor"
                   "inv_mu", "hedge_eps")
 
 
-def build():
+def build(source: str = _SOURCE):
     """Build (once) and load the kernel's library, with the fixed-slot
     sweep's ``-fmad=false``: every product and sum rounds as the plain
-    version's separate PyTorch operations do."""
-    return load_library(_SOURCE, _SIGNATURES, NVCC_EXTRA)
+    version's separate PyTorch operations do.  ``source`` may name another
+    file with the same launch interface and scratch layout (an absolute
+    path; it needs only ``fleet_sweep_fwd`` and ``fleet_sweep_error_string``),
+    for an A/B of two versions of the kernel in one process."""
+    sigs = _SIGNATURES if source == _SOURCE else {
+        k: v for k, v in _SIGNATURES.items() if k != "fleet_sweep_layout"}
+    return load_library(source, sigs, NVCC_EXTRA)
 
 
-def layout(n_hosts: int, q_max: int) -> dict[str, int]:
+def _flag_bits(params, fleet) -> int:
+    """The source's flags: 1 sigma, 2 tail, 4 interference, 8 stalls, 16
+    topology, 32 the bottleneck link."""
+    fl = params.flags
+    return (fl["sigma"] | fl["tail"] << 1 | fl["intf"] << 2 | fl["stall"] << 3
+            | fleet.topo_on << 4 | fleet.link_on << 5)
+
+
+def ring_bytes(n_hosts: int, q_max: int, stalls: bool) -> int:
+    """Bytes of the ring in shared memory for points of ``n_hosts`` hosts
+    with up to ``q_max`` queues (the build's Q_MAX: 1 or 4), counted as the
+    source lays it out: ``STAGES`` stages of ``STAGE_SLOTS`` slots, a slot
+    the arrival normals (Q_MAX), overshoots (M_MAX) and, with stalls on,
+    re-arm jitters (M_MAX) and the stall end of each of W host lanes, then
+    the slot's scale; 0 beyond 256 hosts (the scratch route)."""
+    if n_hosts > _MAX_LANES:
+        return 0
+    lanes = 1 << (n_hosts - 1).bit_length()     # the least power of two >= n_hosts
+    q = 1 if q_max == 1 else 4
+    fields = q + _M_MAX + (_M_MAX + 1 if stalls else 0)
+    return 4 * STAGES * STAGE_SLOTS * (fields * lanes + 1)
+
+
+def layout(n_hosts: int, q_max: int, flags: int) -> dict[str, int]:
     """The kernel's launch layout for points of ``n_hosts`` hosts with up to
-    ``q_max`` queues: threads a block (one block a point), lanes of the
-    host reductions, hosts a lane, and the float32 words of a host's state
-    that a lane keeps in global scratch when it holds more than one host
-    (0 when each lane holds at most one, in registers)."""
-    out = (_I * 4)()
-    build().fleet_sweep_layout(n_hosts, q_max, out)
-    return dict(zip(("threads", "lanes", "hosts_per_lane", "scratch_words"), out))
+    ``q_max`` queues and the source's ``flags`` (``_flag_bits``): threads a
+    block (one block a point), lanes of the host reductions, hosts a lane,
+    the float32 words of a host's state that a lane keeps in global scratch
+    when it holds more than one host (0 on the ring route, one host a lane
+    in registers), and the ring route's producer warps, stages, slots a
+    stage and ring bytes (0 on the scratch route)."""
+    out = (_I * 8)()
+    build().fleet_sweep_layout(n_hosts, q_max, flags, out)
+    return dict(zip(("threads", "lanes", "hosts_per_lane", "scratch_words", "producer_warps",
+                     "stages", "stage_slots", "ring_bytes"), out))
 
 
 def _floats(values) -> ctypes.Array:
@@ -55,15 +92,14 @@ def _floats(values) -> ctypes.Array:
 
 
 def launch_fleet_sweep(cols: dict, sched_edges, sched_scales, params, fleet, stats, *,
-                       m_max: int, q_max: int) -> tuple[int, int]:
+                       m_max: int, q_max: int, lib=None) -> tuple[int, int]:
     """Launch the fleet sweep on the current stream of the inputs' device
     and return the (M_MAX, Q_MAX) build it launched.  Shapes, types and
-    devices are checked by the caller (``ops``)."""
-    lib = build()
+    devices are checked by the caller (``ops``); ``lib`` is a library from
+    ``build`` (default: this checkout's kernel)."""
+    lib = build() if lib is None else lib
     p, fp = params, fleet
-    fl = p.flags
-    bits = (fl["sigma"] | fl["tail"] << 1 | fl["intf"] << 2 | fl["stall"] << 3
-            | fp.topo_on << 4 | fp.link_on << 5)
+    bits = _flag_bits(p, fp)
     c = fp.constants(p)
     # float32 constants, each rounded once from its double value (the
     # reference's weakly typed Python floats)
@@ -75,7 +111,7 @@ def launch_fleet_sweep(cols: dict, sched_edges, sched_scales, params, fleet, sta
     states = _floats([x for s in p.sleep_states for x in s])
     t_s = cols["t_s"]
     n, dev = t_s.shape[0], t_s.device
-    lay = layout(fp.n_hosts, q_max)
+    lay = layout(fp.n_hosts, q_max, bits)
     scratch = torch.empty(max(n * fp.n_hosts * lay["scratch_words"], 1), dtype=torch.float32,
                           device=dev)
     shares = torch.tensor(fp.shares if fp.lb_code != 2 else [0.0] * fp.n_hosts,

@@ -39,6 +39,7 @@ fixed-slot sweep at seed ``s + h``, bit for bit."""
 
 import math
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -57,6 +58,8 @@ from repro.runtime.simcore import FleetConfig as RefFleetConfig
 from repro.runtime.simcore import SleepModel as RefSleepModel
 from repro_torch.core import MetronomeConfig
 from repro_torch.kernels.fleet_sweep import FleetParams, fleet_sweep, reference_fleet_sweep
+from repro_torch.kernels.fleet_sweep import kernel as fleet_kernel
+from repro_torch.kernels.fleet_sweep import ops as fleet_ops
 from repro_torch.kernels.fleet_sweep.ops import STAT_NAMES, host_lanes, host_sum
 from repro_torch.runtime import (
     FleetConfig,
@@ -64,6 +67,7 @@ from repro_torch.runtime import (
     FleetStats,
     MetronomePolicy,
     Reservoir,
+    RampSchedule,
     RunStats,
     SimRunConfig,
     SleepModel,
@@ -410,6 +414,107 @@ def test_reduction_lanes():
         [1, 2, 4, 4, 64, 64, 256, 256, 256]
 
 
+# -- the kernel's ring --------------------------------------------------------
+
+SMEM_PER_BLOCK = 232_448     # the shared memory a block can use on an H100 (227 KB)
+
+
+def test_ring_layout_matches_the_kernel_source():
+    """The Python side's ring (``kernel.STAGES``, ``STAGE_SLOTS`` and the
+    byte count ``ring_bytes``) is the source's, and the ring fits a block's
+    shared memory at every host count of the ring route, both builds, with
+    stalls on and off."""
+    src = (Path(fleet_kernel.__file__).parents[1] / "csrc" / "fleet_sweep.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("kStageSlots") == fleet_kernel.STAGE_SLOTS
+    assert const("kStages") == fleet_kernel.STAGES
+    assert const("kMaxLanes") == fleet_ops.MAX_BLOCK_LANES
+    # a slot's fields: Q_MAX normals, M_MAX overshoots, and with stalls on
+    # M_MAX jitters and the stall end; then one scale a slot
+    assert "static constexpr int kZ = 0, kOver = QQ, kJit = QQ + MM, kOpen = QQ + 2 * MM;" in src
+    assert "return (flags & kStallOn) ? kOpen + 1 : kJit;" in src
+    assert "return kStageSlots * (fields(flags) * lanes + 1);" in src
+    assert "sizeof(float) * (size_t)kStages * stage_floats(lanes, flags)" in src
+    stages, slots = const("kStages"), const("kStageSlots")
+    for n_hosts in range(1, fleet_ops.MAX_BLOCK_LANES + 1):
+        for q_max in (1, 4):
+            for stalls in (False, True):
+                fields = q_max + 4 + (4 + 1 if stalls else 0)
+                want = 4 * stages * slots * (fields * host_lanes(n_hosts) + 1)
+                got = fleet_kernel.ring_bytes(n_hosts, q_max, stalls)
+                assert got == want, (n_hosts, q_max, stalls)
+                assert got <= SMEM_PER_BLOCK, (n_hosts, q_max, stalls)
+    # beyond 256 hosts the scratch route keeps no ring
+    assert fleet_kernel.ring_bytes(fleet_ops.MAX_BLOCK_LANES + 1, 4, True) == 0
+
+
+# the ring's edges: live slots one under, at and one over the boundary of
+# four stages (the ring wraps there twice); least-loaded refreshing every
+# slot (on every stage's edge), every 3 and every 7 (inside stages)
+EDGE_SLOTS = tuple(4 * fleet_kernel.STAGE_SLOTS + d for d in (-1, 0, 1))
+EDGE_STALE = (1, 3, 7)
+EDGE_HOSTS = (1, 5, 33)
+
+
+def _edge_case(n_hosts, live, stale):
+    """A least-loaded fleet with the bottleneck link and hedging on, every
+    noise family, queues of 24 packets: four points (m = n_queues = 1..4,
+    deadlines 0, 0.2, 1 and 5 us; a step schedule changing inside a stage
+    and a ramp) over ``live`` slots of 0.5 us."""
+    rng = np.random.default_rng(n_hosts)
+    scheds = (None, StepSchedule(times_us=(0.0, 3.2), scales=(0.5, 1.6)),
+              RampSchedule(t_start_us=1.1, t_end_us=14.3, scale_from=0.3, scale_to=1.4),
+              StepSchedule(times_us=(0.0, 9.7), scales=(1.3, 0.6)))
+    pts = []
+    for i, deadline in enumerate((0.0, 0.2, 1.0, 5.0)):
+        p = dict(t_s_us=float(rng.uniform(1.5, 4.0)), t_l_us=float(rng.uniform(6.0, 20.0)),
+                 m=i + 1, n_queues=i + 1, seed=int(rng.integers(0, 5)),
+                 rate_mpps=float(rng.uniform(0.5, 1.0) * MU * (i + 1) / 2.0 * n_hosts),
+                 hedge_deadline_us=deadline)
+        if scheds[i] is not None:
+            p["schedule"] = scheds[i]
+        pts.append(p)
+    fleet = FleetConfig(n_hosts=n_hosts, lb="least-loaded", lb_stale_us=0.5 * stale,
+                        far_fraction=0.6, near_cost_us=1.0, far_cost_us=5.0,
+                        link_rate_mpps=8.0 * n_hosts)
+    cfg = SimRunConfig(duration_us=0.5 * live, queue_capacity=24,
+                       sleep_model=SleepModel(**dict(TAIL_SLEEP, tail_prob=0.2, tail_mean_us=6.0)),
+                       interference_prob=0.25, interference_mean_us=4.0,
+                       stall_rate_per_us=1.0 / 10.0, stall_mean_us=3.0)
+    return FleetGrid.of_points(pts, fleet=fleet), cfg
+
+
+@pytest.mark.parametrize("stale", EDGE_STALE)
+@pytest.mark.parametrize("live", EDGE_SLOTS)
+@pytest.mark.parametrize("n_hosts", EDGE_HOSTS)
+def test_plain_version_does_not_depend_on_its_chunk_length(n_hosts, live, stale, monkeypatch):
+    """What the kernel's producers rely on: the state-free part of a run can
+    be made for any run of slots (counter-based draws, the stall ends and
+    the schedule carried across), while the balancer refreshes inside the
+    state machine; so the plain version gives the same bits with its draws
+    made 16 slots (two stages) at a time, 20 (a split inside a stage) and
+    all at once, at the ring's edges."""
+    fgrid, cfg = _edge_case(n_hosts, live, stale)
+    args, params, fparams = fleet_inputs(fgrid, cfg, 0.5, CPU)
+    assert params.live_slots() == live and fparams.stale_every_slots == stale
+    assert all(params.flags.values()) and fparams.link_on and args[8] is not None
+    n_rows = len(fgrid) * n_hosts
+    outs = []
+    for chunk in (16, 20, None):
+        if chunk is not None:
+            monkeypatch.setattr(fleet_ops, "_CHUNK_ELEMS", chunk * n_rows)
+        else:
+            monkeypatch.undo()
+        outs.append(reference_fleet_sweep(*args, params, fparams))
+    assert float(outs[0]["wakeups"].sum()) > 0 and float(outs[0]["hedge_dup"].sum()) > 0
+    for out in outs[1:]:
+        for name in STAT_NAMES:
+            assert torch.equal(out[name], outs[0][name]), name
+
+
 # -- tests/test_fleet.py on the port ------------------------------------------
 
 def test_fleet_config_validates():
@@ -680,8 +785,9 @@ def test_kernel_equals_plain_version_on_the_card():
     """The kernel against its plain version on the card, every output bit
     for bit: each balancer with topology and hedging on, the noise families
     and a schedule, one queue a point (<4, 1>) and up to four (<4, 4>), one
-    host, and more hosts than a block has lanes; and the per-host rule
-    against the fixed-slot sweep's kernel."""
+    host, and more hosts than a block has lanes; the ring's edges
+    (``_edge_case``); and the per-host rule against the fixed-slot sweep's
+    kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the fleet sweep kernel has no CPU mode")
     from repro_torch.kernels.slot_sweep import slot_sweep
@@ -711,6 +817,15 @@ def test_kernel_equals_plain_version_on_the_card():
             ref = reference_fleet_sweep(*args, params, fparams)
             for name in STAT_NAMES:
                 assert torch.equal(out[name], ref[name]), (fleet, one_queue, name)
+    # the ring's edges, bit for bit
+    for n_hosts, live, stale in ((h, lv, st) for h in EDGE_HOSTS for lv in EDGE_SLOTS
+                                 for st in EDGE_STALE):
+        fgrid, c = _edge_case(n_hosts, live, stale)
+        args, params, fparams = fleet_inputs(fgrid, c, 0.5, "cuda")
+        out = fleet_sweep(*args, params=params, fleet=fparams)
+        ref = reference_fleet_sweep(*args, params, fparams)
+        for name in STAT_NAMES:
+            assert torch.equal(out[name], ref[name]), (n_hosts, live, stale, name)
     # per host: uniform, no topology or hedging == S1 at seed s + h
     fg = _fgrid(FleetConfig(n_hosts=4), rate_per_host=0.45 * MU, seeds=(11,))
     fs = simulate_fleet(fg, cfg, slot_us=0.5)
