@@ -52,16 +52,23 @@ spill; their registers, static shared memory and ring sizes are printed):
   every point.
 
 Then the event-jump sweep S2 (``adaptive_sweep``, the reference's
-``runtime/batched_adaptive.py`` ``lax.scan``; one thread a point), built in
-phase 1 (its builds <4, 1> and <4, 4> must not spill):
+``runtime/batched_adaptive.py`` ``lax.scan``; producer warps make every
+step's draws into a ring in shared memory and a consumer warp, a point a
+lane, runs the jumps), built in phase 1 (its builds <4, 1> and <4, 4> must
+not spill; the ring's layout, ``kernel.layout``, is printed and must fit a
+block's shared memory):
 
 - phase 2: the kernel against its plain version, every output bit-equal: m
   1-4 x n_queues 1-4 (and one queue a point) quiet, noisy and scheduled
   with windows and deep C-states, a budget short enough for the tail's
-  pacing (forced steps), the main path's grid cut in duration only, and 1,
-  5 and 33 points; a diverging point reported with its step;
+  pacing (forced steps), the main path's grid cut in duration only, 1, 5
+  and 33 points, the ring's edges (budgets of C - 1, C, C + 1 and 4 C + 13
+  steps, runs cut inside a stage) and the early stop (warps that finish
+  more than three stages before the budget's end, one paced lane among
+  them); a diverging point reported with its step;
 - phase 3: the kernel timed at sweep_frontier's full grid (quiet, noisy) and
-  stepping.py's three loads, beside S1 on the same grid (live steps against
+  stepping.py's three loads, with the us a step of the longest point,
+  beside S1 on the same grid (live steps against
   slots; at stepping.py's grids S1's bound and plain version too), its
   bound, the plain version over its first 300 steps and the spread of live
   steps over a warp's points;
@@ -115,10 +122,18 @@ reports whether each gives this kernel's bits (``phase_sweep_source_ab``).
 does the same for the fleet sweep kernel (a parent commit's
 ``csrc/fleet_sweep.cu``, a variant with the same C interface and scratch
 layout) at phase 3's ten shapes, uncut (``phase_fleet_source_ab``).
+
+    python3 chip_smoke.py --adaptive-ab SRC [SRC ...]
+
+does the same for the event-jump sweep kernel (a parent commit's
+``csrc/adaptive_sweep.cu``, a variant with its C interface
+``adaptive_sweep_fwd``) at S2's five phase-3 sweeps, uncut, with each
+source's us a step of the longest point (``phase_adaptive_source_ab``).
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import re
@@ -285,16 +300,30 @@ def phase_card() -> None:
     if set(kernels) != want or any(spills for _, spills, _ in kernels.values()):
         fail(f"want the 4 slot_sweep_kernel builds (<4, 1> and <4, 4>, each with 3 and 6 "
              f"producer warps), none spilling; ptxas gave {kernels}")
-    # S2: the (M_MAX, Q_MAX) builds <4, 1> and <4, 4>, one thread a point,
-    # built with -fmad=false; neither may spill
+    # S2: the (M_MAX, Q_MAX) builds <4, 1> and <4, 4>, built with
+    # -fmad=false; none may spill.  Their ring of stages is dynamic shared
+    # memory, sized per launch by the fields a sweep's noise needs
+    # (kernel.layout): at most 227 KB with stalls on (the largest ring)
     kernels = ptxas_kernels(_build.BUILD_INFO["adaptive_sweep.cu"]["log"])
     for name, (regs, spills, smem) in kernels.items():
         log(f"  {name}: {regs} registers, {spills} bytes of spill stores + loads, {smem} "
-            "bytes of static shared memory (no dynamic shared memory)")
+            "bytes of static shared memory")
     want = {f"adaptive_sweep_kernel<4, {q}>" for q in (1, 4)}
     if set(kernels) != want or any(spills for _, spills, _ in kernels.values()):
         fail(f"want the 2 adaptive_sweep_kernel builds (<4, 1> and <4, 4>), none spilling; "
              f"ptxas gave {kernels}")
+    from repro_torch.runtime.batched_adaptive import adaptive_sweep_inputs
+    _, grid, cfg, slot_us = adaptive_settings()[0]
+    _, params = adaptive_sweep_inputs(grid, cfg, slot_us, "cpu")
+    for stalls in (False, True):
+        p = dataclasses.replace(params, stall_rate_per_us=2e-4 if stalls else 0.0)
+        for q in (1, 4):
+            lay = as_kernel.layout(p, q)
+            log(f"  adaptive_sweep_kernel<4, {q}> ring, stalls {'on' if stalls else 'off'}: "
+                f"{lay}")
+            if lay["smem_bytes"] > 232_448:
+                fail(f"adaptive_sweep_kernel<4, {q}>'s ring takes {lay['smem_bytes']} B; want "
+                     "at most 227 KB")
     # S3: the (M_MAX, Q_MAX) builds <4, 1> and <4, 4> of each route, one
     # block a point, built with -fmad=false; none may spill.  The ring route
     # (up to 256 hosts: consumer and producer warps) takes its ring as
@@ -1687,15 +1716,22 @@ def adaptive_settings():
 
 
 def adaptive_compare_cases():
-    """(name, grid, cfg, slot_us): S2 against its plain version.  16 points,
-    every (m, n_queues) in 1..4 x 1..4 (and one queue throughout: the other
-    build), quiet, noisy (sleep tails, interference, stall windows) and
-    scheduled (per-point schedules, windows of 130 us, deep C-states); a grid
-    whose budget is short (slots of 10 us cap it at 157 steps) so that the
-    last eighth paces every point (forced steps); the main path's grid,
-    sweep_frontier's 2016 points in its quiet and noisy config, cut in
-    duration only; and 1, 5 and 33 points (a lone lane, a partial warp, a
-    warp and one more)."""
+    """(name, grid, cfg, slot_us, replace): S2 against its plain version,
+    ``replace`` the fields of the batch's ``AdaptiveParams`` a case sets.
+    16 points, every (m, n_queues) in 1..4 x 1..4 (and one queue
+    throughout: the other build), quiet, noisy (sleep tails, interference,
+    stall windows) and scheduled (per-point schedules, windows of 130 us,
+    deep C-states); a grid whose budget is short (slots of 10 us cap it at
+    157 steps) so that the last eighth paces every point (forced steps); the
+    main path's grid, sweep_frontier's 2016 points in its quiet and noisy
+    config, cut in duration only; 1, 5 and 33 points (a lone lane, a partial
+    warp, a warp and one more); the edges of the kernel's ring (budgets of
+    C - 1, C, C + 1 and 4 C + 13 steps, C = kernel.STAGE_STEPS, and runs
+    cut by ``run_steps`` inside a stage, both builds); and the early stop
+    (``early_stop_grid``: warps whose every point finishes more than three
+    stages before the budget ends, and one lane paced by the budget's tail
+    beside 31 that finish early)."""
+    from repro_torch.kernels.adaptive_sweep.kernel import STAGE_STEPS
     from repro_torch.runtime import (
         DEEP_CSTATE_ENERGY_MODEL,
         HR_SLEEP_MODEL,
@@ -1734,25 +1770,62 @@ def adaptive_compare_cases():
     for one_queue in (False, True):
         tag = ", one queue a point" if one_queue else ""
         cases += [(f"m 1-4 x n_queues 1-4, quiet{tag}", multi(1, one_queue=one_queue), quiet,
-                   0.5),
+                   0.5, {}),
                   (f"m 1-4 x n_queues 1-4, noisy{tag}", multi(2, one_queue=one_queue),
-                   noisy_cfg, 0.5),
+                   noisy_cfg, 0.5, {}),
                   (f"m 1-4 x n_queues 1-4, scheduled{tag}",
-                   multi(3, scheds, one_queue=one_queue), sched_cfg, 0.5),
+                   multi(3, scheds, one_queue=one_queue), sched_cfg, 0.5, {}),
                   (f"tail pacing (slots of 10 us){tag}",
-                   multi(5, t_s=(20.0, 60.0), one_queue=one_queue), noisy_cfg, 10.0)]
+                   multi(5, t_s=(20.0, 60.0), one_queue=one_queue), noisy_cfg, 10.0, {})]
     cut_us = 2_000.0
     cases += [(f"sweep_frontier full grid, quiet, first {cut_us:g} us", frontier_grid(),
-               SimRunConfig(duration_us=cut_us), 0.5),
+               SimRunConfig(duration_us=cut_us), 0.5, {}),
               (f"sweep_frontier full grid, noisy, first {cut_us:g} us", frontier_grid(),
-               SimRunConfig(duration_us=cut_us, **FRONTIER_NOISY), 0.5)]
+               SimRunConfig(duration_us=cut_us, **FRONTIER_NOISY), 0.5, {})]
     pool = multi(2)
     for n in (1, 5, 33):
         pts = [pool.point(i % len(pool)) for i in range(n)]
-        cases.append((f"{n} points, noisy", SweepGrid.of_points(pts), noisy_cfg, 0.5))
+        cases.append((f"{n} points, noisy", SweepGrid.of_points(pts), noisy_cfg, 0.5, {}))
         cases.append((f"{n} points, noisy, tail pacing", SweepGrid.of_points(pts), noisy_cfg,
-                      10.0))
+                      10.0, {}))
+    c = STAGE_STEPS
+    for one_queue in (False, True):
+        tag = ", one queue a point" if one_queue else ""
+        for budget in (c - 1, c, c + 1, 4 * c + 13):
+            cases.append((f"ring edge: a budget of {budget} steps, noisy{tag}",
+                          multi(2, one_queue=one_queue), noisy_cfg, 0.5,
+                          {"max_steps": budget}))
+        for run in (2 * c + 7, 3 * c - 1):
+            cases.append((f"ring edge: run_steps {run}, scheduled{tag}",
+                          multi(3, scheds, one_queue=one_queue), sched_cfg, 0.5,
+                          {"run_steps": run}))
+        for cfg, kind in ((quiet, "quiet"), (noisy_cfg, "noisy")):
+            grid, budget = early_stop_grid(one_queue)
+            cases.append((f"early stop, {kind}{tag}", grid, cfg, 0.5, {"max_steps": budget}))
     return cases
+
+
+def early_stop_grid(one_queue: bool):
+    """(grid, budget): 96 points in three warps over 1,500 us, each point
+    but one with T_S of 100-200 us and one thread (well under 100 steps in
+    the configs of ``adaptive_compare_cases``), and point 7 (warp 0) with
+    T_S 1 us and four threads, which would take 230-900; the budget, 192
+    steps (6 stages of the kernel's ring), paces point 7 in its last eighth
+    (its forced steps) while every other point stops more than three stages
+    before the budget ends (warps 1 and 2 as a whole)."""
+    from repro_torch.runtime import SweepGrid
+    rng = np.random.default_rng(11)
+    pts = []
+    for i in range(96):
+        busy = i == 7
+        q = 1 if one_queue else int(rng.integers(1, 5))
+        pts.append(dict(t_s_us=1.0 if busy else float(rng.uniform(100.0, 200.0)),
+                        t_l_us=float(rng.uniform(200.0, 600.0)), m=4 if busy else 1,
+                        n_queues=q,
+                        rate_mpps=float((0.8 if busy else rng.uniform(0.05, 0.3)) * MU_MPPS
+                                        * q / 2.0),
+                        seed=int(rng.integers(0, 5))))
+    return SweepGrid.of_points(pts), 192
 
 
 def adaptive_first_divergence(args, params, i: int) -> int:
@@ -1797,21 +1870,25 @@ def phase_compare_adaptive() -> dict:
     """S2 against its plain version on the card (``adaptive_compare_cases``):
     every output bit-equal (the same float32 operations in the same order, no
     fma contraction, the same math library); a point that differs is
-    reported with the step where it diverges.  Returns the max abs error and
-    the builds compared."""
+    reported with the step where it diverges.  Every point reaches its
+    duration, but where ``run_steps`` cuts the run; the early-stop cases
+    must stop where ``early_stop_grid`` says.  Returns the max abs error
+    and the builds compared."""
+    from repro_torch.kernels.adaptive_sweep.kernel import STAGE_STEPS
     from repro_torch.kernels.adaptive_sweep.ops import adaptive_sweep, reference_adaptive_sweep
     from repro_torch.runtime.batched_adaptive import adaptive_sweep_inputs
     t0 = time.perf_counter()
     log("phase 2: adaptive_sweep (S2) vs plain version: m 1-4 x n_queues 1-4 quiet, noisy and "
         "scheduled, a budget short enough for tail pacing, the main path's grid "
-        "(sweep_frontier, 2016 points) cut in duration only, and 1, 5, 33 points; every output "
-        "bit-equal")
+        "(sweep_frontier, 2016 points) cut in duration only, 1, 5, 33 points, the ring's edges "
+        "and the early stop; every output bit-equal")
     adaptive_sweep.launches = 0
     adaptive_sweep.launches_by_build = {}
     cases = adaptive_compare_cases()
     max_abs, failed, forced_seen = 0.0, [], False
-    for name, grid, cfg, slot_us in cases:
+    for name, grid, cfg, slot_us, replace in cases:
         args, params = adaptive_sweep_inputs(grid, cfg, slot_us, "cuda")
+        params = dataclasses.replace(params, **replace)
         before = dict(adaptive_sweep.launches_by_build)
         out = adaptive_sweep(*args, params=params)
         (build,) = [b for b, n in adaptive_sweep.launches_by_build.items()
@@ -1824,7 +1901,16 @@ def phase_compare_adaptive() -> dict:
         outputs = [k for k in out if out[k].numel()]
         exact = [k for k in outputs if torch.equal(out[k], ref[k])]
         finite = all(bool(torch.isfinite(v).all()) for v in out.values())
-        done = bool((out["sim_time"] == np.float32(cfg.duration_us)).all())
+        done = "run_steps" in replace or bool(
+            (out["sim_time"] == np.float32(cfg.duration_us)).all())
+        if name.startswith("early stop"):
+            # point 7 paced in the budget's last eighth; every other point
+            # stopped more than three stages before the budget's end
+            n = out["n_steps"].cpu()
+            rest = torch.cat([n[:7], n[8:]])
+            done &= (float(n[7]) > params.max_steps - max(params.max_steps // 8, 2)
+                     and float(out["forced_steps"][7]) > 0
+                     and float(rest.max()) < params.max_steps - 3 * STAGE_STEPS)
         abs_err = max(float((out[k].double() - ref[k].double()).abs().max()) for k in outputs)
         forced = float(out["forced_steps"].sum())
         forced_seen |= forced > 0
@@ -1836,7 +1922,8 @@ def phase_compare_adaptive() -> dict:
             f"{params.n_windows} windows: max_abs_err={abs_err:.3e}; bit-equal: {len(exact)} "
             f"of {len(outputs)} outputs"
             f"{'' if exact == outputs else ' ' + str(sorted(set(outputs) - set(exact)))}; "
-            f"every point at its duration: {done}; plain {plain_s:.2f} s "
+            f"{'every point where it should stop' if replace else 'every point at its duration'}"
+            f": {done}; plain {plain_s:.2f} s "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             failed.append(name)
@@ -1923,8 +2010,11 @@ def phase_time_adaptive(compared: set, compared_s1: set) -> list[dict]:
     the plain version measured over its first ``ADAPTIVE_PLAIN_STEPS`` steps;
     the bound from the code's operations (``adaptive_bound``); the spread of
     live steps over each warp's points; at stepping.py's grids also S1's
-    bound (``sweep_bound``) and S1's plain version over its first 400 slots.  One launch a sweep, every build
-    among those phase 2 compared; the exact identities at every point."""
+    bound (``sweep_bound``) and S1's plain version over its first 400
+    slots.  One launch a sweep, every build among those phase 2 compared;
+    the exact identities at every point.  Also the kernel launched alone
+    (``launch_adaptive``), and from that time the us a step of the longest
+    point (the chain the design shortens)."""
     from repro_torch.kernels.adaptive_sweep.ops import adaptive_sweep, reference_adaptive_sweep
     from repro_torch.kernels.slot_sweep import reference_slot_sweep, slot_sweep
     from repro_torch.runtime.batched import simulate_batch, sweep_inputs
@@ -1973,20 +2063,28 @@ def phase_time_adaptive(compared: set, compared_s1: set) -> list[dict]:
         sp = warp_spread(out["n_steps"])
         rate = b["point_steps"] / (ms / 1e3)
         n_slots = s1_params.live_slots()
+        # the kernel launched alone (no host sync between the events, as
+        # the wrapper's choice of build makes)
+        kernel_ms = time_ms(launch_adaptive, args, params, int(args[2].max()),
+                            int(args[3].max()), iters=5, warmup=1)
+        us_step = 1e3 * kernel_ms / sp["steps_max"]
         rows.append({
             "name": name, "ms": ms, "plain_ms": plain_ms, "plain_steps": ADAPTIVE_PLAIN_STEPS,
             "library_ms": None, "launches": 1, "bound_ms": b["bound_ms"],
             "bound_by": b["bound_by"], "bound_resource": b["bound_resource"],
             "point_steps_per_s": rate, "build": f"<{build[0]}, {build[1]}>",
-            "s1_ms": s1_ms, "s1_slots": n_slots, **s1_extra, "budget": params.max_steps, **sp,
+            "kernel_ms": kernel_ms, "us_per_step": us_step, "s1_ms": s1_ms,
+            "s1_slots": n_slots, **s1_extra, "budget": params.max_steps, **sp,
             "forced_steps": float(out["forced_steps"].sum()),
             "shape": f"{len(grid)} points, budget {params.max_steps} steps, live steps max "
                      f"{sp['steps_max']:.0f} mean {sp['steps_mean']:.1f} (S1: {n_slots} "
                      f"slots), m <= {int(grid.m.max())}, n_queues <= "
                      f"{int(grid.n_queues.max())}, flags {params.flags}; plain_ms over the "
                      f"first {ADAPTIVE_PLAIN_STEPS} steps"})
-        log(f"  {name}: {len(grid)} points, build <{build[0]}, {build[1]}>, budget "
-            f"{params.max_steps} steps: kernel {ms:.3f} ms ({rate:.4e} point-steps/s); live "
+        log(f"  {name}: {len(grid)} points, build <{build[0]}, {build[1]}>, "
+            f"budget {params.max_steps} steps: kernel "
+            f"{ms:.3f} ms through the wrapper ({rate:.4e} point-steps/s), {kernel_ms:.3f} ms "
+            f"launched alone ({us_step:.4f} us a step of the longest point); live "
             f"steps max {sp['steps_max']:.0f} mean {sp['steps_mean']:.1f} against S1's "
             f"{n_slots} slots (S1 {s1_ms:.3f} ms on this grid: S2 {s1_ms / ms:.2f}x faster"
             + (f"; S1's bound {s1_extra['s1_bound_ms'] * 1e3:.2f} us "
@@ -2004,6 +2102,77 @@ def phase_time_adaptive(compared: set, compared_s1: set) -> list[dict]:
             + f"; mean latency {float(np.mean(bs.mean_latency_us)):.2f} us, cpu "
             f"{float(np.mean(bs.cpu_fraction)):.3f}")
     log(f"  phase 3 (adaptive_sweep) took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def launch_adaptive(args, params, m_max: int, q_max: int, lib=None):
+    """One launch of the event-jump sweep kernel past its wrapper (so that no
+    launch counter moves), for phase 3's time of the kernel alone and
+    ``--adaptive-ab``'s A/B of two sources (``lib``, default this
+    checkout's): its build, then its outputs sums (14, P), win and ends
+    (2, P)."""
+    from repro_torch.kernels.adaptive_sweep.kernel import launch_adaptive_sweep
+    from repro_torch.kernels.adaptive_sweep.ops import SUM_NAMES
+    cols = dict(zip(("t_s", "t_l", "m", "nq", "lam", "seed_lo", "seed_hi"), args[:7]))
+    n = args[0].shape[0]
+    sums = torch.empty((len(SUM_NAMES), n), dtype=torch.float32, device="cuda")
+    win = torch.empty((n, params.n_windows, 5), dtype=torch.float32, device="cuda")
+    ends = torch.empty((2, n), dtype=torch.float32, device="cuda")
+    build = launch_adaptive_sweep(cols, args[7], args[8], params, sums, win, ends, m_max=m_max,
+                                  q_max=q_max, lib=lib)
+    return build, sums, win, ends
+
+
+def phase_adaptive_source_ab(sources: list[str]) -> list[dict]:
+    """``--adaptive-ab SRC...``: this checkout's event-jump sweep kernel
+    against other sources with the C interface ``adaptive_sweep_fwd`` of
+    ``csrc/adaptive_sweep.cu`` (a parent commit's, a variant), each built
+    with the same flags, at phase 3's five sweeps (``adaptive_settings``),
+    uncut.  Each is timed as the median of 5 CUDA-event timings after 1
+    warm-up, in the order this, SRC1 .. SRCn, SRCn .. SRC1, this (A B B A
+    for one source), all launched the same way (``launch_adaptive``); a
+    source's us a step is its mean time over the longest point's live steps
+    in its own run; every output of each source is compared bit for bit
+    with this checkout's (reported, not required: a variant may compute
+    something else)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.adaptive_sweep import kernel as as_kernel
+    from repro_torch.kernels.adaptive_sweep.ops import SUM_NAMES
+    from repro_torch.runtime.batched_adaptive import adaptive_sweep_inputs
+    named = {"this": as_kernel._SOURCE, **{s: str(Path(s).resolve()) for s in sources}}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(named)) as pool:
+        libs = dict(zip(named, pool.map(as_kernel.build, named.values())))
+    log(f"adaptive A/B: built {len(named)} sources in parallel in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for name, source in named.items():
+        info = _build.BUILD_INFO[source]
+        log(f"  {name}: nvcc {info['seconds']:.2f} s; ptxas {ptxas_kernels(info['log'])}")
+    order = [*named, *reversed(named)]
+    steps = SUM_NAMES.index("n_steps")
+    rows = []
+    for name, grid, cfg, slot_us in adaptive_settings():
+        args, params = adaptive_sweep_inputs(grid, cfg, slot_us, "cuda")
+        m_max, q_max = int(args[2].max()), int(args[3].max())
+        outs = {k: launch_adaptive(args, params, m_max, q_max, lib=lib)
+                for k, lib in libs.items()}
+        equal = {k: all(torch.equal(a, b) for a, b in zip(outs["this"][1:], o[1:]))
+                 for k, o in outs.items() if k != "this"}
+        longest = {k: float(o[1][steps].max()) for k, o in outs.items()}
+        times = {k: [] for k in named}
+        for k in order:
+            times[k].append(time_ms(launch_adaptive, args, params, m_max, q_max, libs[k],
+                                    iters=5, warmup=1))
+        us_step = {k: 1e3 * statistics.mean(ts) / longest[k] for k, ts in times.items()}
+        log(f"  {name} ({len(grid)} points, budget {params.max_steps} steps, build "
+            f"<{outs['this'][0][0]}, {outs['this'][0][1]}>), order {' '.join(order)}: "
+            + "; ".join(f"{k} " + ", ".join(f"{t:.3f}" for t in ts) + f" ms (longest point "
+                        f"{longest[k]:.0f} steps, {us_step[k]:.4f} us a step)"
+                        for k, ts in times.items()) + f"; bit-equal to this: {equal}")
+        rows.append({"name": name, "points": len(grid), "budget": params.max_steps,
+                     "steps_max": longest, "times_ms": times, "us_per_step": us_step,
+                     "bit_equal": equal})
+    log(f"adaptive A/B took {time.perf_counter() - t0:.1f} s")
     return rows
 
 
@@ -2853,6 +3022,12 @@ def main() -> int:
                            check=True).stdout.strip().splitlines()[0])
         print(json.dumps({"fleet_ab": phase_fleet_source_ab(sys.argv[2:])}), flush=True)
         return 0
+    if sys.argv[1:2] == ["--adaptive-ab"]:
+        log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"], capture_output=True, text=True,
+                           check=True).stdout.strip().splitlines()[0])
+        print(json.dumps({"adaptive_ab": phase_adaptive_source_ab(sys.argv[2:])}), flush=True)
+        return 0
     phase_card()
     route_err = phase_compare()
     decode_err = phase_compare_decode()
@@ -2934,9 +3109,10 @@ def main() -> int:
     # build_operating_table over sweep_frontier's lattice); its numbers at
     # that grid (quiet), the other sweeps of its phase 3 in "rows"
     row = s2_rows[0]
-    extra = ("build", "bound_resource", "point_steps_per_s", "plain_steps", "budget",
-             "steps_max", "steps_mean", "warp_longest_over_mean", "lane_busy_share", "s1_ms",
-             "s1_slots", "forced_steps")
+    extra = ("build", "bound_resource", "point_steps_per_s", "kernel_ms", "us_per_step",
+             "plain_steps", "budget", "steps_max",
+             "steps_mean", "warp_longest_over_mean", "lane_busy_share", "s1_ms", "s1_slots",
+             "forced_steps")
     s1_extra = ("s1_bound_ms", "s1_bound_by", "s1_plain_ms", "s1_plain_slots")
     kernels.append({
         "name": "adaptive_sweep", "route": "cuda",

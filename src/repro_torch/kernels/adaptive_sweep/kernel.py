@@ -11,9 +11,16 @@ import torch
 from .._build import load_library
 from ..slot_sweep.kernel import NVCC_EXTRA
 
-__all__ = ["build", "launch_adaptive_sweep"]
+__all__ = ["STAGES", "STAGE_STEPS", "build", "launch_adaptive_sweep", "layout"]
 
 _SOURCE = "adaptive_sweep.cu"
+# the kernel's ring: stages, and steps a stage (kStages and kStageSteps of
+# the source); a stage holds a step's fields for the 32 points (kPoints)
+# of a block
+STAGES = 3
+STAGE_STEPS = 32
+_POINTS = 32
+_M_MAX = 4          # the builds' M_MAX
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FP = ctypes.POINTER(ctypes.c_float)
 _SIGNATURES = {
@@ -30,11 +37,25 @@ _FPARAMS = ("floor", "duration", "mu", "inv_mu", "cap", "cap_fill", "wake_cost",
             "stall_mean", "active_power", "window", "inv_window", "steps", "tail_steps")
 
 
-def build():
+def build(source: str = _SOURCE):
     """Build (once) and load the kernel's library, with the fixed-slot
     sweep's ``-fmad=false``: every product and sum rounds as the plain
-    version's separate PyTorch operations do."""
-    return load_library(_SOURCE, _SIGNATURES, NVCC_EXTRA)
+    version's separate PyTorch operations do.  ``source`` may name another
+    file with the same launch interface (an absolute path), for an A/B of
+    two versions of the kernel in one process."""
+    return load_library(source, _SIGNATURES, NVCC_EXTRA)
+
+
+def layout(params, q_max: int) -> dict[str, int]:
+    """The kernel's ring for a sweep with ``params`` and up to ``q_max``
+    queues a point (the build's Q_MAX: 1 or 4), as the source's ``Layout``
+    counts it: stages, steps a stage, the fields of a step (the queues'
+    normals, the threads' overshoots and, with stalls on, the stall
+    window's length and gap and the threads' re-arm jitters; one word a
+    lane each) and the ring's bytes of dynamic shared memory."""
+    fields = (1 if q_max == 1 else 4) + _M_MAX + (2 + _M_MAX if params.flags["stall"] else 0)
+    return {"stages": STAGES, "stage_steps": STAGE_STEPS, "fields": fields,
+            "smem_bytes": 4 * STAGES * STAGE_STEPS * fields * _POINTS}
 
 
 def _floats(values) -> ctypes.Array:
@@ -42,11 +63,12 @@ def _floats(values) -> ctypes.Array:
 
 
 def launch_adaptive_sweep(cols: dict, sched_edges, sched_scales, params, sums, win, ends, *,
-                          m_max: int, q_max: int) -> tuple[int, int]:
+                          m_max: int, q_max: int, lib=None) -> tuple[int, int]:
     """Launch the sweep on the current stream of the inputs' device and
     return the (M_MAX, Q_MAX) build it launched.  Shapes, types and devices
-    are checked by the caller (``ops``)."""
-    lib = build()
+    are checked by the caller (``ops``); ``lib`` is a library from
+    ``build`` (default: this checkout's kernel)."""
+    lib = build() if lib is None else lib
     p = params
     flags = p.flags
     bits = flags["sigma"] | flags["tail"] << 1 | flags["intf"] << 2 | flags["stall"] << 3

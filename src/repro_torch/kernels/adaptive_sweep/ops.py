@@ -9,8 +9,10 @@ distance to the next boundary (a wake, a drain-out, a fill to capacity, a
 schedule segment's end, a window edge, a stall start, the end of the run),
 floored at the slot length unless a wake or a drain-out comes first, and
 paced as ``remaining / steps_left`` in the last eighth of the budget.  For
-CUDA tensors it launches the hand-written kernel (``csrc/adaptive_sweep.cu``,
-one thread a point) and counts the call in ``adaptive_sweep.launches`` and,
+CUDA tensors it launches the hand-written kernel (``csrc/adaptive_sweep.cu``:
+producer warps make each step's draws into a ring in shared memory, a
+consumer warp runs the jumps of 32 points) and counts the call in
+``adaptive_sweep.launches`` and,
 by the (M_MAX, Q_MAX) build it launched, in ``adaptive_sweep.launches_by_build``;
 for CPU tensors it runs ``reference_adaptive_sweep``.  It never falls back
 from the kernel to the plain version.  Both draw their noise from the Philox

@@ -17,11 +17,14 @@ budget and the simulated time must be equal; float sums agree to 1e-5 relative (
 same float32 operations; XLA may sum a point's queues in another order).
 
 Then the step budget against the reference's, the Philox contract's S2
-streams, the sweep's exact invariants, the port's own surface, and, on the
-card, the kernel against its plain version bit for bit."""
+streams, the sweep's exact invariants, the port's own surface, the kernel's
+ring (its layout against the source; the plain version at the ring's edges),
+and, on the card, the kernel against its plain version bit for bit."""
 
+import dataclasses
 import math
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -40,6 +43,8 @@ from repro.runtime.schedule import StepSchedule as RefStep
 from repro.runtime.simcore import DEEP_CSTATE_ENERGY_MODEL as REF_DEEP
 from repro.runtime.simcore import HR_SLEEP_MODEL as REF_HR
 from repro.runtime.simcore import SleepModel as RefSleepModel
+from repro_torch.kernels.adaptive_sweep import kernel as adaptive_kernel
+from repro_torch.kernels.adaptive_sweep import ops as adaptive_ops
 from repro_torch.kernels.adaptive_sweep import philox as step_philox
 from repro_torch.kernels.adaptive_sweep.ops import (
     SUM_NAMES,
@@ -521,6 +526,131 @@ def test_source_constants_match_the_binding():
     assert ref_adaptive._RATE_EPS == 1e-9 and ref_adaptive._WAKE_EPS_US == 1e-6
 
 
+# -- the kernel's ring ------------------------------------------------------------
+
+SMEM_PER_BLOCK = 232_448     # the shared memory a block can use on an H100 (227 KB)
+STAGE = adaptive_kernel.STAGE_STEPS
+# budgets one under, at and one over a stage, and inside the fifth stage (the
+# ring of three stages wraps)
+EDGE_BUDGETS = (STAGE - 1, STAGE, STAGE + 1, 4 * STAGE + 13)
+
+
+def _noise(params, sigma, tail, intf, stall):
+    return dataclasses.replace(params, sigma_us=0.5 * sigma, tail_prob=0.01 * tail,
+                               interference_prob=0.25 * intf,
+                               stall_rate_per_us=stall / 400.0)
+
+
+def test_ring_layout_matches_the_kernel_source():
+    """The Python side's ring (``kernel.STAGES``, ``STAGE_STEPS`` and
+    ``layout``) is the source's: its constants, a step's fields (the
+    queues' normals, the threads' overshoots and, with stalls on, the
+    window's length and gap and the threads' jitters) and the bytes; and
+    the ring fits a block's shared memory in both builds with every noise
+    family on or off."""
+    src = (Path(adaptive_kernel.__file__).parents[1] / "csrc" / "adaptive_sweep.cu").read_text()
+    flat = " ".join(src.split())
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("kStageSteps") == adaptive_kernel.STAGE_STEPS
+    assert const("kStages") == adaptive_kernel.STAGES
+    assert const("kPoints") == 32
+    for line in ("static constexpr int kZ = 0, kOver = QQ, kLen = QQ + MM, kGap = QQ + MM + 1, "
+                 "kJit = QQ + MM + 2;",
+                 "return (flags & kStallOn) ? kJit + MM : kLen;",
+                 "return kStageSteps * fields(flags) * kPoints;",
+                 "return sizeof(float) * (size_t)kStages * stage_floats(flags);"):
+        assert line in flat, line
+    grid = SweepGrid.of_points(_mixed_points(2))
+    _, base = batched_adaptive.adaptive_sweep_inputs(grid, SimRunConfig(duration_us=50.0), 0.5,
+                                                     CPU)
+    stages, steps = const("kStages"), const("kStageSteps")
+    for bits in range(16):
+        fl = [bool(bits >> k & 1) for k in range(4)]
+        params = _noise(base, *fl)
+        assert list(params.flags.values()) == fl
+        for q_max in (1, 4):
+            fields = q_max + 4 + (2 + 4 if fl[3] else 0)
+            lay = adaptive_kernel.layout(params, q_max)
+            want = {"stages": stages, "stage_steps": steps, "fields": fields,
+                    "smem_bytes": 4 * stages * steps * fields * 32}
+            assert lay == want, (fl, q_max)
+            assert lay["smem_bytes"] <= SMEM_PER_BLOCK, (fl, q_max)
+    # the largest ring: <4, 4> with stalls on, 14 fields a step
+    assert adaptive_kernel.layout(_noise(base, 1, 1, 1, 1), 4)["smem_bytes"] == 172_032
+
+
+def _edge_points():
+    """Six mixed points, a step schedule on one and a ramp on another."""
+    pts = _mixed_points(6)
+    pts[0]["schedule"] = StepSchedule(times_us=(0.0, 570.0), scales=(0.4, 1.5))
+    pts[1]["schedule"] = RampSchedule(t_start_us=50.0, t_end_us=1_450.0, scale_from=0.3,
+                                      scale_to=1.4)
+    return pts
+
+
+@pytest.mark.parametrize("cut", (False, True), ids=("whole", "run_steps"))
+@pytest.mark.parametrize("budget", EDGE_BUDGETS)
+def test_plain_version_does_not_depend_on_its_chunk_length(budget, cut, monkeypatch):
+    """What the kernel's producers rely on: a step's state-free values
+    (``_step_inputs``) depend on the step alone, so they can be made ahead
+    of the jumps for any run of steps.  The plain version gives the same
+    bits with them made 16 steps at a time (half a stage of the ring), 20
+    (a split inside a stage) and all at once, every noise family on, with
+    schedules and windows, at budgets on the ring's edges (the budget's
+    tail paces every point) and with ``run_steps`` ending inside a stage."""
+    cfg = SimRunConfig(duration_us=2_000.0, sleep_model=SleepModel(**TAIL_SLEEP),
+                       window_us=400.0, queue_capacity=128, **NOISY)
+    pts = _edge_points()
+    args, params = batched_adaptive.adaptive_sweep_inputs(SweepGrid.of_points(pts), cfg, 0.5,
+                                                          CPU)
+    params = dataclasses.replace(params, max_steps=budget,
+                                 run_steps=budget - 5 if cut else None)
+    assert all(params.flags.values()) and args[7] is not None and params.n_windows == 5
+    outs = []
+    for chunk in (16, 20, None):
+        if chunk is not None:
+            monkeypatch.setattr(adaptive_ops, "_CHUNK_ELEMS", chunk * len(pts))
+        else:
+            monkeypatch.undo()
+        outs.append(reference_adaptive_sweep(*args, params))
+    n, sim_time = outs[0]["n_steps"], outs[0]["sim_time"]
+    assert float(n.max()) == params.steps       # the run reaches the ring's edge
+    if cut:
+        assert bool((sim_time[n == params.steps] < np.float32(cfg.duration_us)).all())
+    else:
+        assert float(outs[0]["forced_steps"].sum()) > 0
+        assert bool((sim_time == np.float32(cfg.duration_us)).all())
+    for out in outs[1:]:
+        for name in (*SUM_NAMES, "win", "backlog", "sim_time"):
+            assert torch.equal(out[name], outs[0][name]), name
+
+
+def _early_stop_points(one_queue):
+    """96 points in three warps, each but point 7 with T_S of 100-200 us and
+    one thread, and point 7 with T_S 1 us and four threads: under a budget
+    of ``EARLY_STOP_BUDGET`` steps, point 7 is paced by the budget's tail
+    and every other point (warps 1 and 2 as a whole) stops more than three
+    stages of the kernel's ring before the budget ends."""
+    rng = np.random.default_rng(11)
+    pts = []
+    for i in range(96):
+        busy = i == 7
+        q = 1 if one_queue else int(rng.integers(1, 5))
+        pts.append(dict(t_s_us=1.0 if busy else float(rng.uniform(100.0, 200.0)),
+                        t_l_us=float(rng.uniform(200.0, 600.0)), m=4 if busy else 1,
+                        n_queues=q,
+                        rate_mpps=float((0.8 if busy else rng.uniform(0.05, 0.3)) * 29.76
+                                        * q / 2.0),
+                        seed=int(rng.integers(0, 5))))
+    return pts
+
+
+EARLY_STOP_BUDGET = 6 * STAGE
+
+
 # -- the kernel on the card ------------------------------------------------------
 
 EDGE_POINTS = (1, 5, 33)            # a lone lane, a partial warp, a warp and one more
@@ -529,25 +659,50 @@ EDGE_POINTS = (1, 5, 33)            # a lone lane, a partial warp, a warp and on
 @pytest.mark.gpu
 def test_kernel_equals_plain_version_on_the_card():
     """Every output bit-equal to the plain version: the parity cases (both
-    builds), the warp edges, and a budget short enough for tail pacing."""
+    builds), the warp edges, a budget short enough for tail pacing, the
+    ring's edges (budgets on a stage's edges, ``run_steps`` ending inside a
+    stage) and the early stop (warps whose every point finishes more than
+    three stages before the budget's end, and one paced lane among them)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the sweep kernel has no CPU mode")
+    # (grid, cfg, slot_us, AdaptiveParams fields replaced, whether the
+    # budget's tail paces a step).  Two of the slots of 10 us pace none, as
+    # the plain version (the kernel's before this design too) counts it:
+    # the tail-pacing case with one queue a point and the lone point of the
+    # warp edges finish inside their 157-step budget's first seven eighths
     cases = []
     for name in PARITY_CASES:
         pts_p, _, cfg, _, slot_us = _parity_case(name)
-        cases.append((SweepGrid.of_points(pts_p), cfg, slot_us))
-        cases.append((SweepGrid.of_points([dict(p, n_queues=1) for p in pts_p]), cfg, slot_us))
+        cases.append((SweepGrid.of_points(pts_p), cfg, slot_us, {}, slot_us == 10.0))
+        cases.append((SweepGrid.of_points([dict(p, n_queues=1) for p in pts_p]), cfg, slot_us,
+                      {}, False))
     pts_p, _, cfg, _, _ = _parity_case("noisy")
     for n in EDGE_POINTS:
-        cases.append((SweepGrid.of_points((pts_p * 3)[:n]), cfg, 0.5))
-        cases.append((SweepGrid.of_points((pts_p * 3)[:n]), cfg, 10.0))
-    for grid, c, slot_us in cases:
+        cases.append((SweepGrid.of_points((pts_p * 3)[:n]), cfg, 0.5, {}, False))
+        cases.append((SweepGrid.of_points((pts_p * 3)[:n]), cfg, 10.0, {}, n > 1))
+    for pts in (pts_p, [dict(p, n_queues=1) for p in pts_p]):
+        for budget in EDGE_BUDGETS:
+            cases.append((SweepGrid.of_points(pts), cfg, 0.5, {"max_steps": budget}, True))
+            cases.append((SweepGrid.of_points(pts), cfg, 0.5,
+                          {"max_steps": 10 * budget, "run_steps": budget}, False))
+    quiet = _parity_case("quiet")[2]
+    for one_queue in (False, True):
+        for c in (quiet, cfg):
+            cases.append((SweepGrid.of_points(_early_stop_points(one_queue)), c, 0.5,
+                          {"max_steps": EARLY_STOP_BUDGET}, True))
+    for grid, c, slot_us, replace, paces in cases:
         args, params = batched_adaptive.adaptive_sweep_inputs(grid, c, slot_us, "cuda")
+        params = dataclasses.replace(params, **replace)
         launches = adaptive_sweep.launches
         out = adaptive_sweep(*args, params=params)
         assert adaptive_sweep.launches == launches + 1
         plain = reference_adaptive_sweep(*args, params)
-        if slot_us == 10.0:
-            assert float(plain["forced_steps"].sum()) > 0
+        if paces:
+            assert float(plain["forced_steps"].sum()) > 0, (len(grid), slot_us, replace)
+        if len(grid) == 96:
+            n = plain["n_steps"].cpu()
+            assert float(n[7]) > EARLY_STOP_BUDGET - EARLY_STOP_BUDGET // 8
+            assert float(plain["forced_steps"][7]) > 0
+            assert float(torch.cat([n[:7], n[8:]]).max()) < EARLY_STOP_BUDGET - 3 * STAGE
         for name in (*SUM_NAMES, "win", "backlog", "sim_time"):
-            assert torch.equal(out[name], plain[name]), (len(grid), slot_us, name)
+            assert torch.equal(out[name], plain[name]), (len(grid), slot_us, replace, name)
