@@ -6,7 +6,7 @@ Phases, each a hard failure (nonzero exit, no result line):
 
 1. the card (nvidia-smi name and power limit), torch/CUDA versions, and the
    build of every kernel of ``src/repro_torch/kernels`` (flash attention,
-   decode attention, SSD chunk scan, the two sweeps; one nvcc per source, in
+   decode attention, SSD chunk scan, the four sweeps; one nvcc per source, in
    parallel), with every kernel's registers and spills (the wgmma kernel,
    the mma decode split, the K3 kernels and the sweeps must not spill);
 2. each kernel against its plain PyTorch version on the card, at the
@@ -106,6 +106,32 @@ routes must not spill; the ring's layout is printed at 4-1000 hosts):
   at 60 ms, in the quiet bands;
 - the slice's main path: benchmarks/fleet.py's ``fleet_bench`` through
   ``simulate_fleet``, one launch a call, the verdict at 64 hosts.
+
+Then the fleet sweep by event jumps S3b (``fleet_adaptive_sweep``, the
+reference's ``runtime/fleet.py`` ``fleet_step_a``; S3's block layout around
+S2's host body: up to 256 hosts producer warps make every host's draws of
+every step into a ring in shared memory and consumer warps, a host a lane,
+run the jumps at one dt a point, the dt's minima, the balancer, link and
+hedge stages as reductions on a named barrier; beyond, the scratch route),
+built in phase 1 (its builds <4, 1> and <4, 4> of both routes must not
+spill; the ring's layout is printed at 1-1000 hosts and must fit 227 KB
+with the block's static shared memory):
+
+- phase 2: the kernel against its plain version, every output bit-equal, at
+  1, 3, 4, 33, 64, 256 and 257 hosts over 1,000-2,000 steps (each
+  balancer, the link, hedge deadlines 0, 20 and 80, every noise family,
+  schedules, m x n_queues 1-4 and one queue a point), runs that stop more
+  than three stages before their budget's end, slots of 10 us (the budget's
+  tail paces), budgets on the ring's stage edges, and the H=64 least-loaded
+  shape of benchmarks/fleet.py over its first 1,000 steps;
+- phase 3: the kernel timed at benchmarks/fleet.py's ten shapes, uncut,
+  beside S3a's time on the same shape: live steps against S3a's slots, us a
+  step, host-steps/s, its bound; bit-equal to its plain version over each
+  shape's first 300 steps, where the plain version is timed;
+- the slice's main path: ``fleet_bench`` through ``simulate_fleet(stepping=
+  "adaptive")`` (one launch a call, each point's cores, mean latency and
+  p99.9 beside S3a's, the verdict at 64 hosts), then tests/test_stepping.py's
+  fleet parity grid at its full 30 ms against S3a in the reference's bands.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -255,12 +281,14 @@ def phase_card() -> None:
     from repro_torch.kernels.adaptive_sweep import kernel as as_kernel
     from repro_torch.kernels.decode_attention import kernel as da_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.fleet_adaptive_sweep import kernel as fas_kernel
     from repro_torch.kernels.fleet_sweep import kernel as fleet_kernel
     from repro_torch.kernels.slot_sweep import kernel as sweep_kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     builds = {"flash_attention.cu": fa_kernel.build, "decode_attention.cu": da_kernel.build,
               "ssd_scan.cu": ssd_kernel.build, "slot_sweep.cu": sweep_kernel.build,
-              "adaptive_sweep.cu": as_kernel.build, "fleet_sweep.cu": fleet_kernel.build}
+              "adaptive_sweep.cu": as_kernel.build, "fleet_sweep.cu": fleet_kernel.build,
+              "fleet_adaptive_sweep.cu": fas_kernel.build}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         for future in [pool.submit(fn) for fn in builds.values()]:
@@ -350,6 +378,33 @@ def phase_card() -> None:
                 fail(f"fleet_sweep layout {lay} at {hosts} hosts: want the ring of "
                      f"kernel.ring_bytes ({ring} bytes, {fleet_kernel.STAGE_SLOTS} slots a "
                      "stage) in at most 227 KB of shared memory")
+    # S3b: the (M_MAX, Q_MAX) builds <4, 1> and <4, 4> of each route (up to
+    # 256 hosts the ring of the event-jump sweep's fields, beyond the
+    # scratch), built with -fmad=false; none may spill.  The ring with the
+    # block's static shared memory must fit 227 KB at every host count
+    kernels = ptxas_kernels(_build.BUILD_INFO["fleet_adaptive_sweep.cu"]["log"])
+    for name, (regs, spills, smem) in kernels.items():
+        log(f"  {name}: {regs} registers, {spills} bytes of spill stores + loads, {smem} "
+            "bytes of static shared memory")
+    want = {f"{k}<4, {q}>" for k in ("fleet_adaptive_kernel", "fleet_adaptive_scratch_kernel")
+            for q in (1, 4)}
+    if set(kernels) != want or any(spills for _, spills, _ in kernels.values()):
+        fail(f"want the 4 fleet_adaptive_sweep builds (fleet_adaptive_kernel and "
+             f"fleet_adaptive_scratch_kernel, <4, 1> and <4, 4>), none spilling; ptxas gave "
+             f"{kernels}")
+    static = max(smem for name, (_, _, smem) in kernels.items()
+                 if name.startswith("fleet_adaptive_kernel"))
+    for hosts in (1, 4, 16, 33, 64, 256, 257, 1000):
+        lays = {q: fas_kernel.layout(hosts, q, stalls) for q in (1, 4)}
+        log(f"  fleet_adaptive_sweep layout at {hosts} hosts, stalls on: <4, 1> {lays[1]}, "
+            f"<4, 4> {lays[4]}")
+        for q, lay in lays.items():
+            ring = fas_kernel.ring_bytes(hosts, q, True)
+            if lay["ring_bytes"] != ring or ring + static > 232_448 or (
+                    ring and lay["stage_steps"] != fas_kernel.STAGE_STEPS):
+                fail(f"fleet_adaptive_sweep layout {lay} at {hosts} hosts: want the ring of "
+                     f"kernel.ring_bytes ({ring} bytes, {fas_kernel.STAGE_STEPS} steps a "
+                     f"stage) and {static} bytes of static shared memory in 227 KB")
     from repro_torch.runtime.batched import sweep_inputs
     for name, grid, cfg, slot_us in sweep_settings()[:2]:       # quiet; stalls on
         _, params = sweep_inputs(grid, cfg, slot_us, "cpu")
@@ -363,14 +418,15 @@ def phase_card() -> None:
 
 def ptxas_kernels(log_text: str) -> dict[str, tuple[int, int, int]]:
     """``nvcc -Xptxas -v`` output -> {kernel<[types, ]ints>: (registers, spill
-    bytes, static shared memory bytes)} for every kernel of the six
+    bytes, static shared memory bytes)} for every kernel of the seven
     sources."""
     out, name, spills = {}, None, 0
     for ln in log_text.splitlines():
         if m := re.search(r"Compiling entry function '.*?(flash_fwd_\w+?|decode_split_mma_bf16|"
                           r"decode_split|decode_combine|ssd_chunk_state|ssd_chunk_out|"
                           r"slot_sweep_kernel|adaptive_sweep_kernel|fleet_sweep_kernel|"
-                          r"fleet_scratch_kernel)"
+                          r"fleet_scratch_kernel|fleet_adaptive_kernel|"
+                          r"fleet_adaptive_scratch_kernel)"
                           r"I((?:f|13__nv_bfloat16|S\d*_)*)((?:Li\d+E)+)", ln):
             # a repeated type is a substitution (S<n>_); only bf16 repeats
             types = ["float" if t == "f" else "bf16"
@@ -2954,9 +3010,465 @@ def phase_fleet_main(compared: set, timed: list[dict]) -> dict:
     if not ok:
         fail("the hedged Metronome fleet does not beat the busy-poll fleet on cores and p99.9")
     log(f"  main path (S3) took {time.perf_counter() - t0:.1f} s")
-    return {"launches": launches["fleet_sweep"], "host_s": host_s,
+    return {"launches": launches["fleet_sweep"], "host_s": host_s, "busy_mean": busy_mean,
+            "points": {name: fleet_point_rows(fs) for name, fs, _ in results},
             "verdict": {"n_hosts": hosts, "hedge_deadline_us": best_d, "cpu_cores": best_cpu,
                         "p999_us": best_p999, "busy_poll_p999_us": busy_p999}}
+
+
+def fleet_point_rows(fs) -> list[dict]:
+    """Each point's hedge deadline, fleet cores, mean latency, p99.9 (the
+    hedged-tail closed form) and loss."""
+    return [{"hedge_us": float(fs.fgrid.hedge_deadline_us[i]),
+             "cores": float(fs.total_cpu_cores[i]), "mean_us": float(fs.mean_latency_us[i]),
+             "p999_us": fs.quantile(i, 0.999), "loss": float(fs.loss_fraction[i])}
+            for i in range(len(fs))]
+
+
+# -- S3b: the fleet sweep by event jumps (runtime/fleet.py's fleet_step_a) -----
+
+# the plain version runs, and the kernel is held to it, over this prefix of
+# every phase-3 shape's steps
+FLEET_ADAPTIVE_PLAIN_STEPS = 300
+# tests/test_stepping.py::test_fleet_adaptive_parity_and_steps's grid (:165)
+STEPPING_FLEET_US = 30_000.0
+
+
+def fleet_adaptive_compare_cases():
+    """(name, fgrid, cfg, slot_us, AdaptiveParams fields replaced, what the
+    case must show): S3b against its plain version.  Every noise family,
+    queues of 64 packets, hedge deadlines 0, 20 and 80 cycling over the
+    points, every other point on a step schedule, m x n_queues 1-4 or one
+    queue a point: 1 host (a lone lane; its duplicates come back to it), 3
+    (weighted, link), 4 (least-loaded), 33 (least-loaded, link: two warps),
+    64 (uniform, link), 256 (least-loaded, eight warps) and 257 (the scratch
+    route) over 1,000-2,000 steps of 0.5 us (up to 4 hosts the runs stop
+    more than three stages before their budget's end); slots of 10 us, whose
+    budget's tail paces; budgets on the ring's stage edges; and
+    benchmarks/fleet.py's H=64 least-loaded shape cut to 1,000 steps."""
+    from repro_torch.kernels.fleet_adaptive_sweep import kernel as fas_kernel
+    from repro_torch.runtime import FleetConfig, FleetGrid, SimRunConfig, SleepModel
+    tail = SleepModel(base_us=2.8, slope=0.027, sigma_us=0.5, tail_prob=0.01,
+                      tail_mean_us=40.0)
+    noisy = dict(BAND_NOISY, stall_rate_per_us=1.0 / 400.0)
+    link = dict(near_cost_us=1.0, far_cost_us=5.0)
+    cases = []
+    for hosts, kw, steps, one_queue in (
+            (1, dict(near_cost_us=2.0), 2_000, True),
+            (3, dict(lb="weighted", host_weights=(1.0, 2.0, 3.0), far_fraction=0.34,
+                     link_rate_mpps=10.0, **link), 2_000, False),
+            (4, dict(lb="least-loaded", lb_stale_us=5.0), 2_000, True),
+            (4, dict(lb="least-loaded", lb_stale_us=5.0), 2_000, False),
+            (33, dict(lb="least-loaded", lb_stale_us=5.0, far_fraction=0.5,
+                      link_rate_mpps=300.0, **link), 1_000, False),
+            (64, dict(far_fraction=0.25, link_rate_mpps=400.0, **link), 1_000, True),
+            (256, dict(lb="least-loaded", lb_stale_us=5.0), 1_000, False),
+            (257, dict(lb="least-loaded", lb_stale_us=2.0, far_fraction=0.5,
+                       link_rate_mpps=10_000.0, **link), 1_000, False)):
+        fleet = FleetConfig(n_hosts=hosts, **kw)
+        pts = fleet_points(hosts, (0.0, 20.0, 80.0), True, one_queue)
+        label = (f"{hosts} host{'s' if hosts > 1 else ''}, {fleet.lb}"
+                 f"{', link' if fleet.link_rate_mpps else ''}, "
+                 f"{'one queue' if one_queue else 'm x n_queues 1-4'}")
+        cfg = SimRunConfig(duration_us=0.5 * steps, sleep_model=tail, queue_capacity=64,
+                           **noisy)
+        # up to 4 hosts the run stops far inside its budget (the early stop)
+        cases.append((f"{label}, {steps} slots of 0.5 us", FleetGrid.of_points(pts, fleet=fleet),
+                      cfg, 0.5, {}, "early" if hosts <= 4 else None))
+        if hosts in (3, 257):   # at 257 hosts with one queue a point: <4, 1> scratch
+            paced = [dict(p, n_queues=1) for p in pts] if hosts == 257 else pts
+            cases.append((f"{label}{', one queue' if hosts == 257 else ''}, 200 slots of 10 us "
+                          "(tail pacing)", FleetGrid.of_points(paced, fleet=fleet),
+                          dataclasses.replace(cfg, duration_us=2_000.0), 10.0, {}, "paced"))
+    # budgets on a stage's edges: every point paced
+    c = fas_kernel.STAGE_STEPS
+    for budget in (4 * c - 1, 4 * c, 4 * c + 1):
+        for hosts in (5, 33):
+            fgrid, cfg, _ = [x for x in fleet_edge_cases()
+                             if x[0].startswith(f"{hosts} hosts, {4 * c + 1} slots, "
+                                                "refresh every 3")][0][1:]
+            cases.append((f"{hosts} hosts ring edge, 150 us, budget {budget}", fgrid,
+                          dataclasses.replace(cfg, duration_us=150.0), 0.5,
+                          {"max_steps": budget}, "paced"))
+    name, fgrid, cfg, _ = [x for x in fleet_settings() if x[0] == "H64/least-loaded"][0]
+    cases.append((f"{name} (benchmarks/fleet.py), 1,000 steps", fgrid, cfg, 0.5,
+                  {"run_steps": 1_000}, None))
+    return cases
+
+
+def phase_compare_fleet_adaptive() -> dict:
+    """S3b against its plain version on the card
+    (``fleet_adaptive_compare_cases``): every output bit-equal, both routes
+    and both builds; the paced cases with forced steps, the early stop more
+    than three stages before its budget's end.  Returns the max abs error
+    and the builds compared."""
+    from repro_torch.kernels.fleet_adaptive_sweep import (
+        fleet_adaptive_sweep,
+        reference_fleet_adaptive_sweep,
+    )
+    from repro_torch.kernels.fleet_adaptive_sweep import kernel as fas_kernel
+    from repro_torch.kernels.fleet_adaptive_sweep.ops import POINT_NAMES, STAT_NAMES
+    from repro_torch.runtime.fleet import fleet_adaptive_inputs
+    t0 = time.perf_counter()
+    log("phase 2: fleet_adaptive_sweep (S3b) vs plain version: 1, 3, 4, 33, 64, 256 and 257 "
+        "hosts over 1,000-2,000 steps of 0.5 us, each balancer, the link, hedge deadlines "
+        "0/20/80, every noise family, schedules, m x n_queues 1-4 and one queue; tail pacing; "
+        "an early stop; budgets on the ring's stage edges; every output bit-equal")
+    fleet_adaptive_sweep.launches = 0
+    fleet_adaptive_sweep.launches_by_build = {}
+    names = (*STAT_NAMES, *POINT_NAMES)
+    cases = fleet_adaptive_compare_cases()
+    max_abs, failed = 0.0, []
+    for name, fgrid, cfg, slot_us, replace, must in cases:
+        args, params, fparams = fleet_adaptive_inputs(fgrid, cfg, slot_us, "cuda")
+        params = dataclasses.replace(params, **replace)
+        before = dict(fleet_adaptive_sweep.launches_by_build)
+        out = fleet_adaptive_sweep(*args, params=params, fleet=fparams)
+        (build,) = [b for b, n in fleet_adaptive_sweep.launches_by_build.items()
+                    if n != before.get(b, 0)]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ref = reference_fleet_adaptive_sweep(*args, params, fparams)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t1
+        exact = [k for k in names if torch.equal(out[k], ref[k])]
+        finite = all(bool(torch.isfinite(out[k]).all()) for k in names)
+        abs_err = max(float((out[k].double() - ref[k].double()).abs().max()) for k in names)
+        steps = ref["n_steps"].cpu()
+        forced = float(ref["forced_steps"].sum())
+        shows = {"paced": forced > 0,
+                 "early": float(steps.max()) < params.max_steps - 3 * fas_kernel.STAGE_STEPS,
+                 None: True}[must]
+        ok = len(exact) == len(names) and finite and float(out["wakeups"].sum()) > 0 and shows
+        log(f"  {name}: {len(fgrid)} points x {fparams.n_hosts} hosts, build <{build[0]}, "
+            f"{build[1]}> {build[2]}, budget {params.max_steps}{', run ' + str(params.steps) if params.run_steps else ''}: "
+            f"live steps {int(steps.min())}-{int(steps.max())}, forced {forced:.0f}; "
+            f"max_abs_err={abs_err:.3e}; bit-equal: {len(exact)} of {len(names)} outputs"
+            f"{'' if len(exact) == len(names) else ' ' + str(sorted(set(names) - set(exact)))}"
+            f"; hedge_dup {float(out['hedge_dup'].sum()):.1f}, topo_area "
+            f"{float(out['topo_area'].sum()):.1f}; plain {plain_s:.2f} s {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(name)
+        max_abs = max(max_abs, abs_err)
+    builds = set(fleet_adaptive_sweep.launches_by_build)
+    want = {(4, q, r) for q in (1, 4) for r in ("ring", "scratch")}
+    if fleet_adaptive_sweep.launches != len(cases) or builds != want:
+        fail(f"fleet_adaptive_sweep counted {fleet_adaptive_sweep.launches} launches "
+             f"({fleet_adaptive_sweep.launches_by_build}) for {len(cases)} calls; want the four "
+             f"builds {sorted(want)}")
+    if failed:
+        fail(f"fleet_adaptive_sweep disagrees with its plain version ({'; '.join(failed)})")
+    log(f"  phase 2 (fleet_adaptive_sweep) took {time.perf_counter() - t0:.1f} s")
+    return {"max_abs_err": max_abs, "builds": builds}
+
+
+def fleet_adaptive_bound(args, params, fparams, out) -> dict:
+    """Least time for an S3b sweep's work on the card, counted from the code
+    (csrc/fleet_adaptive_sweep.cu) for this run's points, hosts and live
+    steps: each (point, host) as a point of S2's count (``adaptive_bound``:
+    its draws, its jump bounds and its macro-slot, over its point's live
+    steps), plus the cross-host stages a host-step as ``fleet_bound`` counts
+    them: the jump's two minima (2 float32 operations and their tree, 2);
+    the hosts' queue rates (2); least-loaded's softmax at each refresh (the
+    lattice's points the run crosses); topology, the link (its division on
+    the special-function unit) and hedging as ``fleet_bound``'s.  Bytes:
+    each input read once (8 words a point, its schedule rows, H shares), each
+    output written once (14 words a host, 3 a point)."""
+    n_pts, n_h = out["offered"].shape
+    rows = {"n_steps": out["n_steps"].repeat_interleave(n_h),
+            "ts_arms": out["ts_arms"].flatten(), "busy_tries": out["busy_tries"].flatten(),
+            "win": torch.empty(0)}
+    m = args[2].repeat_interleave(n_h)
+    q = args[3].repeat_interleave(n_h)
+    s2 = adaptive_bound([None, None, m, q, None, None, None, None, None], params, rows)
+    ops = {k: s2["per_point_step"][k] * s2["point_steps"] for k in ("f32", "int32", "cvt", "sfu")}
+    steps = out["n_steps"].double().cpu().numpy()
+    host_steps = float(steps.sum()) * n_h
+    hedged_steps = float(steps[(args[7] > 0).cpu().numpy()].sum()) * n_h
+    f32 = host_steps * (2 + 2 + 2)
+    sfu = 0.0
+    if fparams.lb_code == 2:
+        stale = fparams.stale_every_slots * params.slot_us
+        refreshes = float(np.ceil(out["sim_time"].double().cpu().numpy() / stale).sum()) * n_h
+        f32 += refreshes * (4 + 1 + 4 + 1 + 2 + float(q.double().mean()))
+        sfu += refreshes * 2
+    if fparams.topo_on or hedged_steps:
+        f32 += host_steps * 2
+    if fparams.topo_on:
+        f32 += host_steps * 2
+        if fparams.link_on:
+            f32 += float(steps.sum()) * 7
+            sfu += float(steps.sum())
+    f32 += hedged_steps * (6 + 5 + 4 + 2) + hedged_steps / n_h * 8 * float(
+        args[3].double().mean()) * 2
+    sfu += hedged_steps * 3
+    ops["f32"] += f32
+    ops["sfu"] += sfu
+    nbytes = 4.0 * (8 * n_pts + 14 * n_pts * n_h + 3 * n_pts + n_h)
+    if args[8] is not None:
+        nbytes += 4.0 * (args[8].numel() + args[9].numel())
+    times = {"f32": ops["f32"] / PEAK_F32_OPS * 1e3,
+             "int32": ops["int32"] / PEAK_INT32_OPS * 1e3,
+             "cvt": ops["cvt"] / PEAK_SFU_OPS * 1e3,
+             "sfu": ops["sfu"] / PEAK_SFU_OPS * 1e3,
+             "bytes": nbytes / PEAK_BYTES_PER_S * 1e3}
+    worst = max(times, key=times.get)
+    per = {k: v / host_steps for k, v in (*ops.items(), ("bytes", nbytes))}
+    return {"bound_ms": times[worst], "bound_by": "bytes" if worst == "bytes" else "operations",
+            "bound_resource": worst, "bound_times_ms": times, "host_steps": host_steps,
+            "per_host_step": per}
+
+
+def phase_time_fleet_adaptive(compared: set, s3_rows: list[dict]) -> list[dict]:
+    """S3b at benchmarks/fleet.py's ten shapes, uncut (``fleet_settings``):
+    the median of 3 CUDA-event timings after 1 warm-up, each behind the
+    device-side spin; live steps (the longest point's, which set the block's
+    chain, and the mean) against S3a's slots and S3a's time on the same
+    shape (phase 3 of S3, this call); us a step of the longest point;
+    host-steps/s; the bound (``fleet_adaptive_bound``); the kernel against
+    its plain version over the first ``FLEET_ADAPTIVE_PLAIN_STEPS`` steps,
+    every output bit-equal, the plain version's time from that one call.
+    There is no PyTorch call that computes a sweep.  Returns the rows, each
+    with its outputs for the main path's cross-check."""
+    from repro_torch.kernels.fleet_adaptive_sweep import (
+        fleet_adaptive_sweep,
+        reference_fleet_adaptive_sweep,
+    )
+    from repro_torch.kernels.fleet_adaptive_sweep.ops import POINT_NAMES, STAT_NAMES
+    from repro_torch.runtime.fleet import fleet_adaptive_inputs
+    t0 = time.perf_counter()
+    log("phase 3: fleet_adaptive_sweep (S3b) at benchmarks/fleet.py's shapes, uncut: kernel "
+        "median of 3 CUDA-event timings after 1 warm-up; S3a on the same shape (its phase 3, "
+        f"this call); the kernel bit-equal to its plain version over the first "
+        f"{FLEET_ADAPTIVE_PLAIN_STEPS} steps, the plain version timed there; bound from the "
+        "code's operations (fleet_adaptive_bound)")
+    s3 = {r["name"]: r for r in s3_rows}
+    names = (*STAT_NAMES, *POINT_NAMES)
+    rows = []
+    for name, fgrid, cfg, slot_us in fleet_settings():
+        args, params, fparams = fleet_adaptive_inputs(fgrid, cfg, slot_us, "cuda")
+        fleet_adaptive_sweep.launches = 0
+        fleet_adaptive_sweep.launches_by_build = {}
+        ms, out = time_ms(fleet_adaptive_sweep, *args, iters=3, warmup=1, return_out=True,
+                          params=params, fleet=fparams)
+        cut = dataclasses.replace(params, run_steps=FLEET_ADAPTIVE_PLAIN_STEPS)
+        kern = fleet_adaptive_sweep(*args, params=cut, fleet=fparams)
+        if fleet_adaptive_sweep.launches != 5:
+            fail(f"{name}: fleet_adaptive_sweep counted {fleet_adaptive_sweep.launches} "
+                 "launches for 5 calls")
+        (build,) = fleet_adaptive_sweep.launches_by_build
+        check_builds_compared(name, compared, fleet_adaptive_sweep)
+        plain_ms, plain = time_ms(reference_fleet_adaptive_sweep, *args, cut, fparams, iters=1,
+                                  warmup=0, return_out=True)
+        differ = [k for k in names if not torch.equal(kern[k], plain[k])]
+        if differ or float(kern["wakeups"].sum()) <= 0:
+            fail(f"{name}: fleet_adaptive_sweep differs from its plain version over "
+                 f"{FLEET_ADAPTIVE_PLAIN_STEPS} steps on {differ}")
+        b = fleet_adaptive_bound(args, params, fparams, out)
+        steps = out["n_steps"].double().cpu().numpy()
+        longest, forced = float(steps.max()), float(out["forced_steps"].sum())
+        rate = b["host_steps"] / (ms / 1e3)
+        a = s3[name]
+        slots = params.duration_us / slot_us
+        rows.append({
+            "name": name, "ms": ms, "plain_ms": plain_ms,
+            "plain_steps": FLEET_ADAPTIVE_PLAIN_STEPS, "library_ms": None, "launches": 1,
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+            "bound_resource": b["bound_resource"], "host_steps_per_s": rate,
+            "us_per_step": 1e3 * ms / longest, "steps_max": longest,
+            "steps_mean": float(steps.mean()), "budget": params.max_steps,
+            "forced_steps": forced, "s3a_ms": a["ms"], "s3a_slots": slots,
+            "build": f"<{build[0]}, {build[1]}> {build[2]}",
+            "shape": f"{len(fgrid)} points x {fparams.n_hosts} hosts, budget {params.max_steps} "
+                     f"steps over {params.duration_us:g} us (S3a: {slots:.0f} slots of {slot_us} "
+                     f"us), lb {fgrid.fleet.lb}, hedge {list(FLEET_HEDGES)}, stalls; plain_ms "
+                     f"over the first {FLEET_ADAPTIVE_PLAIN_STEPS} steps",
+            "out": out})
+        log(f"  {name}: {len(fgrid)} points x {fparams.n_hosts} hosts, build <{build[0]}, "
+            f"{build[1]}> {build[2]}: kernel {ms:.3f} ms (S3a {a['ms']:.3f} ms; S3b / S3a "
+            f"{ms / a['ms']:.3f}); live steps {longest:.0f} longest, {steps.mean():.0f} "
+            f"mean, of a {params.max_steps}-step budget (S3a {slots:.0f} slots), forced "
+            f"{forced:.0f}; {1e3 * ms / longest:.4f} us a step of the longest point; "
+            f"{rate:.4e} host-steps/s; bit-equal to the plain version over "
+            f"{FLEET_ADAPTIVE_PLAIN_STEPS} steps; plain {plain_ms:.1f} ms measured for "
+            f"{FLEET_ADAPTIVE_PLAIN_STEPS} steps; library none; bound "
+            f"{b['bound_ms'] * 1e3:.2f} us ({b['bound_resource']}; "
+            + ", ".join(f"{k} {v * 1e3:.2f} us" for k, v in b["bound_times_ms"].items())
+            + f"), {100 * b['bound_ms'] / ms:.4f}% of it; per host-step " + ", ".join(
+                f"{k} {v:.3g}" for k, v in b["per_host_step"].items()))
+    log(f"  phase 3 (fleet_adaptive_sweep) took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def _stepping_band(fs_f, fs_a) -> list[str]:
+    """tests/test_stepping.py::test_fleet_adaptive_parity_and_steps's bands
+    (:188-202) of S3b against S3a, point by point: the failures."""
+    bad = []
+    for i in range(len(fs_f)):
+        lat_f, lat_a = float(fs_f.mean_latency_us[i]), float(fs_a.mean_latency_us[i])
+        cores_f, cores_a = float(fs_f.total_cpu_cores[i]), float(fs_a.total_cpu_cores[i])
+        loss_f, loss_a = float(fs_f.loss_fraction[i]), float(fs_a.loss_fraction[i])
+        if abs(lat_a - lat_f) > max(1.5, 0.12 * lat_f):
+            bad.append(f"point {i} latency {lat_a:.3f} vs {lat_f:.3f}")
+        if abs(cores_a - cores_f) > 4 * 0.02 + 0.05 * cores_f:
+            bad.append(f"point {i} cores {cores_a:.4f} vs {cores_f:.4f}")
+        if abs(loss_a - loss_f) > 0.03:
+            bad.append(f"point {i} loss {loss_a:.4f} vs {loss_f:.4f}")
+    return bad
+
+
+def phase_fleet_adaptive_main(compared: set, timed: list[dict], s3_main: dict) -> dict:
+    """S3b's main path, in two parts, with every launch counter set to 0
+    just before each and read just after.  (1) benchmarks/fleet.py's
+    ``fleet_bench`` (full mode) through ``simulate_fleet(stepping=
+    "adaptive")``: one call a size x balancer over the hedge ladder and the
+    scale row, exactly one fleet_adaptive_sweep launch a call and no other
+    kernel; each result equal to phase 3's launch of its shape bit for bit,
+    the exact identities at every (point, host), each point's cores, mean
+    latency and p99.9 beside S3a's (its main path, this call), and the
+    verdict at 64 hosts.  (2) tests/test_stepping.py's fleet parity grid at
+    its full 30 ms (4 hosts, least-loaded at 50 us stale, rho 0.2 and 0.6)
+    against S3a: the reference's bands, n_steps <= 0.5 x S3a's, the
+    simulated time float32(30 ms); where seed 0 leaves a band, the bands on
+    the means of 8 seeds."""
+    from repro_torch.kernels import (
+        adaptive_sweep,
+        decode_attention,
+        flash_attention,
+        fleet_adaptive_sweep,
+        fleet_sweep,
+        slot_sweep,
+        ssd_scan,
+    )
+    from repro_torch.runtime import (
+        FleetConfig,
+        FleetGrid,
+        HR_SLEEP_MODEL,
+        SimRunConfig,
+        hedged_latency_quantile,
+        simulate_fleet,
+    )
+    t0 = time.perf_counter()
+    log("main path (S3b): benchmarks/fleet.py's fleet_bench, full mode, through "
+        "repro_torch.runtime.simulate_fleet(stepping=\"adaptive\")")
+    settings = fleet_settings()
+    tail_prob = min(FLEET_STALLS["stall_rate_per_us"] * FLEET_STALLS["stall_mean_us"], 0.5)
+    counters = (flash_attention, decode_attention, ssd_scan, slot_sweep, adaptive_sweep,
+                fleet_sweep, fleet_adaptive_sweep)
+    for k in counters:
+        k.launches = 0
+    fleet_adaptive_sweep.launches_by_build = {}
+    results = []
+    t1 = time.perf_counter()
+    for name, fgrid, cfg, slot_us in settings:
+        t2 = time.perf_counter()
+        fs = simulate_fleet(fgrid, cfg, slot_us=slot_us, stepping="adaptive")
+        results.append((name, fs, time.perf_counter() - t2))
+    host_s = time.perf_counter() - t1
+    launches = {k.__name__: k.launches for k in counters}
+    want = {k.__name__: 0 for k in counters} | {"fleet_adaptive_sweep": len(settings)}
+    if launches != want:
+        fail(f"fleet_bench (adaptive) launched {launches}; want one fleet_adaptive_sweep launch "
+             f"for each of its {len(settings)} simulate_fleet calls")
+    check_builds_compared("the fleet's adaptive main path", compared, fleet_adaptive_sweep)
+    verdicts = []
+    busy_mean = s3_main["busy_mean"]
+    for (name, fs, wall), row in zip(results, timed, strict=True):
+        check_fleet_identities(name, fs, fs.cfg.energy_model)
+        if fs.backend != "fleet_adaptive_sweep" or fs.scan_len != row["budget"] or not all(
+                np.array_equal(getattr(fs, k), row["out"][k].double().cpu().numpy())
+                for k in ("serviced", "lat_area", "awake_us", "hedge_dup", "energy_uj",
+                          "n_steps")):
+            fail(f"{name}: simulate_fleet ({fs.backend}) differs from phase 3's launch")
+        if not np.all(fs.sim_time_us == np.float64(np.float32(fs.cfg.duration_us))):
+            fail(f"{name}: simulated time {fs.sim_time_us} is not the duration")
+        if name.startswith("scale"):
+            log(f"    {name}: {wall:.3f} s host clock, live steps {fs.n_steps.max():.0f} of a "
+                f"{fs.scan_len}-step budget")
+            continue
+        n_h = fs.n_hosts
+        busy_p999 = hedged_latency_quantile(0.999, np.full(n_h, busy_mean),
+                                            hedge_deadline_us=0.0, tail_prob=tail_prob,
+                                            tail_scale_us=FLEET_STALLS["stall_mean_us"])
+        for p_a, p_f in zip(fleet_point_rows(fs), s3_main["points"][name], strict=True):
+            log(f"    fleet/{name}/D{p_a['hedge_us']:g}: S3b cores {p_a['cores']:.3f}, mean "
+                f"{p_a['mean_us']:.2f} us, p999 {p_a['p999_us']:.1f} us, loss {p_a['loss']:.4f} | "
+                f"S3a cores {p_f['cores']:.3f}, mean {p_f['mean_us']:.2f} us, p999 "
+                f"{p_f['p999_us']:.1f} us, loss {p_f['loss']:.4f}")
+            if "/uniform" in name and p_a["hedge_us"] > 0.0:
+                verdicts.append((n_h, p_a["hedge_us"], p_a["cores"], p_a["p999_us"], busy_p999))
+    hosts = FLEET_SIZES[-1]
+    _, best_d, best_cpu, best_p999, busy_p999 = min(
+        (v for v in verdicts if v[0] == hosts), key=lambda v: v[3])
+    ok = bool(best_cpu < hosts and best_p999 <= busy_p999)
+    v3 = s3_main["verdict"]
+    log(f"  {len(settings)} simulate_fleet(stepping=\"adaptive\") calls in {host_s:.2f} s host "
+        f"clock; launches {launches}, builds {fleet_adaptive_sweep.launches_by_build}")
+    log(f"  verdict at {hosts} hosts (S3b): best hedged uniform point D={best_d:g} us burns "
+        f"{best_cpu:.2f} cores (busy-poll {hosts}) at p99.9 {best_p999:.1f} us (busy-poll "
+        f"{busy_p999:.1f} us): {'ok' if ok else 'FAIL'}; S3a's: D={v3['hedge_deadline_us']:g} "
+        f"us, {v3['cpu_cores']:.2f} cores, p99.9 {v3['p999_us']:.1f} us")
+    if not ok:
+        fail("the hedged Metronome fleet (S3b) does not beat the busy-poll fleet on cores and "
+             "p99.9")
+
+    # (2) the reference's parity grid, S3b against S3a
+    for k in counters:
+        k.launches = 0
+
+    def grid(seed):
+        return FleetGrid.product(
+            fleet=FleetConfig(n_hosts=4, lb="least-loaded", lb_stale_us=50.0),
+            t_s_us=(30.0,), t_l_us=(400.0,), rate_mpps=(0.2 * MU_MPPS * 4, 0.6 * MU_MPPS * 4),
+            m=(3,), n_queues=(2,), seeds=(seed,))
+
+    cfg = SimRunConfig(duration_us=STEPPING_FLEET_US, sleep_model=HR_SLEEP_MODEL)
+    f = simulate_fleet(grid(0), cfg, slot_us=0.5, shard=False)
+    a = simulate_fleet(grid(0), cfg, slot_us=0.5, shard=False, stepping="adaptive")
+    if (fleet_adaptive_sweep.launches, fleet_sweep.launches) != (1, 1):
+        fail(f"the parity grid launched S3b {fleet_adaptive_sweep.launches} and S3a "
+             f"{fleet_sweep.launches} times; want once each")
+    check_fleet_identities("the parity grid (S3b)", a, cfg.energy_model)
+    exact = {"sim_time": bool(np.all(a.sim_time_us == np.float64(np.float32(cfg.duration_us)))),
+             "n_steps <= 0.5 x S3a's": bool(np.all(a.n_steps <= 0.5 * f.n_steps)),
+             "scan_len < S3a's": a.scan_len < f.scan_len}
+    bad = _stepping_band(f, a)
+    for i in range(len(a)):
+        log(f"    parity grid rho {0.2 if i == 0 else 0.6}: S3b mean {a.mean_latency_us[i]:.3f} "
+            f"us, cores {a.total_cpu_cores[i]:.4f}, loss {a.loss_fraction[i]:.4f}, "
+            f"{a.n_steps[i]:.0f} live steps of a {a.scan_len}-step budget | S3a mean "
+            f"{f.mean_latency_us[i]:.3f} us, cores {f.total_cpu_cores[i]:.4f}, loss "
+            f"{f.loss_fraction[i]:.4f}, {f.n_steps[i]:.0f} slots")
+    eight = None
+    if bad:
+        log(f"  seed 0 leaves a band ({bad}): the bands on the means of {BAND_SEEDS} seeds")
+
+        class Means:
+            def __init__(self, runs):
+                self.runs = runs
+
+            def __len__(self):
+                return len(self.runs[0])
+
+            def __getattr__(self, k):
+                return np.mean([getattr(r, k) for r in self.runs], axis=0)
+
+        fs_f = [simulate_fleet(grid(s), cfg, slot_us=0.5) for s in range(BAND_SEEDS)]
+        fs_a = [simulate_fleet(grid(s), cfg, slot_us=0.5, stepping="adaptive")
+                for s in range(BAND_SEEDS)]
+        bad = _stepping_band(Means(fs_f), Means(fs_a))
+        eight = {"bands": "8-seed means", "failures": bad}
+        log(f"  {BAND_SEEDS}-seed means: {'ok' if not bad else 'FAIL ' + str(bad)}")
+    log(f"  parity grid (S3b vs S3a, 30 ms): bands {'ok' if not bad else 'FAIL ' + str(bad)}; "
+        f"{exact}; S3b {a.n_steps.tolist()} live steps vs S3a {f.n_steps.tolist()} slots")
+    if bad or not all(exact.values()):
+        fail("S3b leaves the reference's parity bands against S3a on its parity grid")
+    log(f"  main path (S3b) took {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches["fleet_adaptive_sweep"], "host_s": host_s,
+            "verdict": {"n_hosts": hosts, "hedge_deadline_us": best_d, "cpu_cores": best_cpu,
+                        "p999_us": best_p999, "busy_poll_p999_us": busy_p999},
+            "parity_grid": {"s3b_steps": a.n_steps.tolist(), "s3a_slots": f.n_steps.tolist(),
+                            "eight_seeds": eight}}
 
 
 def profile(name: str, fn, *args, kernel: tuple[str, str] = ("flash_attention", "flash_fwd"),
@@ -3048,6 +3560,9 @@ def main() -> int:
     s3_rows = phase_time_fleet(s3_cmp["builds"], sweep_cmp["builds"])
     phase_fleet_band(s3_cmp["builds"])
     fleet_main = phase_fleet_main(s3_cmp["builds"], s3_rows)
+    s3b_cmp = phase_compare_fleet_adaptive()
+    s3b_rows = phase_time_fleet_adaptive(s3b_cmp["builds"], s3_rows)
+    s3b_main = phase_fleet_adaptive_main(s3b_cmp["builds"], s3b_rows, fleet_main)
     # K1 has one kernel per type: bf16 ("wgmma", the serving path; its
     # numbers at the largest prefill bucket, every row beside them) and f32
     # ("simt", on no model path: launches are its timing phase's, the
@@ -3136,6 +3651,22 @@ def main() -> int:
         "shape": f"{row['name']}: {row['shape']}", **{k: row[k] for k in extra},
         "verdict": fleet_main["verdict"],
         "rows": [{k: r[k] for k in ("name", "shape", *keys, *extra)} for r in s3_rows
+                 if r is not row]})
+    # S3b, the fleet sweep by event jumps: launches are its main path's
+    # (fleet_bench through simulate_fleet(stepping="adaptive")); its numbers
+    # at the verdict's shape (64 hosts, uniform), the other rows in "rows",
+    # S3a's time on each shape beside
+    row = next(r for r in s3b_rows if r["name"] == f"H{FLEET_SIZES[-1]}/uniform")
+    extra = ("build", "bound_resource", "host_steps_per_s", "us_per_step", "steps_max",
+             "steps_mean", "budget", "forced_steps", "plain_steps", "s3a_ms", "s3a_slots")
+    kernels.append({
+        "name": "fleet_adaptive_sweep", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fleet_adaptive_sweep.cu",
+        "replaces": "src/repro/runtime/fleet.py:497", "launches": s3b_main["launches"],
+        "max_abs_err": s3b_cmp["max_abs_err"], **{k: row[k] for k in keys},
+        "shape": f"{row['name']}: {row['shape']}", **{k: row[k] for k in extra},
+        "verdict": s3b_main["verdict"], "parity_grid": s3b_main["parity_grid"],
+        "rows": [{k: r[k] for k in ("name", "shape", *keys, *extra)} for r in s3b_rows
                  if r is not row]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

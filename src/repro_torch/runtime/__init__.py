@@ -10,7 +10,8 @@ or, with ``stepping="adaptive"``, ``repro_torch.kernels.adaptive_sweep``
 ``build_operating_table`` distils such a sweep into an ``OperatingTable``
 (``calibrate``).  ``simulate_fleet`` runs a ``FleetGrid`` (hosts behind a
 load balancer, with topology and hedging) in one launch of
-``repro_torch.kernels.fleet_sweep`` (``fleet``).  ``MatmulAppLoad`` is a
+``repro_torch.kernels.fleet_sweep`` or, with ``stepping="adaptive"``,
+``repro_torch.kernels.fleet_adaptive_sweep`` (``fleet``).  ``MatmulAppLoad`` is a
 ``torch.matmul`` tenant.
 """
 

@@ -13,46 +13,57 @@ hedged requests duplicated onto the least-loaded other host (counted in
 ``hedge_dup``, not in ``offered``).  ``FleetStats`` rolls the hosts up
 through ``RunStats`` and scores tails with ``hedged_latency_quantile``.
 
-The whole (point x host) sweep runs in ONE launch of the hand-written CUDA
-kernel ``repro_torch.kernels.fleet_sweep`` (one block a point, its hosts
-across the block's threads, the cross-host stages as block reductions), or
-in its plain PyTorch version with ``device="cpu"``.
+The whole (point x host) sweep runs in ONE launch of a hand-written CUDA
+kernel (one block a point, its hosts across the block's threads, the
+cross-host stages as block reductions): ``repro_torch.kernels.fleet_sweep``
+for ``stepping="fixed"``, ``repro_torch.kernels.fleet_adaptive_sweep`` for
+``stepping="adaptive"`` (the hosts advance in lock-step by one shared event
+jump a point); or in the kernel's plain PyTorch version with
+``device="cpu"``.
 
 What differs from the reference:
 
   - the noise comes from the fixed-slot sweep's Philox contract
-    (``repro_torch.kernels.slot_sweep.philox``); the per-host rule is the
-    reference's: host ``h`` of a point seeded ``s`` keys as seed ``s + h``
-    (low word ``(lo + h) mod 2**32``), so under uniform round-robin with
-    topology and hedging off host ``h`` IS the port's single-host
-    ``simulate_batch`` at ``rate/H`` seeded ``s + h``, bit for bit;
+    (``repro_torch.kernels.slot_sweep.philox``), and with
+    ``stepping="adaptive"`` from the event-jump sweep's
+    (``repro_torch.kernels.adaptive_sweep.philox``); the per-host rule is
+    the reference's: host ``h`` of a point seeded ``s`` keys as seed
+    ``s + h`` (low word ``(lo + h) mod 2**32``), so under uniform
+    round-robin with topology and hedging off host ``h`` IS the port's
+    single-host ``simulate_batch`` at ``rate/H`` seeded ``s + h``, bit for
+    bit (with ``stepping="adaptive"``, for one host, where ``1/n_queues``
+    is exact: the hosts of a larger fleet share its jumps);
   - sums over a point's hosts run in the kernel's one stated order
     (``kernels/fleet_sweep/ops.py``), not XLA's;
   - ``device`` picks where the sweep runs: CUDA (the default) launches the
     kernel or raises, ``"cpu"`` runs its plain version;
   - one device runs the whole sweep: ``shard`` is accepted and means what
     it means in the reference with one device visible (no split), and
-    ``FleetStats.backend`` names what ran (``"fleet_sweep"``, the kernel,
-    or ``"plain"``);
-  - ``stepping="adaptive"`` (the event-jump fleet sweep) is not ported yet
-    and raises ``NotImplementedError``;
+    ``FleetStats.backend`` names what ran (``"fleet_sweep"`` or
+    ``"fleet_adaptive_sweep"``, the kernel, or ``"plain"``);
   - nothing is compiled per shape, so the reference's ``CompileCache`` has
-    no counterpart: the kernel is built once, at first use, and the slot
-    loop stops at the run's duration, so ``bucket_steps`` only bounds it.
+    no counterpart: each kernel is built once, at first use, and the slot
+    loop stops at the run's duration, so ``bucket_steps`` only bounds it;
+    the event-jump kernel stops a point's block at the step where it
+    reaches the duration, while the step budget stays the reference's
+    (``fleet_adaptive_inputs``): its last eighth paces the remaining time.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..kernels.fleet_adaptive_sweep import fleet_adaptive_sweep
 from ..kernels.fleet_sweep import FleetParams, fleet_sweep
 from ..kernels.fleet_sweep.ops import STAT_NAMES
-from .batched import SweepGrid, sweep_inputs, validate_batched_config
+from .batched import SweepGrid, bucket_steps, sweep_inputs, validate_batched_config
+from .batched_adaptive import adaptive_sweep_inputs, estimate_adaptive_steps
 from .simcore import FleetConfig, SimRunConfig
 from .stats import Reservoir, RunStats, hedged_latency_quantile
 
@@ -341,6 +352,36 @@ def fleet_inputs(fgrid: FleetGrid, cfg: SimRunConfig, slot_us: float,
     return (*args[:7], hedge, *args[7:]), params, fparams
 
 
+def fleet_adaptive_budget(fgrid: FleetGrid, cfg: SimRunConfig, slot_us: float) -> int:
+    """The event-jump fleet sweep's step budget, the reference's word for
+    word (``src/repro/runtime/fleet.py:1033-1039``): the host estimate of
+    ``estimate_adaptive_steps``, under least-loaded plus the refresh
+    lattice's points, times the hosts, plus 64, clamped at the fixed
+    stepping's slot count and rounded up by ``bucket_steps``."""
+    fleet = fgrid.fleet
+    stale_every_slots = max(int(round(fleet.lb_stale_us / slot_us)), 1)
+    n_slots_true = max(int(math.ceil(cfg.duration_us / slot_us)), 1)
+    est = estimate_adaptive_steps(fgrid.grid, cfg, slot_us, 0)
+    if fleet.lb == "least-loaded":
+        est += int(math.ceil(
+            cfg.duration_us / (stale_every_slots * slot_us)))
+    return bucket_steps(min(fleet.n_hosts * est + 64, n_slots_true))
+
+
+def fleet_adaptive_inputs(fgrid: FleetGrid, cfg: SimRunConfig, slot_us: float,
+                          device) -> tuple[tuple, object, FleetParams]:
+    """The arguments of ``fleet_adaptive_sweep`` for ``fgrid`` in ``cfg`` on
+    ``device``: the per-point columns of ``fleet_inputs``, the event-jump
+    sweep's ``AdaptiveParams`` (no windows) with the fleet's step budget
+    (``fleet_adaptive_budget``) as ``max_steps``, and the fleet's
+    ``FleetParams``."""
+    args, _, fparams = fleet_inputs(fgrid, cfg, slot_us, device)
+    _, params = adaptive_sweep_inputs(fgrid.grid, cfg, slot_us, "cpu")
+    params = dataclasses.replace(params, n_windows=0, window_us=0.0,
+                                 max_steps=fleet_adaptive_budget(fgrid, cfg, slot_us))
+    return args, params, fparams
+
+
 def simulate_fleet(fgrid: FleetGrid, cfg: SimRunConfig | None = None, *,
                    slot_us: float = 0.5, shard: bool | None = None,
                    stepping: str = "fixed", device="cuda") -> FleetStats:
@@ -353,7 +394,11 @@ def simulate_fleet(fgrid: FleetGrid, cfg: SimRunConfig | None = None, *,
     deadlines come from ``fgrid``.  ``shard`` is accepted for the
     reference's signature: the port runs the sweep on ``device`` alone, as
     the reference does with one device visible.  ``stepping="adaptive"``
-    (the event-jump fleet sweep) is not ported yet and raises.
+    runs the fleet sweep by event jumps (``fleet_adaptive_sweep``): the
+    hosts of a point advance in lock-step by one shared ``dt``, the nearest
+    boundary over the whole fleet (every host's wake, drain-out, fill and
+    stall start, the schedule's segment end, the balancer's refresh
+    lattice), within the reference's step budget.
 
     ``device`` (default ``"cuda"``) is where the sweep runs: a CUDA device
     launches the kernel (or raises), ``"cpu"`` runs its plain version.
@@ -361,14 +406,20 @@ def simulate_fleet(fgrid: FleetGrid, cfg: SimRunConfig | None = None, *,
     if stepping not in ("fixed", "adaptive"):
         raise ValueError(
             f"stepping must be 'fixed' or 'adaptive', got {stepping!r}")
-    if stepping == "adaptive":
-        raise NotImplementedError(
-            "simulate_fleet(stepping='adaptive'), the fleet sweep by event jumps "
-            "(S3b), is not ported yet; use stepping='fixed'")
     cfg = cfg or SimRunConfig()
     validate_batched_config(cfg)
     device = resolve_device(device)
     n_pts = len(fgrid)
+    if stepping == "adaptive":
+        args, params, fparams = fleet_adaptive_inputs(fgrid, cfg, float(slot_us), device)
+        out = fleet_adaptive_sweep(*args, params=params, fleet=fparams)
+        return FleetStats(
+            fgrid=fgrid, cfg=cfg, slot_us=float(slot_us),
+            backend="fleet_adaptive_sweep" if device.type == "cuda" else "plain",
+            stepping=stepping, scan_len=params.max_steps,
+            **{k: out[k].cpu().numpy().astype(np.float64)
+               for k in (*STAT_NAMES, "n_steps", "forced_steps")},
+            sim_time_us=out["sim_time"].cpu().numpy().astype(np.float64))
     args, params, fparams = fleet_inputs(fgrid, cfg, float(slot_us), device)
     out = fleet_sweep(*args, params=params, fleet=fparams)
     vals = {k: out[k].cpu().numpy().astype(np.float64) for k in STAT_NAMES}

@@ -10,9 +10,9 @@ The exact conservation identity
 
 plus: windowed energy sums (and the event engine's post-duration spill)
 reproduce the totals, merge/merge_all conserve energy, and the engines
-agree within the reference's pinned bands.  The fleet's case runs its fixed
-stepping (the plain version of the ``fleet_sweep`` kernel); its event-jump
-half comes with that sweep.  The plain sweeps run ~10^4 slots (or
+agree within the reference's pinned bands.  The fleet's case runs both its
+steppings (the plain versions of the ``fleet_sweep`` and
+``fleet_adaptive_sweep`` kernels).  The plain sweeps run ~10^4 slots (or
 event-jump steps) a second on the CPU, so sweeps of 20-120 ms run 4-40 ms
 here (each names its cut) with the reference's checks."""
 
@@ -289,8 +289,7 @@ def test_run_stats_merge_and_merge_all_conserve_energy():
 
 
 def test_fleet_energy_per_host_identity_and_cluster_rollup():
-    """The fixed stepping of the reference's test (the event-jump fleet
-    sweep is not ported yet); cut from 20 ms to 4 ms."""
+    """Both steppings, as the reference's test; cut from 20 ms to 4 ms."""
     from repro_torch.runtime.fleet import FleetGrid, simulate_fleet
     from repro_torch.runtime.simcore import FleetConfig
 
@@ -302,7 +301,7 @@ def test_fleet_energy_per_host_identity_and_cluster_rollup():
                            rate_mpps=(0.4 * 29.76 * 3,),
                            m=(2,), n_queues=(1,), seeds=(0,))
     arm_s, arm_l = em.arm_energy_uj(25.0), em.arm_energy_uj(300.0)
-    for st in ("fixed",):
+    for st in STEPPINGS:
         fs = simulate_fleet(fg, cfg, slot_us=0.5, shard=False, stepping=st,
                             device="cpu")
         pred = (em.active_power_w * fs.awake_us

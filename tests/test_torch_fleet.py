@@ -388,10 +388,19 @@ def test_cpu_runs_the_plain_version_and_cuda_never_falls_back():
 
 
 def test_stepping_modes():
+    """``stepping="adaptive"`` runs the fleet sweep by event jumps: on the
+    CPU its plain version (backend ``"plain"``), and with the default device
+    it wants a card and raises without one; an unknown mode raises."""
     fg = _fgrid(FleetConfig(n_hosts=2))
     cfg = SimRunConfig(duration_us=100.0)
-    with pytest.raises(NotImplementedError, match="S3b"):
-        simulate_fleet(fg, cfg, stepping="adaptive", device="cpu")
+    fs = simulate_fleet(fg, cfg, stepping="adaptive", device="cpu")
+    assert fs.stepping == "adaptive" and fs.backend == "plain"
+    assert fs.serviced.shape == (1, 2) and np.all(fs.serviced > 0)
+    np.testing.assert_array_equal(fs.sim_time_us, [100.0])
+    assert 0 < float(fs.n_steps[0]) <= fs.scan_len
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            simulate_fleet(fg, cfg, stepping="adaptive")
     with pytest.raises(ValueError, match="stepping"):
         simulate_fleet(fg, cfg, stepping="magic", device="cpu")
 

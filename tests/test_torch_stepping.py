@@ -3,12 +3,12 @@ batched engine (the plain versions of the ``slot_sweep`` and
 ``adaptive_sweep`` kernels on the CPU): time accounting invariants, the
 event-jump sweep's far fewer steps at low load, the slot-count ladder,
 nearby durations on one rung, and the refusal of an unknown mode, by the
-batched engine and by the fleet engine.  The fleet's event-jump stepping is
-not ported yet, so its parity case is left out, and the reference's
-compile cache has no counterpart (nothing is compiled per shape).  The
-plain sweeps run ~10^4 slots (or event-jump steps) a second on the CPU, so
-sweeps of 20-60 ms run 2-20 ms here (each names its cut) with the
-reference's checks.
+batched engine and by the fleet engine, and the fleet's event-jump
+stepping against its fixed one in the reference's quiet bands.  The
+reference's compile cache has no counterpart (nothing is compiled per
+shape).  The plain sweeps run ~10^4 slots (or event-jump steps) a second on
+the CPU, so sweeps of 20-60 ms run 2-20 ms here (each names its cut) with
+the reference's checks; the fleet's parity case keeps its 30 ms.
 """
 
 import numpy as np
@@ -129,6 +129,40 @@ def test_stepping_rejects_unknown_mode():
     grid, cfg = _mixed_grid(n=1)
     with pytest.raises(ValueError, match="stepping"):
         simulate_batch(grid, cfg, stepping="magic", device="cpu")
+
+
+def test_fleet_adaptive_parity_and_steps():
+    """Fleet event-jump mode: aggregate latency / cores / loss agree
+    with the fixed fleet kernel within the documented quiet bands, with
+    fewer live steps, exact sim time, and the LB stale refresh honored
+    as a jump boundary.  The reference's 30 ms, uncut (the plain versions
+    of both fleet sweeps, ~35 s on one core)."""
+    from repro_torch.runtime.fleet import FleetGrid, simulate_fleet
+    from repro_torch.runtime.simcore import FleetConfig
+
+    cfg = SimRunConfig(duration_us=30_000.0, sleep_model=HR_SLEEP_MODEL)
+    fg = FleetGrid.product(
+        fleet=FleetConfig(n_hosts=4, lb="least-loaded", lb_stale_us=50.0),
+        t_s_us=(30.0,), t_l_us=(400.0,),
+        rate_mpps=(0.2 * 29.76 * 4, 0.6 * 29.76 * 4),
+        m=(3,), n_queues=(2,), seeds=(0,))
+    f = simulate_fleet(fg, cfg, slot_us=0.5, shard=False, device="cpu")
+    a = simulate_fleet(fg, cfg, slot_us=0.5, shard=False,
+                       stepping="adaptive", device="cpu")
+    assert a.stepping == "adaptive" and f.stepping == "fixed"
+    for i in range(len(fg)):
+        lat_f, lat_a = float(f.mean_latency_us[i]), \
+            float(a.mean_latency_us[i])
+        assert abs(lat_a - lat_f) <= max(1.5, 0.12 * lat_f), (lat_a, lat_f)
+        cores_f = float(f.total_cpu_cores[i])
+        assert abs(float(a.total_cpu_cores[i]) - cores_f) \
+            <= 4 * 0.02 + 0.05 * cores_f
+        assert abs(float(a.loss_fraction[i])
+                   - float(f.loss_fraction[i])) <= 0.03
+    assert np.all(a.sim_time_us == np.float64(
+        np.float32(cfg.duration_us)))
+    assert np.all(a.n_steps <= 0.5 * f.n_steps)
+    assert a.scan_len < f.scan_len
 
 
 def test_fleet_stepping_rejects_unknown_mode():
