@@ -110,20 +110,25 @@ routes must not spill; the ring's layout is printed at 4-1000 hosts):
 Then the fleet sweep by event jumps S3b (``fleet_adaptive_sweep``, the
 reference's ``runtime/fleet.py`` ``fleet_step_a``; S3's block layout around
 S2's host body: up to 256 hosts producer warps make every host's draws of
-every step into a ring in shared memory and consumer warps, a host a lane,
+every step into a ring in shared memory and consumer warps, a host a lane
+(below 32 lanes every host in 32 / W lanes, so no result is broadcast),
 run the jumps at one dt a point, the dt's minima, the balancer, link and
 hedge stages as reductions on a named barrier; beyond, the scratch route),
-built in phase 1 (its builds <4, 1> and <4, 4> of both routes must not
-spill; the ring's layout is printed at 1-1000 hosts and must fit 227 KB
-with the block's static shared memory):
+built in phase 1 (its builds <4, 1> and <4, 4> of both routes, the ring
+route's at each of its 9 lane counts, must not spill; the ring's layout is
+printed at 1-1000 hosts and must fit 227 KB with the block's static shared
+memory):
 
 - phase 2: the kernel against its plain version, every output bit-equal, at
   1, 3, 4, 33, 64, 256 and 257 hosts over 1,000-2,000 steps (each
   balancer, the link, hedge deadlines 0, 20 and 80, every noise family,
   schedules, m x n_queues 1-4 and one queue a point), runs that stop more
-  than three stages before their budget's end, slots of 10 us (the budget's
-  tail paces), budgets on the ring's stage edges, and the H=64 least-loaded
-  shape of benchmarks/fleet.py over its first 1,000 steps;
+  than three stages before their budget's end (some point of them on a
+  stage's first step), slots of 10 us (the budget's tail paces), budgets
+  on the ring's stage edges, 33, 48, 63 and 64 hosts (least-loaded
+  refreshing every 2 us under hedging, the link without hedging), 5 and 40
+  hosts at 5% load with every point hedged (equal backlogs), and the H=64
+  least-loaded shape of benchmarks/fleet.py over its first 1,000 steps;
 - phase 3: the kernel timed at benchmarks/fleet.py's ten shapes, uncut,
   beside S3a's time on the same shape: live steps against S3a's slots, us a
   step, host-steps/s, its bound; bit-equal to its plain version over each
@@ -155,6 +160,18 @@ does the same for the event-jump sweep kernel (a parent commit's
 ``csrc/adaptive_sweep.cu``, a variant with its C interface
 ``adaptive_sweep_fwd``) at S2's five phase-3 sweeps, uncut, with each
 source's us a step of the longest point (``phase_adaptive_source_ab``).
+
+    python3 chip_smoke.py --fleet-adaptive-ab SRC [SRC ...]
+
+does the same for the fleet sweep by event jumps (a parent commit's
+``csrc/fleet_adaptive_sweep.cu``, or a variant with its C interface
+``fleet_adaptive_sweep_fwd`` and scratch layout, kept in a directory that
+``.gitignore`` lists, such as ``scratch/``) at phase 3's ten shapes, uncut,
+launched past the wrapper so that no launch counter moves: each row gives
+every source's times, us a step of the longest point, its live and forced
+steps, and whether every output is bit-equal to this checkout's
+(``phase_fleet_adaptive_source_ab``).  Run one source against a copy of
+itself first: that A/A spread is the noise a comparison is read against.
 """
 
 from __future__ import annotations
@@ -379,19 +396,20 @@ def phase_card() -> None:
                      f"kernel.ring_bytes ({ring} bytes, {fleet_kernel.STAGE_SLOTS} slots a "
                      "stage) in at most 227 KB of shared memory")
     # S3b: the (M_MAX, Q_MAX) builds <4, 1> and <4, 4> of each route (up to
-    # 256 hosts the ring of the event-jump sweep's fields, beyond the
-    # scratch), built with -fmad=false; none may spill.  The ring with the
-    # block's static shared memory must fit 227 KB at every host count
+    # 256 hosts the ring of the event-jump sweep's fields, one ring build
+    # for each lane count 2^LW, LW = 0..8; beyond, the scratch), built with
+    # -fmad=false; none may spill.  The ring with the block's static shared
+    # memory must fit 227 KB at every host count
     kernels = ptxas_kernels(_build.BUILD_INFO["fleet_adaptive_sweep.cu"]["log"])
     for name, (regs, spills, smem) in kernels.items():
         log(f"  {name}: {regs} registers, {spills} bytes of spill stores + loads, {smem} "
             "bytes of static shared memory")
-    want = {f"{k}<4, {q}>" for k in ("fleet_adaptive_kernel", "fleet_adaptive_scratch_kernel")
-            for q in (1, 4)}
+    want = ({f"fleet_adaptive_kernel<4, {q}, {lw}>" for q in (1, 4) for lw in range(9)}
+            | {f"fleet_adaptive_scratch_kernel<4, {q}>" for q in (1, 4)})
     if set(kernels) != want or any(spills for _, spills, _ in kernels.values()):
-        fail(f"want the 4 fleet_adaptive_sweep builds (fleet_adaptive_kernel and "
-             f"fleet_adaptive_scratch_kernel, <4, 1> and <4, 4>), none spilling; ptxas gave "
-             f"{kernels}")
+        fail(f"want the 20 fleet_adaptive_sweep builds (fleet_adaptive_kernel <4, 1> and "
+             f"<4, 4> at each of 9 lane counts, fleet_adaptive_scratch_kernel <4, 1> and "
+             f"<4, 4>), none spilling; ptxas gave {kernels}")
     static = max(smem for name, (_, _, smem) in kernels.items()
                  if name.startswith("fleet_adaptive_kernel"))
     for hosts in (1, 4, 16, 33, 64, 256, 257, 1000):
@@ -3044,8 +3062,13 @@ def fleet_adaptive_compare_cases():
     64 (uniform, link), 256 (least-loaded, eight warps) and 257 (the scratch
     route) over 1,000-2,000 steps of 0.5 us (up to 4 hosts the runs stop
     more than three stages before their budget's end); slots of 10 us, whose
-    budget's tail paces; budgets on the ring's stage edges; and
-    benchmarks/fleet.py's H=64 least-loaded shape cut to 1,000 steps."""
+    budget's tail paces; budgets on the ring's stage edges; 33, 48, 63 and 64
+    hosts (two consumer warps, every reduction across the named barrier) over
+    500 steps: least-loaded refreshing every 2 us with every point hedged (a
+    refresh step right after a hedged one), the link without hedging, and at
+    5 and 40 hosts a load of 5% with every point hedged (most steps every
+    backlog equal: b1 and b2 the lowest indices); and benchmarks/fleet.py's
+    H=64 least-loaded shape cut to 1,000 steps."""
     from repro_torch.kernels.fleet_adaptive_sweep import kernel as fas_kernel
     from repro_torch.runtime import FleetConfig, FleetGrid, SimRunConfig, SleepModel
     tail = SleepModel(base_us=2.8, slope=0.027, sigma_us=0.5, tail_prob=0.01,
@@ -3090,6 +3113,26 @@ def fleet_adaptive_compare_cases():
             cases.append((f"{hosts} hosts ring edge, 150 us, budget {budget}", fgrid,
                           dataclasses.replace(cfg, duration_us=150.0), 0.5,
                           {"max_steps": budget}, "paced"))
+    hedged_all = (20.0, 40.0, 80.0)
+    for hosts, kw, hedges, load, label in (
+            (33, dict(lb="least-loaded", lb_stale_us=2.0), hedged_all, 1.0,
+             "least-loaded every 2 us, every point hedged"),
+            (48, dict(far_fraction=0.5, link_rate_mpps=200.0, **link), (0.0,), 1.0,
+             "the link without hedging"),
+            (63, dict(lb="weighted", host_weights=tuple(1.0 + (h % 3) for h in range(63))),
+             (0.0, 20.0, 80.0), 1.0, "weighted"),
+            (64, dict(lb="least-loaded", lb_stale_us=2.0, far_fraction=0.25,
+                      link_rate_mpps=400.0, **link), hedged_all, 1.0,
+             "least-loaded every 2 us, link, every point hedged"),
+            (5, {}, hedged_all, 0.05, "5% load, every point hedged (equal backlogs)"),
+            (40, dict(lb="least-loaded", lb_stale_us=2.0), hedged_all, 0.05,
+             "least-loaded, 5% load, every point hedged (equal backlogs)")):
+        pts = [dict(p, rate_mpps=p["rate_mpps"] * load)
+               for p in fleet_points(hosts, hedges, True, False)]
+        cfg = SimRunConfig(duration_us=250.0, sleep_model=tail, queue_capacity=64, **noisy)
+        cases.append((f"{hosts} hosts, {label}, 500 slots of 0.5 us",
+                      FleetGrid.of_points(pts, fleet=FleetConfig(n_hosts=hosts, **kw)), cfg, 0.5,
+                      {}, None))
     name, fgrid, cfg, _ = [x for x in fleet_settings() if x[0] == "H64/least-loaded"][0]
     cases.append((f"{name} (benchmarks/fleet.py), 1,000 steps", fgrid, cfg, 0.5,
                   {"run_steps": 1_000}, None))
@@ -3113,12 +3156,14 @@ def phase_compare_fleet_adaptive() -> dict:
     log("phase 2: fleet_adaptive_sweep (S3b) vs plain version: 1, 3, 4, 33, 64, 256 and 257 "
         "hosts over 1,000-2,000 steps of 0.5 us, each balancer, the link, hedge deadlines "
         "0/20/80, every noise family, schedules, m x n_queues 1-4 and one queue; tail pacing; "
-        "an early stop; budgets on the ring's stage edges; every output bit-equal")
+        "an early stop; budgets on the ring's stage edges; 33, 48, 63 and 64 hosts; equal "
+        "backlogs; a refresh after a hedged step; the link without hedging; every output "
+        "bit-equal")
     fleet_adaptive_sweep.launches = 0
     fleet_adaptive_sweep.launches_by_build = {}
     names = (*STAT_NAMES, *POINT_NAMES)
     cases = fleet_adaptive_compare_cases()
-    max_abs, failed = 0.0, []
+    max_abs, failed, edge_stops = 0.0, [], 0
     for name, fgrid, cfg, slot_us, replace, must in cases:
         args, params, fparams = fleet_adaptive_inputs(fgrid, cfg, slot_us, "cuda")
         params = dataclasses.replace(params, **replace)
@@ -3139,6 +3184,8 @@ def phase_compare_fleet_adaptive() -> dict:
         shows = {"paced": forced > 0,
                  "early": float(steps.max()) < params.max_steps - 3 * fas_kernel.STAGE_STEPS,
                  None: True}[must]
+        if must == "early":   # points whose block stopped on a stage's first step
+            edge_stops += int((steps.long() % fas_kernel.STAGE_STEPS == 0).sum())
         ok = len(exact) == len(names) and finite and float(out["wakeups"].sum()) > 0 and shows
         log(f"  {name}: {len(fgrid)} points x {fparams.n_hosts} hosts, build <{build[0]}, "
             f"{build[1]}> {build[2]}, budget {params.max_steps}{', run ' + str(params.steps) if params.run_steps else ''}: "
@@ -3158,6 +3205,9 @@ def phase_compare_fleet_adaptive() -> dict:
              f"builds {sorted(want)}")
     if failed:
         fail(f"fleet_adaptive_sweep disagrees with its plain version ({'; '.join(failed)})")
+    log(f"  {edge_stops} points of the early-stop cases stopped on a stage's first step")
+    if edge_stops == 0:
+        fail("no point of the early-stop cases stopped on a stage's first step")
     log(f"  phase 2 (fleet_adaptive_sweep) took {time.perf_counter() - t0:.1f} s")
     return {"max_abs_err": max_abs, "builds": builds}
 
@@ -3297,6 +3347,76 @@ def phase_time_fleet_adaptive(compared: set, s3_rows: list[dict]) -> list[dict]:
             + f"), {100 * b['bound_ms'] / ms:.4f}% of it; per host-step " + ", ".join(
                 f"{k} {v:.3g}" for k, v in b["per_host_step"].items()))
     log(f"  phase 3 (fleet_adaptive_sweep) took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def launch_fleet_adaptive(args, params, fparams, m_max: int, q_max: int, lib=None):
+    """One launch of the fleet sweep by event jumps past its wrapper (so that
+    no launch counter moves), for ``--fleet-adaptive-ab``'s comparison of
+    two sources (``lib``, default this checkout's): its stats (14, P, H) and
+    ends (3, P)."""
+    from repro_torch.kernels.fleet_adaptive_sweep.kernel import launch_fleet_adaptive_sweep
+    from repro_torch.kernels.fleet_adaptive_sweep.ops import POINT_NAMES, STAT_NAMES
+    cols = dict(zip(("t_s", "t_l", "m", "nq", "lam", "seed_lo", "seed_hi", "hedge_d"),
+                    args[:8]))
+    n = args[0].shape[0]
+    stats = torch.empty((len(STAT_NAMES), n, fparams.n_hosts), dtype=torch.float32,
+                        device="cuda")
+    ends = torch.empty((len(POINT_NAMES), n), dtype=torch.float32, device="cuda")
+    launch_fleet_adaptive_sweep(cols, args[8], args[9], params, fparams, stats, ends,
+                                m_max=m_max, q_max=q_max, lib=lib)
+    return stats, ends
+
+
+def phase_fleet_adaptive_source_ab(sources: list[str]) -> list[dict]:
+    """``--fleet-adaptive-ab SRC...``: this checkout's fleet sweep by event
+    jumps against other sources with the C interface and scratch layout of
+    ``csrc/fleet_adaptive_sweep.cu`` (a parent commit's, a variant), each
+    built with the same flags, at phase 3's ten shapes (``fleet_settings``),
+    uncut.  Each is timed as the median of 3 CUDA-event timings after 1
+    warm-up, in the order this, SRC1 .. SRCn, SRCn .. SRC1, this (A B B A
+    for one source), all launched the same way (``launch_fleet_adaptive``);
+    a source's us a step is its mean time over the longest point's live
+    steps in its own run; every output of each source is compared bit for
+    bit with this checkout's (reported, not required: a variant may compute
+    something else)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fleet_adaptive_sweep import kernel as fas_kernel
+    from repro_torch.runtime.fleet import fleet_adaptive_inputs
+    named = {"this": fas_kernel._SOURCE, **{s: str(Path(s).resolve()) for s in sources}}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(named)) as pool:
+        libs = dict(zip(named, pool.map(fas_kernel.build, named.values())))
+    log(f"fleet adaptive A/B: built {len(named)} sources in parallel in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for name, source in named.items():
+        info = _build.BUILD_INFO[source]
+        log(f"  {name}: nvcc {info['seconds']:.2f} s; ptxas {ptxas_kernels(info['log'])}")
+    order = [*named, *reversed(named)]
+    rows = []
+    for name, fgrid, cfg, slot_us in fleet_settings():
+        args, params, fparams = fleet_adaptive_inputs(fgrid, cfg, slot_us, "cuda")
+        m_max, q_max = int(args[2].max()), int(args[3].max())
+        outs = {k: launch_fleet_adaptive(args, params, fparams, m_max, q_max, lib)
+                for k, lib in libs.items()}
+        equal = {k: all(torch.equal(a, b) for a, b in zip(outs["this"], o))
+                 for k, o in outs.items() if k != "this"}
+        live = {k: float(o[1][0].max()) for k, o in outs.items()}
+        forced = {k: float(o[1][1].sum()) for k, o in outs.items()}
+        times = {k: [] for k in named}
+        for k in order:
+            times[k].append(time_ms(launch_fleet_adaptive, args, params, fparams, m_max, q_max,
+                                    libs[k], iters=3, warmup=1))
+        us_step = {k: 1e3 * statistics.mean(ts) / live[k] for k, ts in times.items()}
+        log(f"  {name} ({len(fgrid)} points x {fparams.n_hosts} hosts, budget "
+            f"{params.max_steps} steps), order {' '.join(order)}: " + "; ".join(
+                f"{k} " + ", ".join(f"{t:.3f}" for t in ts) + f" ms ({us_step[k]:.4f} us a "
+                f"step; longest point {live[k]:.0f} live steps, {forced[k]:.0f} forced over "
+                "the points)" for k, ts in times.items()) + f"; bit-equal to this: {equal}")
+        rows.append({"name": name, "points": len(fgrid), "hosts": fparams.n_hosts,
+                     "budget": params.max_steps, "steps_max": live, "forced_steps": forced,
+                     "times_ms": times, "us_per_step": us_step, "bit_equal": equal})
+    log(f"fleet adaptive A/B took {time.perf_counter() - t0:.1f} s")
     return rows
 
 
@@ -3539,6 +3659,13 @@ def main() -> int:
                             "--format=csv,noheader"], capture_output=True, text=True,
                            check=True).stdout.strip().splitlines()[0])
         print(json.dumps({"adaptive_ab": phase_adaptive_source_ab(sys.argv[2:])}), flush=True)
+        return 0
+    if sys.argv[1:2] == ["--fleet-adaptive-ab"]:
+        log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"], capture_output=True, text=True,
+                           check=True).stdout.strip().splitlines()[0])
+        print(json.dumps({"fleet_adaptive_ab": phase_fleet_adaptive_source_ab(sys.argv[2:])}),
+              flush=True)
         return 0
     phase_card()
     route_err = phase_compare()

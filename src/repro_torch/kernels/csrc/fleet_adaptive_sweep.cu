@@ -46,7 +46,8 @@
 // sweep's block layout around the event-jump sweep's host body:
 //  1. Warp specialisation (the ring route, H <= 256).  A block is a point:
 //     consumer warps, max(1, W / 32) of them (W = the least power of two >=
-//     H), one host a lane with its whole state in registers, run the jumps;
+//     H), one host a lane with its whole state in registers (below 32 lanes,
+//     every host in 32 / W lanes of the warp: the note, 3), run the jumps;
 //     producer warps make every host's state-free values of every step, the
 //     event-jump sweep's fields (its Layout): the queues' normals, the
 //     threads' overshoots and, with stalls on, the stall window's length and
@@ -68,7 +69,22 @@
 //     stall start): the first also bounds the floor); after the host step, the
 //     far rack's admissions (link on) or the hedge stage as one tree.  The
 //     jump reads the backlogs after the last step's hedge injection, so it
-//     cannot ride in that step's hedge tree.
+//     cannot ride in that step's hedge tree (a tree that carried the next
+//     step's minima, with the two candidates' bounds recomputed after their
+//     injection, was bit-equal but 22-33% slower a step; PERF.md §5).  The
+//     point's clock must stay alike in every consumer thread, and below 32
+//     lanes a butterfly over W lanes leaves the other lanes of the warp with
+//     their own groups' results: so lane l runs host l mod W, every group of
+//     W lanes holds the point's hosts, alike bit for bit, and every lane gets
+//     each reduction's result with no broadcast from lane 0 (PERF.md §5 has
+//     what that broadcast cost; the first copy writes the outputs).  W is a
+//     template parameter of the ring route's kernel (one instantiation for
+//     each power of two from 1 to 256): a reduction's rounds and the ring's
+//     strides are then constants, a warp's reductions carry no cross-warp
+//     code, and a step takes 16-19% less than with W read at run time.
+//     Within one warp the hedge tree then runs as two passes (Top2, DupSums)
+//     so that its argmin rounds overlap the hedge gate: 3-4% less a step at
+//     4 and 16 hosts, nothing at 64, where the single tree stays.
 //  4. The run ends at a step no one knows in advance.  The remaining time is
 //     the same in every lane of the block, so the block stops as one: the
 //     first consumer thread stores the step in shared memory (`stop`), every
@@ -81,9 +97,10 @@
 //     coalesced across the block, one host loaded and stored at a time, the
 //     draws made inline, the reductions of 3 over all 256 threads (the hedge
 //     stage's two in turn, as fleet_sweep.cu's scratch route).
-//  6. M_MAX and Q_MAX are template parameters (<4, 1> and <4, 4>); lanes past
-//     a point's m or n_queues add exact zeros, and the jump and the arrivals
-//     skip the queues past its n_queues.
+//  6. M_MAX and Q_MAX are template parameters (<4, 1> and <4, 4>), and on
+//     the ring route log2 W (0-8); lanes past a point's m or n_queues add
+//     exact zeros, and the jump and the arrivals skip the queues past its
+//     n_queues.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -307,8 +324,10 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 // fleet_sweep.cu's: within each warp a halving tree over its L = min(W, 32)
 // lanes as a butterfly (__shfl_xor_sync), then the same tree over the W / 32
 // warps' results (in shared memory, double-buffered, one barrier a
-// reduction).  Lanes >= W hold the identity; argmins keep the lowest host
-// index among equal values.
+// reduction).  Below 32 lanes each group of W lanes of the warp holds the
+// point's hosts and reduces them alone (the design note, 3); a host past the
+// point's H holds the identity; argmins keep the lowest host index among
+// equal values.
 
 __device__ __forceinline__ bool before(float v, int i, float w, int j) {
   return v < w || (v == w && i < j);
@@ -398,13 +417,69 @@ struct HedgeTree : Hedge {
   __device__ void butterfly(int off) { combine<LINK>(off); }
 };
 
+// Within one warp (W <= 32) the hedge tree runs as two passes over the same
+// halving tree.  The first (Top2) needs only the backlogs after the host
+// step, so its rounds run between the parts of the hedge gate (an expf and
+// two divisions): the subtree's two first least-loaded hosts and far-rack
+// admissions, and at each round whether the other subtree held the first.
+// The second (DupSums) replays those rounds on the duplicates once the gate
+// is done: Hedge's full, excl and d1, each add where Hedge::combine makes it.
+// (Hedge::combine keeps its own copy of this logic: built from these two
+// halves, the one tree took 2-3% more a step at 16 and 64 hosts.)
+struct Top2 {
+  float v1, v2, far;
+  int i1, i2;
+  __device__ static Top2 leaf(bool live, int h, float btot, float far_adm) {
+    if (!live) return {INFINITY, INFINITY, 0.0f, 0x7fffffff, 0x7fffffff};
+    return {btot, INFINITY, far_adm, h, 0x7fffffff};
+  }
+  __device__ Top2 shfl(int off) const {
+    return {__shfl_xor_sync(kFull, v1, off), __shfl_xor_sync(kFull, v2, off),
+            __shfl_xor_sync(kFull, far, off), __shfl_xor_sync(kFull, i1, off),
+            __shfl_xor_sync(kFull, i2, off)};
+  }
+  // the other subtree's merged in; whether it held the first
+  __device__ bool merge(const Top2& o) {
+    far = far + o.far;
+    const bool other_first = before(o.v1, o.i1, v1, i1);
+    if (other_first) {
+      const bool mine = before(v1, i1, o.v2, o.i2);
+      v2 = mine ? v1 : o.v2;
+      i2 = mine ? i1 : o.i2;
+      v1 = o.v1;
+      i1 = o.i1;
+    } else if (before(o.v1, o.i1, v2, i2)) {
+      v2 = o.v1;
+      i2 = o.i1;
+    }
+    return other_first;
+  }
+};
+
+struct DupSums {
+  float full, excl, d1;
+  __device__ DupSums shfl(int off) const {
+    return {__shfl_xor_sync(kFull, full, off), __shfl_xor_sync(kFull, excl, off),
+            __shfl_xor_sync(kFull, d1, off)};
+  }
+  __device__ void merge(const DupSums& o, bool other_first) {
+    if (other_first) {
+      excl = full + o.excl;
+      d1 = o.d1;
+    } else {
+      excl = excl + o.full;
+    }
+    full = full + o.full;
+  }
+};
+
 struct RedShared {
   __align__(16) unsigned char slot[2][kMaxWarps][32];
 };
 
-// The reduction of W lanes among `threads` threads (W <= 32: one warp, no
-// barrier); every thread gets the result.  `buf` alternates the shared
-// buffers.
+// The reduction of W lanes among `threads` threads, W read at run time (the
+// scratch route's, where W is 256; W <= 32 would be one warp, no barrier);
+// every thread gets the result.  `buf` alternates the shared buffers.
 template <class T>
 __device__ __forceinline__ T reduce(T a, int W, int threads, RedShared& sh, int& buf) {
   static_assert(sizeof(T) <= 32, "a reduction's partial result fits its shared slot");
@@ -412,14 +487,6 @@ __device__ __forceinline__ T reduce(T a, int W, int threads, RedShared& sh, int&
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     if (off < L) a.butterfly(off);
-  }
-  if (W < 32) {
-    // lanes past the first group hold the identities' result: every lane
-    // takes lane 0's, so that the point's clock stays alike in every thread
-    static_assert(sizeof(T) % 4 == 0, "a reduction's result is whole words");
-    int* w = reinterpret_cast<int*>(&a);
-#pragma unroll
-    for (int i = 0; i < (int)(sizeof(T) / 4); ++i) w[i] = __shfl_sync(kFull, w[i], 0);
   }
   if (W <= 32) return a;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -433,6 +500,33 @@ __device__ __forceinline__ T reduce(T a, int W, int threads, RedShared& sh, int&
     if (off < G) a.butterfly(off);
   }
   return a;
+}
+
+// The same with W a compile-time constant (the ring route's consumers): no
+// branch guards a round, and one warp's reductions keep no cross-warp code.
+template <int W, class T>
+__device__ __forceinline__ T reduce(T a, int threads, RedShared& sh, int& buf) {
+  static_assert(sizeof(T) <= 32, "a reduction's partial result fits its shared slot");
+  constexpr int L = W < 32 ? W : 32;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    if (off < L) a.butterfly(off);
+  }
+  if constexpr (W <= 32) {
+    return a;
+  } else {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    if (lane == 0) *reinterpret_cast<T*>(sh.slot[buf][warp]) = a;
+    asm volatile("bar.sync %0, %1;" ::"r"(kRedBarrier), "r"(threads) : "memory");
+    constexpr int G = W >> 5;
+    a = *reinterpret_cast<const T*>(sh.slot[buf][lane & (G - 1)]);
+    buf ^= 1;
+#pragma unroll
+    for (int off = kMaxWarps / 2; off > 0; off >>= 1) {
+      if (off < G) a.butterfly(off);
+    }
+    return a;
+  }
 }
 
 // ---- one host: its state, its bounds, its macro-slot --------------------------
@@ -800,15 +894,20 @@ __device__ __forceinline__ void load_step(Step<MM, QQ>& x, const float* row, int
 
 // ---- the ring route: the consumers (host lanes) -----------------------------
 
-// Host lane h (live when h < H; other lanes hold the reductions' identities
-// and write nothing): the jumps, on the producers' values.
-template <int MM, int QQ>
-__device__ __forceinline__ void consume(int h, int pt, const Inputs& in, const float* ring,
+// Consumer thread `lane` of a point of W = 2^LW host lanes runs host h =
+// lane mod W (below 32 lanes every host runs in 32 / W lanes of the warp,
+// alike bit for bit, and its first copy writes the outputs); a host past H
+// holds the reductions' identities and writes nothing: the jumps, on the
+// producers' values.
+template <int MM, int QQ, int LW>
+__device__ __forceinline__ void consume(int lane, int pt, const Inputs& in, const float* ring,
                                         uint32_t full, uint32_t empty, volatile int* stop,
                                         RedShared& sh, const Params& P,
                                         float* __restrict__ stats, float* __restrict__ ends) {
   using L = Layout<MM, QQ>;
-  const int W = P.lanes, H = P.n_hosts, threads = P.consumers;
+  constexpr int W = 1 << LW;
+  const int H = P.n_hosts, threads = P.consumers;
+  const int h = lane & (W - 1);
   const bool live = h < H;
   const int nf = L::fields(P.flags);
   const int stage_floats = L::stage_floats(W, P.flags);
@@ -862,9 +961,9 @@ __device__ __forceinline__ void consume(int h, int pt, const Inputs& in, const f
           for (int q = 0; q < QQ; ++q) b = q ? b + x.back[q] : x.back[q];
           k.next_ref = (floorf(now * P.inv_stale + kWakeEps) + 1.0f) * P.stale;
           const float xs = live ? -b * P.inv_soft : -INFINITY;
-          const float mx = reduce(MaxOf{xs}, W, threads, sh, buf).v;
+          const float mx = reduce<W>(MaxOf{xs}, threads, sh, buf).v;
           const float e = live ? expf(xs - mx) : 0.0f;
-          const float den = reduce(SumOf{e}, W, threads, sh, buf).v;
+          const float den = reduce<W>(SumOf{e}, threads, sh, buf).v;
           x.share = e / den;
         }
         ref_dt = k.next_ref - now;
@@ -875,7 +974,7 @@ __device__ __forceinline__ void consume(int h, int pt, const Inputs& in, const f
       float drain_q[QQ];
       float wd = INFINITY, fs = INFINITY;
       if (live) host_bounds(x, occ, lq, c.nq, now, P, wd, fs, drain_q);
-      const MinOf2 mins = reduce(MinOf2{wd, fs}, W, threads, sh, buf);
+      const MinOf2 mins = reduce<W>(MinOf2{wd, fs}, threads, sh, buf);
       bool forced;
       const float dt = clock_jump(k, t, mins.a, mins.b, seg_dt, ref_dt, P, forced);
       const float t_new = now + dt;
@@ -890,18 +989,44 @@ __device__ __forceinline__ void consume(int h, int pt, const Inputs& in, const f
       // the cross-host stages: the far rack's admissions (link on), and with
       // hedging one tree for b1 and b2, the duplicates that land on b1
       // (every host's but b1's) and b1's own (to b2)
-      if (hedged) {
-        x.dup = live ? duplicates(x.adm, x.btot, hedge_d, hedge_den, P) : 0.0f;
-        if (live) x.s[13] = x.s[13] + x.dup;
-      }
       const float far_adm = live && far ? x.adm : 0.0f;
       float far_sum = 0.0f, to_b1 = 0.0f, to_b2 = 0.0f;
       int b1 = -1, b2 = -1;
       if (hedged) {
-        const Hedge leaf = Hedge::leaf(live, h, x.btot, x.dup * c.q_recip, far_adm);
-        const Hedge r =
-            link ? static_cast<Hedge>(reduce(HedgeTree<true>{leaf}, W, threads, sh, buf))
-                 : static_cast<Hedge>(reduce(HedgeTree<false>{leaf}, W, threads, sh, buf));
+        Hedge r;
+        if constexpr (W <= 32) {
+          // the first pass's rounds (offsets W / 2, ..., 1) with the gate's
+          // three parts between them, then the second pass
+          Top2 a = Top2::leaf(live, h, x.btot, far_adm);
+          unsigned firsts = 0;
+          float xg = 0.0f, den = 0.0f, gate = 0.0f;
+#pragma unroll
+          for (int k = 0; k < 5; ++k) {
+            const int off = W >> (k + 1);
+            Top2 o;
+            if (off) o = a.shfl(off);
+            if (k == 0) xg = (x.btot * P.inv_mu - hedge_d) / hedge_den;
+            if (k == 1) den = 1.0f + expf(-xg);
+            if (k == 2) gate = 1.0f / den;
+            if (off && a.merge(o)) firsts |= 1u << k;
+          }
+          x.dup = live ? x.adm * gate : 0.0f;   // duplicates(), in its three parts
+          if (live) x.s[13] = x.s[13] + x.dup;
+          const float dup_q = x.dup * c.q_recip;
+          DupSums d = {dup_q, 0.0f, dup_q};
+#pragma unroll
+          for (int k = 0; k < 5; ++k) {
+            const int off = W >> (k + 1);
+            if (off) d.merge(d.shfl(off), (firsts >> k) & 1u);
+          }
+          r = {d.full, d.excl, a.v1, a.v2, d.d1, a.far, a.i1, a.i2};
+        } else {
+          x.dup = live ? duplicates(x.adm, x.btot, hedge_d, hedge_den, P) : 0.0f;
+          if (live) x.s[13] = x.s[13] + x.dup;
+          const Hedge leaf = Hedge::leaf(live, h, x.btot, x.dup * c.q_recip, far_adm);
+          r = link ? static_cast<Hedge>(reduce<W>(HedgeTree<true>{leaf}, threads, sh, buf))
+                   : static_cast<Hedge>(reduce<W>(HedgeTree<false>{leaf}, threads, sh, buf));
+        }
         far_sum = r.far;
         to_b1 = r.excl;
         to_b2 = r.d1;
@@ -912,7 +1037,7 @@ __device__ __forceinline__ void consume(int h, int pt, const Inputs& in, const f
           b2 = b1;
         }
       } else if (link) {
-        far_sum = reduce(SumOf{far_adm}, W, threads, sh, buf).v;
+        far_sum = reduce<W>(SumOf{far_adm}, threads, sh, buf).v;
       }
       if (live && topo) {
         float delay = far ? P.far_cost : P.near_cost;
@@ -934,13 +1059,15 @@ __device__ __forceinline__ void consume(int h, int pt, const Inputs& in, const f
     // `stop` where the block stopped inside it
     mbar_arrive(empty + 8 * s);
   }
-  if (!live) return;
+  if (!live || lane >= W) return;
 #pragma unroll
   for (int j = 0; j < kNumStats; ++j) stats[((size_t)j * P.n_points + pt) * H + h] = x.s[j];
   if (h == 0) write_point(k, pt, P, ends);
 }
 
-template <int MM, int QQ>
+// One instantiation for each (M_MAX, Q_MAX) and each lane count W = 2^LW of
+// the ring route (the design note, 3).
+template <int MM, int QQ, int LW>
 __global__ void __launch_bounds__(kMaxThreads, 1)
     fleet_adaptive_kernel(const Inputs in, float* __restrict__ stats, float* __restrict__ ends,
                           const Params P) {
@@ -963,7 +1090,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   __syncthreads();
   const int rank = producer_rank(threadIdx.x / 32, P.lanes);
   if ((int)threadIdx.x < consumers) {
-    consume<MM, QQ>(threadIdx.x, pt, in, ring, full, empty, &stop, sh, P, stats, ends);
+    consume<MM, QQ, LW>(threadIdx.x, pt, in, ring, full, empty, &stop, sh, P, stats, ends);
   } else if (rank >= 0) {
     produce<MM, QQ>(32 * rank + threadIdx.x % 32, producer_lanes, pt, in, ring, full, empty,
                     &stop, P);
@@ -1216,6 +1343,19 @@ __global__ void __launch_bounds__(kMaxLanes, 1)
   if (lane == 0) write_point(k, pt, P, ends);
 }
 
+template <int MM, int QQ, int LW>
+cudaError_t launch_ring(const Inputs& in, void* stats, void* ends, const Params& P,
+                        cudaStream_t st) {
+  const size_t smem = Layout<MM, QQ>::smem_bytes(P.lanes, P.flags);
+  cudaError_t err = cudaFuncSetAttribute(fleet_adaptive_kernel<MM, QQ, LW>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int threads = 32 * block_warps(P.lanes);
+  fleet_adaptive_kernel<MM, QQ, LW><<<P.n_points, threads, smem, st>>>(
+      in, static_cast<float*>(stats), static_cast<float*>(ends), P);
+  return cudaGetLastError();
+}
+
 template <int MM, int QQ>
 cudaError_t launch(const Inputs& in, void* stats, void* ends, void* scratch, Params P,
                    cudaStream_t st) {
@@ -1225,15 +1365,20 @@ cudaError_t launch(const Inputs& in, void* stats, void* ends, void* scratch, Par
         P);
     return cudaGetLastError();
   }
-  const size_t smem = Layout<MM, QQ>::smem_bytes(P.lanes, P.flags);
-  cudaError_t err = cudaFuncSetAttribute(fleet_adaptive_kernel<MM, QQ>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
   P.consumers = 32 * consumer_warps(P.lanes);
-  const int threads = 32 * block_warps(P.lanes);
-  fleet_adaptive_kernel<MM, QQ><<<P.n_points, threads, smem, st>>>(
-      in, static_cast<float*>(stats), static_cast<float*>(ends), P);
-  return cudaGetLastError();
+  int lw = 0;
+  while ((1 << lw) < P.lanes) ++lw;
+  switch (lw) {
+    case 0: return launch_ring<MM, QQ, 0>(in, stats, ends, P, st);
+    case 1: return launch_ring<MM, QQ, 1>(in, stats, ends, P, st);
+    case 2: return launch_ring<MM, QQ, 2>(in, stats, ends, P, st);
+    case 3: return launch_ring<MM, QQ, 3>(in, stats, ends, P, st);
+    case 4: return launch_ring<MM, QQ, 4>(in, stats, ends, P, st);
+    case 5: return launch_ring<MM, QQ, 5>(in, stats, ends, P, st);
+    case 6: return launch_ring<MM, QQ, 6>(in, stats, ends, P, st);
+    case 7: return launch_ring<MM, QQ, 7>(in, stats, ends, P, st);
+    default: return launch_ring<MM, QQ, 8>(in, stats, ends, P, st);
+  }
 }
 
 }  // namespace

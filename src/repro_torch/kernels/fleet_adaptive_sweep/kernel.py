@@ -43,11 +43,17 @@ _FLEET_FPARAMS = ("inv_soft", "near_cost", "far_cost", "link_rate", "link_floor"
                   "stale", "inv_stale")
 
 
-def build():
+def build(source: str = _SOURCE):
     """Build (once) and load the kernel's library, with the fixed-slot
     sweep's ``-fmad=false``: every product and sum rounds as the plain
-    version's separate PyTorch operations do."""
-    return load_library(_SOURCE, _SIGNATURES, NVCC_EXTRA)
+    version's separate PyTorch operations do.  ``source`` may name another
+    file with the same C interface and scratch layout (an absolute path; it
+    needs only ``fleet_adaptive_sweep_fwd`` and
+    ``fleet_adaptive_sweep_error_string``), for an A/B of two versions of
+    the kernel in one process."""
+    sigs = _SIGNATURES if source == _SOURCE else {
+        k: v for k, v in _SIGNATURES.items() if k != "fleet_adaptive_sweep_layout"}
+    return load_library(source, sigs, NVCC_EXTRA)
 
 
 def _flag_bits(params, fleet) -> int:

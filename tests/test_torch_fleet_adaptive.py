@@ -67,7 +67,7 @@ from repro_torch.kernels.fleet_adaptive_sweep import (
 from repro_torch.kernels.fleet_adaptive_sweep import kernel as fa_kernel
 from repro_torch.kernels.fleet_adaptive_sweep import ops as fa_ops
 from repro_torch.kernels.fleet_adaptive_sweep.ops import POINT_NAMES, STAT_NAMES
-from repro_torch.kernels.fleet_sweep.ops import host_lanes
+from repro_torch.kernels.fleet_sweep.ops import host_lanes, host_sum
 from repro_torch.runtime import (
     FleetConfig,
     FleetGrid,
@@ -439,6 +439,191 @@ def test_plain_version_does_not_depend_on_its_chunk_length(n_hosts, budget, monk
             assert torch.equal(out[name], outs[0][name]), name
 
 
+# -- the kernel's hedge tree, mirrored ---------------------------------------------
+
+F32 = np.float32
+NO_HOST = 0x7FFFFFFF
+
+
+def _before(v, i, w, j):
+    return v < w or (v == w and i < j)
+
+
+def _top2_merge(a, o):
+    """``Top2::merge`` (the argmin half of ``Hedge::combine``): the other
+    subtree's record ``o`` merged into ``a``; returns (the merged record,
+    whether the other held the first).  A record: the first two
+    least-loaded hosts (v1, i1) and (v2, i2) and the far rack's sum."""
+    a = dict(a, far=F32(a["far"] + o["far"]))
+    other_first = _before(o["v1"], o["i1"], a["v1"], a["i1"])
+    if other_first:
+        mine = _before(a["v1"], a["i1"], o["v2"], o["i2"])
+        a["v2"], a["i2"] = (a["v1"], a["i1"]) if mine else (o["v2"], o["i2"])
+        a["v1"], a["i1"] = o["v1"], o["i1"]
+    elif _before(o["v1"], o["i1"], a["v2"], a["i2"]):
+        a["v2"], a["i2"] = o["v1"], o["i1"]
+    return a, other_first
+
+
+def _dup_merge(d, o, other_first):
+    """``DupSums::merge`` (the sums of ``Hedge::combine``): the duplicates'
+    sum (full), that sum with the first's zeroed (excl), the first's own
+    (d1)."""
+    d = {k: d[k] for k in ("full", "excl", "d1")}
+    if other_first:
+        d["excl"], d["d1"] = F32(d["full"] + o["excl"]), o["d1"]
+    else:
+        d["excl"] = F32(d["excl"] + o["full"])
+    d["full"] = F32(d["full"] + o["full"])
+    return d
+
+
+def _hedge_combine(a, o):
+    """``Hedge::combine``: both halves in one round."""
+    top, first = _top2_merge(a, o)
+    return {**top, **_dup_merge(a, o, first)}
+
+
+def kernel_hedge_tree(btot, dup_q, far_adm):
+    """The kernel's hedge tree over one point's H hosts, thread by thread:
+    W = host_lanes(H) lanes.  Up to 32 lanes one warp, thread t running host
+    t mod W (every group of W lanes holds the hosts), the two passes over
+    offsets W / 2, ..., 1: ``Top2`` first, then ``DupSums`` replaying its
+    recorded rounds.  Above, ``Hedge::combine`` within each warp and then
+    over the W / 32 warps' lane-0 records (``reduce``).  Returns every
+    consumer thread's result."""
+    n = len(btot)
+    w = host_lanes(n)
+    threads = max(w, 32)
+    out = []
+    for t in range(threads):
+        h = t & (w - 1)
+        if h < n:     # Hedge::leaf
+            dq = F32(dup_q[h])
+            out.append(dict(full=dq, excl=F32(0.0), v1=F32(btot[h]), v2=F32(np.inf), d1=dq,
+                            far=F32(far_adm[h]), i1=h, i2=NO_HOST))
+        else:
+            out.append(dict(full=F32(0.0), excl=F32(0.0), v1=F32(np.inf), v2=F32(np.inf),
+                            d1=F32(0.0), far=F32(0.0), i1=NO_HOST, i2=NO_HOST))
+    offsets = [off for off in (16, 8, 4, 2, 1) if off < min(w, 32)]
+    if w <= 32:
+        firsts = [[] for _ in range(threads)]
+        for off in offsets:
+            prev = list(out)
+            for t in range(threads):
+                top, first = _top2_merge(prev[t], prev[t ^ off])
+                out[t] = {**prev[t], **top}
+                firsts[t].append(first)
+        for r, off in enumerate(offsets):
+            prev = list(out)
+            out = [{**prev[t], **_dup_merge(prev[t], prev[t ^ off], firsts[t][r])}
+                   for t in range(threads)]
+        return out
+    for off in offsets:
+        prev = list(out)
+        out = [_hedge_combine(prev[t], prev[t ^ off]) for t in range(threads)]
+    groups = w // 32
+    slots = [out[32 * g] for g in range(groups)]
+    out = [dict(slots[(t & 31) & (groups - 1)]) for t in range(threads)]
+    for off in (4, 2, 1):
+        if off < groups:
+            prev = list(out)
+            out = [_hedge_combine(prev[t], prev[t ^ off]) for t in range(threads)]
+    return out
+
+
+def hedge_stage_result(tree, n_hosts):
+    """What the consumer takes from the tree (``consume``): b1, b2, the
+    duplicates that land on b1 and on b2, and the far rack's sum; a lone
+    host's duplicates come back to it."""
+    b1, b2, to_b1, to_b2 = tree["i1"], tree["i2"], tree["excl"], tree["d1"]
+    if n_hosts == 1:
+        to_b1, b2 = to_b2, b1
+    return dict(b1=b1, b2=b2, to_b1=F32(to_b1), to_b2=F32(to_b2), far=F32(tree["far"]))
+
+
+def hedge_stage_direct(btot, dup_q, far_adm):
+    """The plain version's hedge stage on one point (``ops.py``, step 5): b1
+    and b2 by argmin (the lowest index among equal backlogs), the duplicates
+    to b1 a ``host_sum`` with b1's zeroed, b1's own to b2, a lone host's back
+    to it; the far rack's sum by ``host_sum``."""
+    n = len(btot)
+    b = torch.tensor(np.asarray(btot, dtype=np.float32))[None]
+    dq = torch.tensor(np.asarray(dup_q, dtype=np.float32))[None]
+    b1 = torch.argmin(b, dim=1)
+    is_b1 = torch.arange(n)[None] == b1[:, None]
+    far = F32(host_sum(torch.tensor(np.asarray(far_adm, dtype=np.float32))[None])[0])
+    if n == 1:
+        return dict(b1=0, b2=0, to_b1=F32(dq[0, 0]), to_b2=F32(dq[0, 0]), far=far)
+    b2 = torch.argmin(torch.where(is_b1, float("inf"), b), dim=1)
+    return dict(b1=int(b1[0]), b2=int(b2[0]),
+                to_b1=F32(host_sum(torch.where(is_b1, 0.0, dq))[0]),
+                to_b2=F32(dq[0, int(b1[0])]), far=far)
+
+
+try:
+    from hypothesis import given, settings
+    from hypothesis import strategies as st
+    HAVE_HYPOTHESIS = True
+except ImportError:                                   # pragma: no cover
+    HAVE_HYPOTHESIS = False
+
+
+if HAVE_HYPOTHESIS:
+    _finite = st.floats(min_value=0.0, max_value=1e4, allow_nan=False, allow_infinity=False,
+                        width=32)
+    # backlogs from a handful of values, so that equal backlogs are common
+    _backlog = st.one_of(st.sampled_from([0.0, 1.0, 2.5, 7.0]), _finite)
+
+    @st.composite
+    def _hedge_leaves(draw):
+        n = draw(st.one_of(st.integers(1, 40), st.sampled_from([63, 64, 65, 127, 128, 129,
+                                                                 200, 255, 256])))
+        btot = draw(st.lists(_backlog, min_size=n, max_size=n))
+        dup_q = draw(st.lists(_finite, min_size=n, max_size=n))
+        far_adm = draw(st.lists(_finite, min_size=n, max_size=n))
+        return btot, dup_q, far_adm
+
+    @settings(max_examples=60, deadline=None)
+    @given(leaves=_hedge_leaves())
+    def test_kernel_hedge_tree_equals_the_direct_hedge_stage(leaves):
+        """The kernel's hedge tree (mirrored thread by thread,
+        ``kernel_hedge_tree``: the two passes within one warp, the single
+        tree across warps) gives every consumer thread the same record,
+        below 32 lanes with no broadcast (every group of W lanes holds the
+        hosts), and its stage result is the plain version's, bit for bit:
+        random leaves, equal backlogs (the lowest host index wins), padding
+        lanes (H below W), 1 to 256 hosts (one to eight warps), a lone
+        host."""
+        btot, dup_q, far_adm = leaves
+        out = kernel_hedge_tree(btot, dup_q, far_adm)
+        first = out[0]
+        for rec in out[1:]:
+            assert rec == first
+        got = hedge_stage_result(first, len(btot))
+        want = hedge_stage_direct(btot, dup_q, far_adm)
+        assert got == want
+
+
+@pytest.mark.parametrize("n_hosts", (1, 2, 3, 5, 32, 33, 64, 256))
+def test_kernel_hedge_tree_on_equal_backlogs_and_infinities(n_hosts):
+    """Every host at the same backlog (b1 = host 0, b2 = host 1), then
+    infinite backlogs on all but the last two hosts, and infinite
+    duplicates: the mirrored tree still equals the direct stage."""
+    rng = np.random.default_rng(n_hosts)
+    dup_q = rng.uniform(0.0, 3.0, n_hosts).astype(np.float32)
+    far_adm = rng.uniform(0.0, 9.0, n_hosts).astype(np.float32)
+    cases = [np.full(n_hosts, 4.0, np.float32),
+             np.concatenate([np.full(max(n_hosts - 2, 0), np.inf), [3.0, 3.0]])[-n_hosts:]]
+    for btot in cases:
+        for dq in (dup_q, np.where(np.arange(n_hosts) == n_hosts - 1, np.inf, dup_q)):
+            got = hedge_stage_result(kernel_hedge_tree(btot, dq, far_adm)[0], n_hosts)
+            want = hedge_stage_direct(btot, dq, far_adm)
+            assert got == want, (btot, dq)
+            if n_hosts > 1 and (btot == btot[0]).all():
+                assert (got["b1"], got["b2"]) == (0, 1)
+
+
 SMEM_PER_BLOCK = 232_448     # the shared memory a block can use on an H100 (227 KB)
 STATIC_SMEM = 2 * 8 * 32 + 2 * 2 * 8 + 4   # reduction buffers, mbarriers, the stop word
 
@@ -448,7 +633,10 @@ def test_ring_layout_matches_the_kernel_source():
     byte count ``ring_bytes``) is the source's, a step the event-jump
     sweep's fields; with the block's static shared memory it fits at every
     host count of the ring route, both builds, stalls on and off; beyond 256
-    hosts the scratch route keeps no ring."""
+    hosts the scratch route keeps no ring.  The lanes: one host a consumer
+    lane up to 256 hosts (below 32 lanes thread t runs host t mod W, every
+    group of W lanes of the one consumer warp holding the hosts; a warp per
+    32 lanes above), ceil(H / 256) hosts a thread beyond."""
     src = (Path(fa_kernel.__file__).parents[1] / "csrc" / "fleet_adaptive_sweep.cu").read_text()
     flat = " ".join(src.split())
 
@@ -465,7 +653,11 @@ def test_ring_layout_matches_the_kernel_source():
                  "return kStageSteps * fields(flags) * lanes;",
                  "return sizeof(float) * (size_t)kStages * stage_floats(lanes, flags);",
                  "unsigned char slot[2][kMaxWarps][32];",
-                 "__shared__ __align__(8) uint64_t bars[2 * kStages];"):
+                 "__shared__ __align__(8) uint64_t bars[2 * kStages];",
+                 "inline int consumer_warps(int lanes) { return lanes < 32 ? 1 : lanes / 32; }",
+                 "const int h = lane & (W - 1); const bool live = h < H;",
+                 "if (!live || lane >= W) return;",
+                 "P.hosts_per_lane = (n_hosts + P.lanes - 1) / P.lanes;"):
         assert line in flat, line
     stages, steps = const("kStages"), const("kStageSteps")
     for n_hosts in range(1, 257):
@@ -520,8 +712,13 @@ def test_kernel_equals_plain_version_on_the_card():
     edges), each balancer, topology with the link, hedge deadlines 0, 20 and
     80, every noise family and a schedule, one queue a point (<4, 1>) and
     up to four (<4, 4>); runs that stop more than three stages before the
-    budget's end; the tail's pacing (slots of 10 us); and the ring's edges
-    (``_edge_case``)."""
+    budget's end, some of them on a stage's first step; the tail's pacing
+    (slots of 10 us); the ring's edges (``_edge_case``); and the tree's
+    corners at 33, 48, 63 and 64 hosts (two consumer warps) and at 5 and 40:
+    least-loaded refreshing every 2 us with every point hedged (a refresh
+    step right after a hedged one), the link without hedging, a load of 5%
+    with every point hedged (most steps every backlog equal, so b1 and b2
+    are the lowest indices)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the fleet sweep kernel has no CPU mode")
     cfg = SimRunConfig(duration_us=400.0, sleep_model=SleepModel(**TAIL_SLEEP),
@@ -549,7 +746,21 @@ def test_kernel_equals_plain_version_on_the_card():
         for budget in EDGE_BUDGETS:
             fgrid, c = __import__("test_torch_fleet")._edge_case(hosts, 300, 3)
             cases.append((fgrid, c, 0.5, {"max_steps": budget}))
-    routes, kinds = set(), set()
+    hedged_all = (20.0, 40.0, 80.0)
+    for hosts, kw, hedges, load in (
+            (33, dict(lb="least-loaded", lb_stale_us=2.0), hedged_all, 1.0),
+            (48, dict(far_fraction=0.5, link_rate_mpps=200.0, **link), (0.0,), 1.0),
+            (63, dict(lb="weighted", host_weights=tuple(1.0 + (h % 3) for h in range(63))),
+             (0.0, 20.0, 80.0), 1.0),
+            (64, dict(lb="least-loaded", lb_stale_us=2.0, far_fraction=0.25,
+                      link_rate_mpps=400.0, **link), hedged_all, 1.0),
+            (5, {}, hedged_all, 0.05),
+            (40, dict(lb="least-loaded", lb_stale_us=2.0), hedged_all, 0.05)):
+        pts = [dict(p, rate_mpps=p["rate_mpps"] * load)
+               for p in _points(hosts, hedges, True, StepSchedule)]
+        cases.append((FleetGrid.of_points(pts, fleet=FleetConfig(n_hosts=hosts, **kw)),
+                      dataclasses.replace(cfg, duration_us=250.0), 0.5, {}))
+    routes, kinds, edge_stops = set(), set(), 0
     for fgrid, c, slot_us, replace in cases:
         args, params, fparams = fleet_adaptive_inputs(fgrid, c, slot_us, "cuda")
         params = dataclasses.replace(params, **replace)
@@ -570,10 +781,13 @@ def test_kernel_equals_plain_version_on_the_card():
         if slot_us == 10.0 or replace:
             assert paced, (fparams.n_hosts, slot_us, replace)
         kinds |= {k for k, on in (("early stop", early), ("paced", paced)) if on}
+        if early:
+            edge_stops += int((plain["n_steps"].long() % STAGE == 0).sum())
         for name in (*STAT_NAMES, *POINT_NAMES):
             assert torch.equal(out[name], plain[name]), (fparams.n_hosts, slot_us, name)
     assert routes == {(4, q, r) for q in (1, 4) for r in ("ring", "scratch")}
     assert kinds == {"early stop", "paced"}
+    assert edge_stops > 0
 
 
 def _gaps(got, want):
