@@ -369,60 +369,82 @@ def phase_card() -> None:
             if lay["smem_bytes"] > 232_448:
                 fail(f"adaptive_sweep_kernel<4, {q}>'s ring takes {lay['smem_bytes']} B; want "
                      "at most 227 KB")
-    # S3: the (M_MAX, Q_MAX) builds <4, 1> and <4, 4> of each route, one
-    # block a point, built with -fmad=false; none may spill.  The ring route
-    # (up to 256 hosts: consumer and producer warps) takes its ring as
-    # dynamic shared memory, sized per launch; the scratch route (beyond 256
-    # hosts) none
+    # S3: the (M_MAX, Q_MAX) builds <4, 1> and <4, 4> of each route, built
+    # with -fmad=false; none may spill.  The ring route (up to 256 hosts, one
+    # block a point: consumer and producer warps) and the cluster route (up
+    # to 256 K_max hosts, a cluster of 8 such blocks a point, 32 K ring lanes
+    # a block, one build per K = 2 .. K_max) take their ring as dynamic
+    # shared memory, sized per launch, beside their static shared memory;
+    # the scratch route (beyond) none. The cluster route's exchange probe
+    # builds beside them
     kernels = ptxas_kernels(_build.BUILD_INFO["fleet_sweep.cu"]["log"])
     for name, (regs, spills, smem) in kernels.items():
         log(f"  {name}: {regs} registers, {spills} bytes of spill stores + loads, {smem} "
             "bytes of static shared memory")
-    want = {f"{k}<4, {q}>" for k in ("fleet_sweep_kernel", "fleet_scratch_kernel")
-            for q in (1, 4)}
-    if set(kernels) != want or any(spills for _, spills, _ in kernels.values()):
-        fail(f"want the 4 fleet sweep builds (fleet_sweep_kernel and fleet_scratch_kernel, "
-             f"<4, 1> and <4, 4>), none spilling; ptxas gave {kernels}")
+    want = ({f"{k}<4, {q}>" for k in ("fleet_sweep_kernel", "fleet_scratch_kernel")
+             for q in (1, 4)}
+            | {f"fleet_cluster_kernel<4, {q}, {k}>" for q in (1, 4)
+               for k in range(2, fleet_kernel.MAX_HOSTS_PER_LANE + 1)})
+    if set(kernels) != want | {"cluster_exchange_probe"} or any(
+            spills for _, spills, _ in kernels.values()):
+        fail(f"want the {len(want)} fleet sweep builds (fleet_sweep_kernel and "
+             f"fleet_scratch_kernel <4, 1> and <4, 4>, fleet_cluster_kernel at each K) and "
+             f"cluster_exchange_probe, none spilling; ptxas gave {kernels}")
+    static = {r: max(smem for name, (_, _, smem) in kernels.items() if name.startswith(k))
+              for r, k in (("ring", "fleet_sweep_kernel"), ("cluster", "fleet_cluster_kernel"),
+                           ("scratch", "fleet_scratch_kernel"))}
     stalls = 8   # the stall bit of the source's flags: the largest ring
-    for hosts in (4, 16, 64, 256, 1000):
+    top = 256 * fleet_kernel.MAX_HOSTS_PER_LANE
+    for hosts in (4, 16, 64, 256, 257, 1000, 1500, top, top + 1):
         lays = {q: fleet_kernel.layout(hosts, q, stalls) for q in (1, 4)}
         log(f"  fleet_sweep layout at {hosts} hosts, stalls on: <4, 1> {lays[1]}, <4, 4> "
             f"{lays[4]}")
         for q, lay in lays.items():
             ring = fleet_kernel.ring_bytes(hosts, q, True)
-            if lay["ring_bytes"] != ring or ring > 232_448 or (
-                    ring and lay["stage_slots"] != fleet_kernel.STAGE_SLOTS):
-                fail(f"fleet_sweep layout {lay} at {hosts} hosts: want the ring of "
-                     f"kernel.ring_bytes ({ring} bytes, {fleet_kernel.STAGE_SLOTS} slots a "
-                     "stage) in at most 227 KB of shared memory")
+            route = fleet_kernel.route(hosts)
+            if lay["ring_bytes"] != ring or ring + static[route] > 232_448 or (
+                    lay["route"] != route) or (ring and lay["stage_slots"] !=
+                                               fleet_kernel.STAGE_SLOTS):
+                fail(f"fleet_sweep layout {lay} at {hosts} hosts: want the {route} route, the "
+                     f"ring of kernel.ring_bytes ({ring} bytes, {fleet_kernel.STAGE_SLOTS} slots "
+                     f"a stage) and {static[route]} bytes of static shared memory in 227 KB")
     # S3b: the (M_MAX, Q_MAX) builds <4, 1> and <4, 4> of each route (up to
     # 256 hosts the ring of the event-jump sweep's fields, one ring build
-    # for each lane count 2^LW, LW = 0..8; beyond, the scratch), built with
-    # -fmad=false; none may spill.  The ring with the block's static shared
-    # memory must fit 227 KB at every host count
+    # for each lane count 2^LW, LW = 0..8; up to 256 K_max the cluster route;
+    # beyond, the scratch), built with -fmad=false; none may spill.  The ring
+    # with the block's static shared memory must fit 227 KB at every host
+    # count
     kernels = ptxas_kernels(_build.BUILD_INFO["fleet_adaptive_sweep.cu"]["log"])
     for name, (regs, spills, smem) in kernels.items():
         log(f"  {name}: {regs} registers, {spills} bytes of spill stores + loads, {smem} "
             "bytes of static shared memory")
     want = ({f"fleet_adaptive_kernel<4, {q}, {lw}>" for q in (1, 4) for lw in range(9)}
+            | {f"fleet_adaptive_cluster_kernel<4, {q}, {k}>" for q in (1, 4)
+               for k in range(2, fas_kernel.MAX_HOSTS_PER_LANE + 1)}
             | {f"fleet_adaptive_scratch_kernel<4, {q}>" for q in (1, 4)})
     if set(kernels) != want or any(spills for _, spills, _ in kernels.values()):
-        fail(f"want the 20 fleet_adaptive_sweep builds (fleet_adaptive_kernel <4, 1> and "
-             f"<4, 4> at each of 9 lane counts, fleet_adaptive_scratch_kernel <4, 1> and "
-             f"<4, 4>), none spilling; ptxas gave {kernels}")
-    static = max(smem for name, (_, _, smem) in kernels.items()
-                 if name.startswith("fleet_adaptive_kernel"))
-    for hosts in (1, 4, 16, 33, 64, 256, 257, 1000):
+        fail(f"want the {len(want)} fleet_adaptive_sweep builds (fleet_adaptive_kernel <4, 1> "
+             f"and <4, 4> at each of 9 lane counts, fleet_adaptive_cluster_kernel at each K, "
+             f"fleet_adaptive_scratch_kernel), none spilling; ptxas gave {kernels}")
+    static = {r: max(smem for name, (_, _, smem) in kernels.items() if name.startswith(k))
+              for r, k in (("ring", "fleet_adaptive_kernel"),
+                           ("cluster", "fleet_adaptive_cluster_kernel"),
+                           ("scratch", "fleet_adaptive_scratch_kernel"))}
+    top = 256 * fas_kernel.MAX_HOSTS_PER_LANE
+    for hosts in (1, 4, 16, 33, 64, 256, 257, 1000, 1500, top, top + 1):
         lays = {q: fas_kernel.layout(hosts, q, stalls) for q in (1, 4)}
         log(f"  fleet_adaptive_sweep layout at {hosts} hosts, stalls on: <4, 1> {lays[1]}, "
             f"<4, 4> {lays[4]}")
         for q, lay in lays.items():
             ring = fas_kernel.ring_bytes(hosts, q, True)
-            if lay["ring_bytes"] != ring or ring + static > 232_448 or (
-                    ring and lay["stage_steps"] != fas_kernel.STAGE_STEPS):
-                fail(f"fleet_adaptive_sweep layout {lay} at {hosts} hosts: want the ring of "
-                     f"kernel.ring_bytes ({ring} bytes, {fas_kernel.STAGE_STEPS} steps a "
-                     f"stage) and {static} bytes of static shared memory in 227 KB")
+            route = fas_kernel.route(hosts)
+            if lay["ring_bytes"] != ring or ring + static[route] > 232_448 or (
+                    lay["route"] != route) or (ring and lay["stage_steps"] !=
+                                               fas_kernel.STAGE_STEPS):
+                fail(f"fleet_adaptive_sweep layout {lay} at {hosts} hosts: want the {route} "
+                     f"route, the ring of kernel.ring_bytes ({ring} bytes, "
+                     f"{fas_kernel.STAGE_STEPS} steps a stage) and {static[route]} bytes of "
+                     "static shared memory in 227 KB")
     from repro_torch.runtime.batched import sweep_inputs
     for name, grid, cfg, slot_us in sweep_settings()[:2]:       # quiet; stalls on
         _, params = sweep_inputs(grid, cfg, slot_us, "cpu")
@@ -443,15 +465,16 @@ def ptxas_kernels(log_text: str) -> dict[str, tuple[int, int, int]]:
         if m := re.search(r"Compiling entry function '.*?(flash_fwd_\w+?|decode_split_mma_bf16|"
                           r"decode_split|decode_combine|ssd_chunk_state|ssd_chunk_out|"
                           r"slot_sweep_kernel|adaptive_sweep_kernel|fleet_sweep_kernel|"
-                          r"fleet_scratch_kernel|fleet_adaptive_kernel|"
-                          r"fleet_adaptive_scratch_kernel)"
+                          r"fleet_scratch_kernel|fleet_cluster_kernel|fleet_adaptive_kernel|"
+                          r"fleet_adaptive_scratch_kernel|fleet_adaptive_cluster_kernel)"
                           r"I((?:f|13__nv_bfloat16|S\d*_)*)((?:Li\d+E)+)", ln):
             # a repeated type is a substitution (S<n>_); only bf16 repeats
             types = ["float" if t == "f" else "bf16"
                      for t in re.findall(r"f|13__nv_bfloat16|S\d*_", m.group(2))]
             ints = re.findall(r"Li(\d+)E", m.group(3))
             name, spills = f"{m.group(1)}<{', '.join([*types, *ints])}>", 0
-        elif m := re.search(r"Compiling entry function '.*?(ssd_state_pass)", ln):
+        elif m := re.search(r"Compiling entry function '.*?(ssd_state_pass|"
+                            r"cluster_exchange_probe)", ln):
             name, spills = m.group(1), 0
         elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
             spills = int(m.group(1)) + int(m.group(2))
@@ -2452,15 +2475,22 @@ def fleet_compare_cases():
     (a lone lane; its duplicates come back to it), 3 (weighted, a
     bottleneck link), 4 (least-loaded refreshing every 10 slots, both
     builds), 33 (least-loaded, link: two warps), 64 (uniform, link), each
-    over 2,000 slots (1,000 at 33 hosts), and 1,500 hosts (more than a
-    block's 256 lanes: six hosts a lane, their states in global scratch)
-    over 300 slots; m x n_queues 1-4 (<4, 4>) or one queue a point (<4, 1>,
-    the build of benchmarks/fleet.py's grids)."""
+    over 2,000 slots (1,000 at 33 hosts); beyond a block's 256 lanes the
+    cluster route (a cluster of 8 blocks a point, K hosts a lane) at 1,000
+    hosts (the scale row's, uniform, one queue), 1,500 (six hosts a lane)
+    and its largest H (K_max hosts a lane), and one host past it, both
+    builds (the scratch route), over 200-300 slots; m x n_queues 1-4 (<4,
+    4>) or one queue a point (<4, 1>, the build of benchmarks/fleet.py's
+    grids)."""
+    from repro_torch.kernels.fleet_sweep import kernel as fleet_kernel
     from repro_torch.runtime import FleetConfig, FleetGrid, SimRunConfig, SleepModel
     tail = SleepModel(base_us=2.8, slope=0.027, sigma_us=0.5, tail_prob=0.01,
                       tail_mean_us=40.0)
     noisy = dict(BAND_NOISY, stall_rate_per_us=1.0 / 400.0)
     link = dict(near_cost_us=1.0, far_cost_us=5.0)
+    big = dict(lb="least-loaded", lb_stale_us=2.0, far_fraction=0.5, link_rate_mpps=10_000.0,
+               **link)
+    top = 256 * fleet_kernel.MAX_HOSTS_PER_LANE
     cases = []
     for hosts, kw, slots, one_queue in (
             (1, dict(near_cost_us=2.0), 2_000, True),
@@ -2471,8 +2501,11 @@ def fleet_compare_cases():
             (33, dict(lb="least-loaded", lb_stale_us=5.0, far_fraction=0.5,
                       link_rate_mpps=300.0, **link), 1_000, False),
             (64, dict(far_fraction=0.25, link_rate_mpps=400.0, **link), 2_000, True),
-            (1_500, dict(lb="least-loaded", lb_stale_us=2.0, far_fraction=0.5,
-                         link_rate_mpps=10_000.0, **link), 300, False)):
+            (1_000, {}, 300, True),
+            (1_500, big, 300, False),
+            (top, big, 200, False),
+            (top + 1, big, 200, True),
+            (top + 1, big, 200, False)):
         cfg = SimRunConfig(duration_us=0.5 * slots, sleep_model=tail, queue_capacity=64,
                            **noisy)
         fleet = FleetConfig(n_hosts=hosts, **kw)
@@ -2551,9 +2584,11 @@ def phase_compare_fleet() -> dict:
     from repro_torch.runtime.fleet import fleet_inputs
     t0 = time.perf_counter()
     log("phase 2: fleet_sweep (S3) vs plain version: 1, 3, 4, 33, 64 hosts over 1,000-2,000 "
-        "slots and 1,500 hosts over 300, each balancer, topology, hedge deadlines 0/20/80, "
-        "every noise family, schedules, m x n_queues 1-4 and one queue; the ring's edges; "
-        "every output bit-equal; then the per-host rule against S1's kernel")
+        "slots (the ring route), 1,000, 1,500 and the cluster route's largest H over 200-300 "
+        "(the cluster route) and one host more (the scratch route), each balancer, topology, "
+        "hedge deadlines 0/20/80, every noise family, schedules, m x n_queues 1-4 and one "
+        "queue; the ring's edges; every output bit-equal; then the per-host rule against S1's "
+        "kernel")
     fleet_sweep.launches = 0
     fleet_sweep.launches_by_build = {}
     cases = fleet_compare_cases()
@@ -2575,7 +2610,8 @@ def phase_compare_fleet() -> dict:
         hedged = float(out["hedge_dup"].sum())
         ok = len(exact) == len(FLEET_STATS) and finite and float(out["wakeups"].sum()) > 0
         log(f"  {name}: {len(fgrid)} points x {fparams.n_hosts} hosts, build <{build[0]}, "
-            f"{build[1]}>, flags {params.flags}, {params.live_slots()} slots: max_abs_err="
+            f"{build[1]}> {build[2]}, flags {params.flags}, {params.live_slots()} slots: "
+            "max_abs_err="
             f"{abs_err:.3e}; bit-equal: {len(exact)} of {len(FLEET_STATS)} outputs"
             f"{'' if len(exact) == len(FLEET_STATS) else ' ' + str(sorted(set(FLEET_STATS) - set(exact)))}"
             f"; hedge_dup {hedged:.1f}, topo_area {float(out['topo_area'].sum()):.1f}; plain "
@@ -2584,9 +2620,11 @@ def phase_compare_fleet() -> dict:
             failed.append(name)
         max_abs = max(max_abs, abs_err)
     builds = set(fleet_sweep.launches_by_build)
-    if fleet_sweep.launches != len(cases) or builds != {(4, 1), (4, 4)}:
+    want = {(4, q, r) for q in (1, 4) for r in ("ring", "cluster", "scratch")}
+    if fleet_sweep.launches != len(cases) or builds != want:
         fail(f"fleet_sweep counted {fleet_sweep.launches} launches "
-             f"({fleet_sweep.launches_by_build}) for {len(cases)} calls of two builds")
+             f"({fleet_sweep.launches_by_build}) for {len(cases)} calls; want the six builds "
+             f"{sorted(want)}")
     # the ring's edges: every output bit-equal
     edges = fleet_edge_cases()
     edge_failed = []
@@ -2777,13 +2815,14 @@ def phase_time_fleet(compared: set, compared_s1: set) -> list[dict]:
             "name": name, "ms": ms, "plain_ms": plain_ms, "plain_slots": cut.live_slots(),
             "library_ms": None, "launches": 1, "bound_ms": b["bound_ms"],
             "bound_by": b["bound_by"], "bound_resource": b["bound_resource"],
-            "host_slots_per_s": rate, "build": f"<{build[0]}, {build[1]}>", "s1_ms": s1_ms,
+            "host_slots_per_s": rate, "build": f"<{build[0]}, {build[1]}> {build[2]}",
+            "route": build[2], "s1_ms": s1_ms,
             "shape": f"{len(fgrid)} points x {fparams.n_hosts} hosts x {n_live} slots of "
                      f"{slot_us} us, lb {fgrid.fleet.lb}, hedge {list(FLEET_HEDGES)}, stalls; "
                      f"plain_ms over the first {cut.live_slots()} slots",
             "out": out})
         log(f"  {name}: {len(fgrid)} points x {fparams.n_hosts} hosts x {n_live} slots, build "
-            f"<{build[0]}, {build[1]}>: kernel {ms:.3f} ms ({rate:.4e} host-slots/s, "
+            f"<{build[0]}, {build[1]}> {build[2]}: kernel {ms:.3f} ms ({rate:.4e} host-slots/s, "
             f"{1e3 * ms / n_live:.3f} us a slot); bit-equal to the plain version over "
             f"{cut.live_slots()} slots on {len(FLEET_STATS)} of {len(FLEET_STATS)} outputs, "
             f"hedge_dup {float(kern['hedge_dup'].sum()):.1f}; plain {plain_ms:.1f} ms measured for "
@@ -2857,6 +2896,38 @@ def phase_fleet_source_ab(sources: list[str]) -> list[dict]:
         rows.append({"name": name, "points": len(fgrid), "hosts": fparams.n_hosts,
                      "slots": n_live, "times_ms": times, "bit_equal": equal})
     log(f"fleet A/B took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def phase_cluster_exchange() -> list[dict]:
+    """The cluster route's exchange alone (``fleet_cluster_exchange_probe``
+    in csrc/fleet_sweep.cu): one cluster of 8 blocks runs ``n`` exchanges in
+    turn, each feeding the next, timed as the median of 5 CUDA-event
+    timings over n: mode 0 the bare push of a 16-byte record from every
+    block into every block's shared memory (st.async, whose bytes complete
+    that block's mbarrier) and the wait for it (one warp a block); modes 1
+    and 2 the
+    route's whole reduction (the in-turn fold of K warps' records, the
+    32-lane butterfly, the exchange, the 8-group tree) of a sum and of the
+    hedge record, at K = 2, 4 (the scale row) and 7 hosts a lane.  Returns
+    the rows."""
+    from repro_torch.kernels.fleet_sweep import kernel as fleet_kernel
+    n = 20_000
+    t0 = time.perf_counter()
+    log(f"cluster exchange probe: one cluster of 8 blocks, {n} exchanges in turn; us an exchange")
+    rows = []
+    for mode, name in ((0, "bare 16-byte push and wait"), (1, "reduction of a sum"),
+                       (2, "reduction of the hedge record")):
+        for k in ((1,) if mode == 0 else (2, 4, 7)):
+            out = torch.empty(8 * 32 * k, dtype=torch.float32, device="cuda")
+            ms = time_ms(fleet_kernel.exchange_probe, mode, k, n, out, iters=5, warmup=1)
+            if not bool(torch.isfinite(out).all()):
+                fail(f"cluster exchange probe mode {mode} at K={k}: non-finite output")
+            rows.append({"name": name, "mode": mode, "hosts_per_lane": k, "exchanges": n,
+                         "ms": ms, "us_per_exchange": 1e3 * ms / n})
+            log(f"  {name}{'' if mode == 0 else f', K={k} ({32 * k} threads a block)'}: "
+                f"{ms:.3f} ms for {n} = {1e3 * ms / n:.4f} us an exchange")
+    log(f"  cluster exchange probe took {time.perf_counter() - t0:.1f} s")
     return rows
 
 
@@ -3027,8 +3098,14 @@ def phase_fleet_main(compared: set, timed: list[dict]) -> dict:
         f"{busy_p999:.1f} us): {'ok' if ok else 'FAIL'}")
     if not ok:
         fail("the hedged Metronome fleet does not beat the busy-poll fleet on cores and p99.9")
+    by_route = {r: sum(n for b, n in fleet_sweep.launches_by_build.items() if b[2] == r)
+                for r in ("ring", "cluster", "scratch")}
+    if by_route != {"ring": len(settings) - 1, "cluster": 1, "scratch": 0}:
+        fail(f"fleet_bench launched the routes {by_route}; want the ring route for each size x "
+             "balancer and the cluster route for the scale row")
     log(f"  main path (S3) took {time.perf_counter() - t0:.1f} s")
-    return {"launches": launches["fleet_sweep"], "host_s": host_s, "busy_mean": busy_mean,
+    return {"launches": launches["fleet_sweep"], "by_route": by_route, "host_s": host_s,
+            "busy_mean": busy_mean,
             "points": {name: fleet_point_rows(fs) for name, fs, _ in results},
             "verdict": {"n_hosts": hosts, "hedge_deadline_us": best_d, "cpu_cores": best_cpu,
                         "p999_us": best_p999, "busy_poll_p999_us": busy_p999}}
@@ -3059,8 +3136,11 @@ def fleet_adaptive_compare_cases():
     points, every other point on a step schedule, m x n_queues 1-4 or one
     queue a point: 1 host (a lone lane; its duplicates come back to it), 3
     (weighted, link), 4 (least-loaded), 33 (least-loaded, link: two warps),
-    64 (uniform, link), 256 (least-loaded, eight warps) and 257 (the scratch
-    route) over 1,000-2,000 steps of 0.5 us (up to 4 hosts the runs stop
+    64 (uniform, link), 256 (least-loaded, eight warps) and 257 (the
+    cluster route: a cluster of 8 blocks a point, two hosts a lane) over
+    1,000-2,000 steps of 0.5 us, 1,000 (the scale row's, uniform, one
+    queue), 1,500 and the cluster route's largest H over 300, and one host
+    past it, both builds (the scratch route), over 200 (up to 4 hosts the runs stop
     more than three stages before their budget's end); slots of 10 us, whose
     budget's tail paces; budgets on the ring's stage edges; 33, 48, 63 and 64
     hosts (two consumer warps, every reduction across the named barrier) over
@@ -3075,6 +3155,9 @@ def fleet_adaptive_compare_cases():
                       tail_mean_us=40.0)
     noisy = dict(BAND_NOISY, stall_rate_per_us=1.0 / 400.0)
     link = dict(near_cost_us=1.0, far_cost_us=5.0)
+    big = dict(lb="least-loaded", lb_stale_us=2.0, far_fraction=0.5, link_rate_mpps=10_000.0,
+               **link)
+    top = 256 * fas_kernel.MAX_HOSTS_PER_LANE
     cases = []
     for hosts, kw, steps, one_queue in (
             (1, dict(near_cost_us=2.0), 2_000, True),
@@ -3086,8 +3169,12 @@ def fleet_adaptive_compare_cases():
                       link_rate_mpps=300.0, **link), 1_000, False),
             (64, dict(far_fraction=0.25, link_rate_mpps=400.0, **link), 1_000, True),
             (256, dict(lb="least-loaded", lb_stale_us=5.0), 1_000, False),
-            (257, dict(lb="least-loaded", lb_stale_us=2.0, far_fraction=0.5,
-                       link_rate_mpps=10_000.0, **link), 1_000, False)):
+            (257, big, 1_000, False),
+            (1_000, {}, 300, True),
+            (1_500, big, 300, False),
+            (top, big, 300, False),
+            (top + 1, big, 200, True),
+            (top + 1, big, 200, False)):
         fleet = FleetConfig(n_hosts=hosts, **kw)
         pts = fleet_points(hosts, (0.0, 20.0, 80.0), True, one_queue)
         label = (f"{hosts} host{'s' if hosts > 1 else ''}, {fleet.lb}"
@@ -3098,7 +3185,7 @@ def fleet_adaptive_compare_cases():
         # up to 4 hosts the run stops far inside its budget (the early stop)
         cases.append((f"{label}, {steps} slots of 0.5 us", FleetGrid.of_points(pts, fleet=fleet),
                       cfg, 0.5, {}, "early" if hosts <= 4 else None))
-        if hosts in (3, 257):   # at 257 hosts with one queue a point: <4, 1> scratch
+        if hosts in (3, 257):   # at 257 hosts with one queue a point: <4, 1> cluster
             paced = [dict(p, n_queues=1) for p in pts] if hosts == 257 else pts
             cases.append((f"{label}{', one queue' if hosts == 257 else ''}, 200 slots of 10 us "
                           "(tail pacing)", FleetGrid.of_points(paced, fleet=fleet),
@@ -3153,8 +3240,10 @@ def phase_compare_fleet_adaptive() -> dict:
     from repro_torch.kernels.fleet_adaptive_sweep.ops import POINT_NAMES, STAT_NAMES
     from repro_torch.runtime.fleet import fleet_adaptive_inputs
     t0 = time.perf_counter()
-    log("phase 2: fleet_adaptive_sweep (S3b) vs plain version: 1, 3, 4, 33, 64, 256 and 257 "
-        "hosts over 1,000-2,000 steps of 0.5 us, each balancer, the link, hedge deadlines "
+    log("phase 2: fleet_adaptive_sweep (S3b) vs plain version: 1, 3, 4, 33, 64, 256 (the ring "
+        "route) and 257 hosts over 1,000-2,000 steps of 0.5 us, 1,000, 1,500 and the cluster "
+        "route's largest H over 300 (the cluster route), one host more (the scratch route) over "
+        "200, each balancer, the link, hedge deadlines "
         "0/20/80, every noise family, schedules, m x n_queues 1-4 and one queue; tail pacing; "
         "an early stop; budgets on the ring's stage edges; 33, 48, 63 and 64 hosts; equal "
         "backlogs; a refresh after a hedged step; the link without hedging; every output "
@@ -3198,10 +3287,10 @@ def phase_compare_fleet_adaptive() -> dict:
             failed.append(name)
         max_abs = max(max_abs, abs_err)
     builds = set(fleet_adaptive_sweep.launches_by_build)
-    want = {(4, q, r) for q in (1, 4) for r in ("ring", "scratch")}
+    want = {(4, q, r) for q in (1, 4) for r in ("ring", "cluster", "scratch")}
     if fleet_adaptive_sweep.launches != len(cases) or builds != want:
         fail(f"fleet_adaptive_sweep counted {fleet_adaptive_sweep.launches} launches "
-             f"({fleet_adaptive_sweep.launches_by_build}) for {len(cases)} calls; want the four "
+             f"({fleet_adaptive_sweep.launches_by_build}) for {len(cases)} calls; want the six "
              f"builds {sorted(want)}")
     if failed:
         fail(f"fleet_adaptive_sweep disagrees with its plain version ({'; '.join(failed)})")
@@ -3491,6 +3580,11 @@ def phase_fleet_adaptive_main(compared: set, timed: list[dict], s3_main: dict) -
         fail(f"fleet_bench (adaptive) launched {launches}; want one fleet_adaptive_sweep launch "
              f"for each of its {len(settings)} simulate_fleet calls")
     check_builds_compared("the fleet's adaptive main path", compared, fleet_adaptive_sweep)
+    by_route = {r: sum(n for b, n in fleet_adaptive_sweep.launches_by_build.items() if b[2] == r)
+                for r in ("ring", "cluster", "scratch")}
+    if by_route != {"ring": len(settings) - 1, "cluster": 1, "scratch": 0}:
+        fail(f"fleet_bench (adaptive) launched the routes {by_route}; want the ring route for "
+             "each size x balancer and the cluster route for the scale row")
     verdicts = []
     busy_mean = s3_main["busy_mean"]
     for (name, fs, wall), row in zip(results, timed, strict=True):
@@ -3584,7 +3678,7 @@ def phase_fleet_adaptive_main(compared: set, timed: list[dict], s3_main: dict) -
     if bad or not all(exact.values()):
         fail("S3b leaves the reference's parity bands against S3a on its parity grid")
     log(f"  main path (S3b) took {time.perf_counter() - t0:.1f} s")
-    return {"launches": launches["fleet_adaptive_sweep"], "host_s": host_s,
+    return {"launches": launches["fleet_adaptive_sweep"], "by_route": by_route, "host_s": host_s,
             "verdict": {"n_hosts": hosts, "hedge_deadline_us": best_d, "cpu_cores": best_cpu,
                         "p999_us": best_p999, "busy_poll_p999_us": busy_p999},
             "parity_grid": {"s3b_steps": a.n_steps.tolist(), "s3a_slots": f.n_steps.tolist(),
@@ -3685,6 +3779,7 @@ def main() -> int:
     calibration = phase_calibration_main(served["engine"], s2_cmp["builds"])
     s3_cmp = phase_compare_fleet()
     s3_rows = phase_time_fleet(s3_cmp["builds"], sweep_cmp["builds"])
+    exchange = phase_cluster_exchange()
     phase_fleet_band(s3_cmp["builds"])
     fleet_main = phase_fleet_main(s3_cmp["builds"], s3_rows)
     s3b_cmp = phase_compare_fleet_adaptive()
@@ -3768,17 +3863,30 @@ def main() -> int:
     # S3, the fleet sweep: launches are its main path's (fleet_bench: one
     # simulate_fleet a size x balancer, and the scale row); its numbers at
     # the verdict's shape (64 hosts, uniform), the other rows in "rows"
+    # The ring route (fleet_sweep_kernel, up to 256 hosts) and the cluster
+    # route (fleet_cluster_kernel, the scale row's 1,000 hosts) are two
+    # kernels: each with its launches on the main path, by route
     row = next(r for r in s3_rows if r["name"] == f"H{FLEET_SIZES[-1]}/uniform")
     extra = ("build", "bound_resource", "host_slots_per_s", "plain_slots", "s1_ms")
     kernels.append({
         "name": "fleet_sweep", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fleet_sweep.cu",
-        "replaces": "src/repro/runtime/fleet.py:234", "launches": fleet_main["launches"],
+        "replaces": "src/repro/runtime/fleet.py:234",
+        "launches": fleet_main["by_route"]["ring"],
         "max_abs_err": s3_cmp["max_abs_err"], **{k: row[k] for k in keys},
         "shape": f"{row['name']}: {row['shape']}", **{k: row[k] for k in extra},
         "verdict": fleet_main["verdict"],
         "rows": [{k: r[k] for k in ("name", "shape", *keys, *extra)} for r in s3_rows
-                 if r is not row]})
+                 if r is not row and r["route"] == "ring"]})
+    row = next(r for r in s3_rows if r["route"] == "cluster")
+    kernels.append({
+        "name": "fleet_sweep (cluster)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fleet_sweep.cu",
+        "replaces": "src/repro/runtime/fleet.py:234",
+        "launches": fleet_main["by_route"]["cluster"],
+        "max_abs_err": s3_cmp["max_abs_err"], **{k: row[k] for k in keys},
+        "shape": f"{row['name']}: {row['shape']}", **{k: row[k] for k in extra},
+        "exchange": exchange})
     # S3b, the fleet sweep by event jumps: launches are its main path's
     # (fleet_bench through simulate_fleet(stepping="adaptive")); its numbers
     # at the verdict's shape (64 hosts, uniform), the other rows in "rows",
@@ -3789,12 +3897,21 @@ def main() -> int:
     kernels.append({
         "name": "fleet_adaptive_sweep", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fleet_adaptive_sweep.cu",
-        "replaces": "src/repro/runtime/fleet.py:497", "launches": s3b_main["launches"],
+        "replaces": "src/repro/runtime/fleet.py:497",
+        "launches": s3b_main["by_route"]["ring"],
         "max_abs_err": s3b_cmp["max_abs_err"], **{k: row[k] for k in keys},
         "shape": f"{row['name']}: {row['shape']}", **{k: row[k] for k in extra},
         "verdict": s3b_main["verdict"], "parity_grid": s3b_main["parity_grid"],
         "rows": [{k: r[k] for k in ("name", "shape", *keys, *extra)} for r in s3b_rows
-                 if r is not row]})
+                 if r is not row and r["build"].endswith("ring")]})
+    row = next(r for r in s3b_rows if r["build"].endswith("cluster"))
+    kernels.append({
+        "name": "fleet_adaptive_sweep (cluster)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fleet_adaptive_sweep.cu",
+        "replaces": "src/repro/runtime/fleet.py:497",
+        "launches": s3b_main["by_route"]["cluster"],
+        "max_abs_err": s3b_cmp["max_abs_err"], **{k: row[k] for k in keys},
+        "shape": f"{row['name']}: {row['shape']}", **{k: row[k] for k in extra}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -92,20 +92,35 @@
 //     after each wait on `empty` and leaves once the consumers stopped before
 //     that stage (the event-jump sweep's protocol, adaptive_sweep.cu's note
 //     3: one release, no further arrival).
-//  5. Beyond 256 hosts (the scratch route): a thread holds hosts j, j + 256,
-//     ..., whose states live in a global scratch (point, word, host),
-//     coalesced across the block, one host loaded and stored at a time, the
-//     draws made inline, the reductions of 3 over all 256 threads (the hedge
-//     stage's two in turn, as fleet_sweep.cu's scratch route).
+//  5. Beyond the cluster route (the scratch route): a thread holds hosts j,
+//     j + 256, ..., whose states live in a global scratch (point, word,
+//     host), coalesced across the block, one host loaded and stored at a
+//     time, the draws made inline, the reductions of 3 over all 256 threads
+//     (the hedge stage's two in turn, as fleet_sweep.cu's scratch route).
 //  6. M_MAX and Q_MAX are template parameters (<4, 1> and <4, 4>), and on
 //     the ring route log2 W (0-8); lanes past a point's m or n_queues add
 //     exact zeros, and the jump and the arrivals skip the queues past its
 //     n_queues.
+//  7. Beyond 256 hosts (the cluster route, up to 256 kMaxHostsPerLane):
+//     fleet_sweep.cu's cluster route (its note 6) around this file's host
+//     body.  A point is a cluster of 8 blocks; block g's consumer warp k runs
+//     host 32 g + i + 256 k in lane i, with its state in registers; its four
+//     producer warps fill a ring of this file's layout with the block's
+//     hosts' values (32 K lanes a row); each host reduction (the jump's two
+//     minima every step; the hedge tree, or the far rack's sum, after the
+//     host step; the softmax's max and sum on refresh steps) is one exchange
+//     of the 8 blocks' partials through distributed shared memory, in
+//     host_sum's order.  The remaining time is alike in every block, so
+//     every block stops at the same step, each with the early-stop protocol
+//     of 4 on its own ring.  K_max = 7: at <4, 4> with stalls a step is 14
+//     fields, so two stages of 8 steps take 28,672 K bytes, and with the K
+//     warps' records (1 KB a warp) K = 8 would not fit 227 KB.
 
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -336,11 +351,13 @@ __device__ __forceinline__ bool before(float v, int i, float w, int j) {
 struct MaxOf {
   float v;
   __device__ void butterfly(int off) { v = fmaxf(v, __shfl_xor_sync(kFull, v, off)); }
+  __device__ void fold(const MaxOf& o) { v = fmaxf(v, o.v); }
 };
 
 struct SumOf {
   float v;
   __device__ void butterfly(int off) { v = v + __shfl_xor_sync(kFull, v, off); }
+  __device__ void fold(const SumOf& o) { v = v + o.v; }
 };
 
 // the jump's two minima: min(wake, drain-out) and min(fill, next stall)
@@ -349,6 +366,10 @@ struct MinOf2 {
   __device__ void butterfly(int off) {
     a = fminf(a, __shfl_xor_sync(kFull, a, off));
     b = fminf(b, __shfl_xor_sync(kFull, b, off));
+  }
+  __device__ void fold(const MinOf2& o) {
+    a = fminf(a, o.a);
+    b = fminf(b, o.b);
   }
 };
 
@@ -383,38 +404,47 @@ struct Hedge {
     if (!live) return {0.0f, 0.0f, INFINITY, INFINITY, 0.0f, 0.0f, 0x7fffffff, 0x7fffffff};
     return {dup_q, 0.0f, btot, INFINITY, dup_q, far_adm, h, 0x7fffffff};
   }
+  // this subtree and the other one, o, the subtree after it in the tree's
+  // order (the cluster route folds a lane's hosts in turn with it)
+  template <bool LINK>
+  __device__ void merge(const Hedge& o) {
+    if (LINK) far = far + o.far;
+    if (before(o.v1, o.i1, v1, i1)) {   // the other subtree holds the first
+      const bool mine = before(v1, i1, o.v2, o.i2);
+      v2 = mine ? v1 : o.v2;
+      i2 = mine ? i1 : o.i2;
+      v1 = o.v1;
+      i1 = o.i1;
+      d1 = o.d1;
+      excl = full + o.excl;
+    } else {
+      if (before(o.v1, o.i1, v2, i2)) {
+        v2 = o.v1;
+        i2 = o.i1;
+      }
+      excl = excl + o.full;
+    }
+    full = full + o.full;
+  }
   template <bool LINK>
   __device__ void combine(int off) {
-    const float o_full = __shfl_xor_sync(kFull, full, off);
-    const float o_excl = __shfl_xor_sync(kFull, excl, off);
-    const float o_v1 = __shfl_xor_sync(kFull, v1, off);
-    const float o_v2 = __shfl_xor_sync(kFull, v2, off);
-    const float o_d1 = __shfl_xor_sync(kFull, d1, off);
-    const int o_i1 = __shfl_xor_sync(kFull, i1, off);
-    const int o_i2 = __shfl_xor_sync(kFull, i2, off);
-    if (LINK) far = far + __shfl_xor_sync(kFull, far, off);
-    if (before(o_v1, o_i1, v1, i1)) {   // the other subtree holds the first
-      const bool mine = before(v1, i1, o_v2, o_i2);
-      v2 = mine ? v1 : o_v2;
-      i2 = mine ? i1 : o_i2;
-      v1 = o_v1;
-      i1 = o_i1;
-      d1 = o_d1;
-      excl = full + o_excl;
-    } else {
-      if (before(o_v1, o_i1, v2, i2)) {
-        v2 = o_v1;
-        i2 = o_i1;
-      }
-      excl = excl + o_full;
-    }
-    full = full + o_full;
+    Hedge o;
+    o.full = __shfl_xor_sync(kFull, full, off);
+    o.excl = __shfl_xor_sync(kFull, excl, off);
+    o.v1 = __shfl_xor_sync(kFull, v1, off);
+    o.v2 = __shfl_xor_sync(kFull, v2, off);
+    o.d1 = __shfl_xor_sync(kFull, d1, off);
+    o.i1 = __shfl_xor_sync(kFull, i1, off);
+    o.i2 = __shfl_xor_sync(kFull, i2, off);
+    if (LINK) o.far = __shfl_xor_sync(kFull, far, off);
+    merge<LINK>(o);
   }
 };
 
 template <bool LINK>
 struct HedgeTree : Hedge {
   __device__ void butterfly(int off) { combine<LINK>(off); }
+  __device__ void fold(const HedgeTree& o) { merge<LINK>(o); }
 };
 
 // Within one warp (W <= 32) the hedge tree runs as two passes over the same
@@ -526,6 +556,150 @@ __device__ __forceinline__ T reduce(T a, int threads, RedShared& sh, int& buf) {
       if (off < G) a.butterfly(off);
     }
     return a;
+  }
+}
+
+// ---- the cluster route's exchange (the design note, 7) ----------------------
+// A point is a cluster of kClusterBlocks blocks.  Block g holds host lanes
+// 32 g .. 32 g + 31 of W = 256, and its consumer warp k host 32 g + i + 256 k
+// in lane i, so that host_sum's order falls out of the layout: each lane's
+// hosts in turn (the warps' records through the block's shared memory, warp
+// 0 folding them in k order), the 32-lane tree (warp 0's butterfly), and the
+// tree over the 8 groups, which every block computes itself from the 8
+// partials pushed into its shared memory: every block ends with the same
+// bits, and no broadcast follows.
+
+// the block's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// every thread of the cluster, once before the loop (the barriers are
+// initialised) and once after (no block leaves while another can still
+// write into its shared memory); never inside the loop, where a producer
+// waiting on `empty` would deadlock it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n\tbarrier.cluster.wait.acquire;" ::: "memory");
+}
+
+// the address of the same shared variable in block `rank` of the cluster
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// an asynchronous store into another block's shared memory that completes
+// 4 bytes of the transaction count of that block's mbarrier (no release
+// fence: the barrier's phase completes when the bytes have landed)
+__device__ __forceinline__ void st_async(uint32_t addr, uint32_t v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];"
+               ::"r"(addr), "r"(v), "r"(bar) : "memory");
+}
+
+// this block's arrival on its own barrier, expecting `bytes` more
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// the wait on this block's barrier, acquiring at the cluster's scope
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+constexpr int kClusterBlocks = 8;     // blocks a point: the portable cluster size
+constexpr int kClusterLanes = 32;     // host lanes a block (kMaxLanes / kClusterBlocks)
+constexpr int kMaxHostsPerLane = 7;   // K at most: the ring of 32 K lanes fits beside the rest
+constexpr int kMaxRecord = 8;         // words of the largest reduction record (Hedge)
+constexpr int kClusterProducers = 4;  // producer warps a block
+
+// The exchange's shared memory, word-major (one bank a lane): the consumer
+// warps' records; the 8 blocks' partials, two buffers used in turn; a
+// barrier for each buffer, whose phase completes on this block's one
+// arrival (arrive.expect_tx of the 8 partials' bytes) and those bytes'
+// landing (st.async from every block).
+struct ClusterShared {
+  uint32_t leaf[kMaxHostsPerLane][kMaxRecord][kClusterLanes];
+  uint32_t part[2][kMaxRecord][kClusterBlocks];
+  __align__(8) uint64_t bar[2];
+};
+
+// One reduction over the point's hosts, among the block's 32 K consumer
+// threads (warp k, lane i holding host 32 g + i + 256 k); every consumer
+// thread of the cluster gets the result.  `xc` counts the exchanges (alike
+// in every consumer thread): exchange j uses part[j % 2] and bar[j % 2] at
+// parity (j / 2) % 2.  A block pushes exchange j + 1 only after each of its
+// warps has read exchange j's partials (their next records come after that,
+// and warp 0 folds them before it pushes), and it pushes j + 2 only after
+// the wait for j + 1, which every block's push of j + 1 passes, each after
+// its wait for j: so a buffer is free when it is written, and bytes never
+// land in a phase they do not belong to (bytes of j may land before this
+// block's expect_tx for j: the transaction count goes below zero, and the
+// phase still waits for the arrival).  The records too are free when
+// written: warp k writes its next record only after this exchange's wait,
+// which passes after warp 0's push, after its fold.  The pushes are
+// st.async (measured against st.shared::cluster and a remote release-arrive
+// with fleet_cluster_exchange_probe: 0.24 against 0.56 us an exchange).
+template <class T>
+__device__ __forceinline__ T cluster_reduce(T a, int K, ClusterShared& cs, int& xc) {
+  constexpr int N = sizeof(T) / 4;
+  static_assert(sizeof(T) % 4 == 0 && N <= kMaxRecord, "a record fits the exchange");
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = xc & 1;
+  const uint32_t parity = (xc >> 1) & 1;
+  ++xc;
+  uint32_t w[N];
+  if (warp > 0) {
+    memcpy(w, &a, sizeof(T));
+#pragma unroll
+    for (int n = 0; n < N; ++n) cs.leaf[warp][n][lane] = w[n];
+    asm volatile("bar.arrive %0, %1;" ::"r"(kRedBarrier), "r"(32 * K) : "memory");
+  } else {
+    if (lane == 0) mbar_expect_tx(smem_u32(&cs.bar[b]), kClusterBlocks * sizeof(T));
+    asm volatile("bar.sync %0, %1;" ::"r"(kRedBarrier), "r"(32 * K) : "memory");
+    for (int k = 1; k < K; ++k) {
+#pragma unroll
+      for (int n = 0; n < N; ++n) w[n] = cs.leaf[k][n][lane];
+      T o;
+      memcpy(&o, w, sizeof(T));
+      a.fold(o);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) a.butterfly(off);
+    if (lane < kClusterBlocks) {   // lane r pushes the block's partial into block r
+      memcpy(w, &a, sizeof(T));
+      const uint32_t g = cluster_rank();
+      const uint32_t dst = map_rank(smem_u32(&cs.part[b][0][g]), lane);
+      const uint32_t rbar = map_rank(smem_u32(&cs.bar[b]), lane);
+#pragma unroll
+      for (int n = 0; n < N; ++n) st_async(dst + 4 * kClusterBlocks * n, w[n], rbar);
+    }
+  }
+  mbar_wait_cluster(smem_u32(&cs.bar[b]), parity);
+#pragma unroll
+  for (int n = 0; n < N; ++n) w[n] = cs.part[b][n][lane & (kClusterBlocks - 1)];
+  memcpy(&a, w, sizeof(T));
+#pragma unroll
+  for (int off = kClusterBlocks / 2; off > 0; off >>= 1) a.butterfly(off);
+  return a;
+}
+
+__device__ __forceinline__ void cluster_init(ClusterShared& cs) {
+  if (threadIdx.x == 0) {
+    mbar_init(smem_u32(&cs.bar[0]), 1);
+    mbar_init(smem_u32(&cs.bar[1]), 1);
   }
 }
 
@@ -833,17 +1007,50 @@ __device__ __forceinline__ void write_point(const Clock& k, int pt, const Params
   ends[2 * P.n_points + pt] = P.duration - k.rem;
 }
 
-// ---- the ring route: producers ----------------------------------------------
+// ---- the two routes' host reductions -----------------------------------------
+
+// The ring route's: W = 2^LW lanes in one block (reduce<W>).
+template <int LW>
+struct BlockRoute {
+  static constexpr int kLanes = 1 << LW;
+  static constexpr bool kTwoPass = kLanes <= 32;   // the hedge tree's two passes (note 3)
+  int threads;
+  RedShared& sh;
+  int buf;
+  __device__ int row_stride() const { return kLanes; }
+  template <class T>
+  __device__ T over(T a) { return reduce<kLanes>(a, threads, sh, buf); }
+};
+
+// The cluster route's: W = 256 lanes over the cluster's blocks, K hosts a
+// lane (cluster_reduce); the ring's rows are the block's 32 K lanes.
+template <int KK>
+struct ClusterRoute {
+  static constexpr int kLanes = kMaxLanes;
+  static constexpr bool kTwoPass = false;
+  static constexpr int K = KK;
+  ClusterShared& cs;
+  int xc;
+  __device__ int row_stride() const { return 32 * K; }
+  template <class T>
+  __device__ T over(T a) { return cluster_reduce(a, K, cs, xc); }
+};
+
+// ---- the producers ------------------------------------------------------------
 
 // Producer lane `ptid` of `npt`: every state-free value of the stage's (step,
-// host) items ptid, ptid + npt, ... (item = step * H + host), until the
+// lane) items ptid, ptid + npt, ... (item = step * lanes + lane), until the
 // consumers stop (`stop`: the step they stopped at, INT_MAX while they run).
-template <int MM, int QQ>
-__device__ __forceinline__ void produce(int ptid, int npt, int pt, const Inputs& in, float* ring,
-                                        uint32_t full, uint32_t empty, const volatile int* stop,
-                                        const Params& P) {
+// On the ring route a lane is a host, in rows of W; on the cluster route (CL)
+// the block's 32 K lanes, lane 32 k + i holding host 32 rank + i + 256 k (a
+// host past H skipped).
+template <int MM, int QQ, bool CL>
+__device__ __forceinline__ void produce(int ptid, int npt, int pt, int rank, const Inputs& in,
+                                        float* ring, uint32_t full, uint32_t empty,
+                                        const volatile int* stop, const Params& P) {
   using L = Layout<MM, QQ>;
-  const int W = P.lanes, H = P.n_hosts;
+  const int W = CL ? 32 * P.hosts_per_lane : P.lanes, H = P.n_hosts;
+  const int lanes = CL ? W : H;
   const int nf = L::fields(P.flags);
   const int stage_floats = L::stage_floats(W, P.flags);
   const bool stall_on = P.flags & kStallOn;
@@ -856,11 +1063,13 @@ __device__ __forceinline__ void produce(int ptid, int npt, int pt, const Inputs&
     if (g * kStageSteps >= *stop) return;    // the consumers stopped before this stage
     float* tab = ring + (size_t)s * stage_floats;
     const int n = min(kStageSteps, P.n_run - g * kStageSteps);
-    for (int it = ptid; it < n * H; it += npt) {
-      const int k = it / H, h = it - k * H;
+    for (int it = ptid; it < n * lanes; it += npt) {
+      const int k = it / lanes, j = it - k * lanes;
+      const int h = CL ? 32 * rank + (j & 31) + 256 * (j >> 5) : j;
+      if (CL && h >= H) continue;
       Step<MM, QQ> x;
       draw_step<MM, QQ>(x, g * kStageSteps + k, m, lo + (uint32_t)h, hi, P);
-      float* row = tab + k * nf * W + h;
+      float* row = tab + k * nf * W + j;
 #pragma unroll
       for (int q = 0; q < QQ; ++q) row[(L::kZ + q) * W] = x.z[q];
 #pragma unroll
@@ -892,22 +1101,22 @@ __device__ __forceinline__ void load_step(Step<MM, QQ>& x, const float* row, int
   }
 }
 
-// ---- the ring route: the consumers (host lanes) -----------------------------
+// ---- the consumers (host lanes) ---------------------------------------------
 
-// Consumer thread `lane` of a point of W = 2^LW host lanes runs host h =
-// lane mod W (below 32 lanes every host runs in 32 / W lanes of the warp,
-// alike bit for bit, and its first copy writes the outputs); a host past H
-// holds the reductions' identities and writes nothing: the jumps, on the
-// producers' values.
-template <int MM, int QQ, int LW>
-__device__ __forceinline__ void consume(int lane, int pt, const Inputs& in, const float* ring,
-                                        uint32_t full, uint32_t empty, volatile int* stop,
-                                        RedShared& sh, const Params& P,
+// A consumer thread runs host h, whose step values sit at lane `row` of the
+// ring's rows (route.row_stride() lanes); `first` marks the copy that writes
+// the outputs (on the ring route below 32 lanes every host runs in 32 / W
+// lanes of the warp, alike bit for bit).  A host past H holds the
+// reductions' identities and writes nothing: the jumps, on the producers'
+// values, with the route's host reductions.
+template <int MM, int QQ, class R>
+__device__ __forceinline__ void consume(R& route, int h, int row, bool first, int pt,
+                                        const Inputs& in, const float* ring, uint32_t full,
+                                        uint32_t empty, volatile int* stop, const Params& P,
                                         float* __restrict__ stats, float* __restrict__ ends) {
   using L = Layout<MM, QQ>;
-  constexpr int W = 1 << LW;
-  const int H = P.n_hosts, threads = P.consumers;
-  const int h = lane & (W - 1);
+  const int W = route.row_stride();
+  const int H = P.n_hosts;
   const bool live = h < H;
   const int nf = L::fields(P.flags);
   const int stage_floats = L::stage_floats(W, P.flags);
@@ -921,7 +1130,6 @@ __device__ __forceinline__ void consume(int lane, int pt, const Inputs& in, cons
   const bool far = h < P.far_count;
   const float* edges = in.sched_edges + (size_t)pt * P.n_seg;
   const float* scales = in.sched_scales + (size_t)pt * P.n_seg;
-  int buf = 0;
 
   Host<MM, QQ> x;
   host_init(x, c, (uint32_t)in.seed_lo[pt] + (uint32_t)h, (uint32_t)in.seed_hi[pt],
@@ -961,9 +1169,9 @@ __device__ __forceinline__ void consume(int lane, int pt, const Inputs& in, cons
           for (int q = 0; q < QQ; ++q) b = q ? b + x.back[q] : x.back[q];
           k.next_ref = (floorf(now * P.inv_stale + kWakeEps) + 1.0f) * P.stale;
           const float xs = live ? -b * P.inv_soft : -INFINITY;
-          const float mx = reduce<W>(MaxOf{xs}, threads, sh, buf).v;
+          const float mx = route.over(MaxOf{xs}).v;
           const float e = live ? expf(xs - mx) : 0.0f;
-          const float den = reduce<W>(SumOf{e}, threads, sh, buf).v;
+          const float den = route.over(SumOf{e}).v;
           x.share = e / den;
         }
         ref_dt = k.next_ref - now;
@@ -974,7 +1182,7 @@ __device__ __forceinline__ void consume(int lane, int pt, const Inputs& in, cons
       float drain_q[QQ];
       float wd = INFINITY, fs = INFINITY;
       if (live) host_bounds(x, occ, lq, c.nq, now, P, wd, fs, drain_q);
-      const MinOf2 mins = reduce<W>(MinOf2{wd, fs}, threads, sh, buf);
+      const MinOf2 mins = route.over(MinOf2{wd, fs});
       bool forced;
       const float dt = clock_jump(k, t, mins.a, mins.b, seg_dt, ref_dt, P, forced);
       const float t_new = now + dt;
@@ -982,7 +1190,7 @@ __device__ __forceinline__ void consume(int lane, int pt, const Inputs& in, cons
       // every host's macro-slot at dt
       if (live) {
         Step<MM, QQ> d;
-        load_step(d, tab + j * nf * W + h, W, stall_on);
+        load_step(d, tab + j * nf * W + row, W, stall_on);
         host_step(x, occ, drain_q, d, lq, dt, t_new, c, P);
       }
 
@@ -994,7 +1202,7 @@ __device__ __forceinline__ void consume(int lane, int pt, const Inputs& in, cons
       int b1 = -1, b2 = -1;
       if (hedged) {
         Hedge r;
-        if constexpr (W <= 32) {
+        if constexpr (R::kTwoPass) {
           // the first pass's rounds (offsets W / 2, ..., 1) with the gate's
           // three parts between them, then the second pass
           Top2 a = Top2::leaf(live, h, x.btot, far_adm);
@@ -1002,7 +1210,7 @@ __device__ __forceinline__ void consume(int lane, int pt, const Inputs& in, cons
           float xg = 0.0f, den = 0.0f, gate = 0.0f;
 #pragma unroll
           for (int k = 0; k < 5; ++k) {
-            const int off = W >> (k + 1);
+            const int off = R::kLanes >> (k + 1);
             Top2 o;
             if (off) o = a.shfl(off);
             if (k == 0) xg = (x.btot * P.inv_mu - hedge_d) / hedge_den;
@@ -1016,7 +1224,7 @@ __device__ __forceinline__ void consume(int lane, int pt, const Inputs& in, cons
           DupSums d = {dup_q, 0.0f, dup_q};
 #pragma unroll
           for (int k = 0; k < 5; ++k) {
-            const int off = W >> (k + 1);
+            const int off = R::kLanes >> (k + 1);
             if (off) d.merge(d.shfl(off), (firsts >> k) & 1u);
           }
           r = {d.full, d.excl, a.v1, a.v2, d.d1, a.far, a.i1, a.i2};
@@ -1024,8 +1232,8 @@ __device__ __forceinline__ void consume(int lane, int pt, const Inputs& in, cons
           x.dup = live ? duplicates(x.adm, x.btot, hedge_d, hedge_den, P) : 0.0f;
           if (live) x.s[13] = x.s[13] + x.dup;
           const Hedge leaf = Hedge::leaf(live, h, x.btot, x.dup * c.q_recip, far_adm);
-          r = link ? static_cast<Hedge>(reduce<W>(HedgeTree<true>{leaf}, threads, sh, buf))
-                   : static_cast<Hedge>(reduce<W>(HedgeTree<false>{leaf}, threads, sh, buf));
+          r = link ? static_cast<Hedge>(route.over(HedgeTree<true>{leaf}))
+                   : static_cast<Hedge>(route.over(HedgeTree<false>{leaf}));
         }
         far_sum = r.far;
         to_b1 = r.excl;
@@ -1037,7 +1245,7 @@ __device__ __forceinline__ void consume(int lane, int pt, const Inputs& in, cons
           b2 = b1;
         }
       } else if (link) {
-        far_sum = reduce<W>(SumOf{far_adm}, threads, sh, buf).v;
+        far_sum = route.over(SumOf{far_adm}).v;
       }
       if (live && topo) {
         float delay = far ? P.far_cost : P.near_cost;
@@ -1059,7 +1267,7 @@ __device__ __forceinline__ void consume(int lane, int pt, const Inputs& in, cons
     // `stop` where the block stopped inside it
     mbar_arrive(empty + 8 * s);
   }
-  if (!live || lane >= W) return;
+  if (!live || !first) return;
 #pragma unroll
   for (int j = 0; j < kNumStats; ++j) stats[((size_t)j * P.n_points + pt) * H + h] = x.s[j];
   if (h == 0) write_point(k, pt, P, ends);
@@ -1090,14 +1298,58 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   __syncthreads();
   const int rank = producer_rank(threadIdx.x / 32, P.lanes);
   if ((int)threadIdx.x < consumers) {
-    consume<MM, QQ, LW>(threadIdx.x, pt, in, ring, full, empty, &stop, sh, P, stats, ends);
+    BlockRoute<LW> route{consumers, sh, 0};
+    const int h = threadIdx.x & (BlockRoute<LW>::kLanes - 1);
+    consume<MM, QQ>(route, h, h, (int)threadIdx.x < BlockRoute<LW>::kLanes, pt, in, ring, full,
+                    empty, &stop, P, stats, ends);
   } else if (rank >= 0) {
-    produce<MM, QQ>(32 * rank + threadIdx.x % 32, producer_lanes, pt, in, ring, full, empty,
-                    &stop, P);
+    produce<MM, QQ, false>(32 * rank + threadIdx.x % 32, producer_lanes, pt, 0, in, ring, full,
+                           empty, &stop, P);
   }
 }
 
-// ---- the scratch route (more than 256 hosts) --------------------------------
+// The cluster route (257 to 256 kMaxHostsPerLane hosts): a point is a
+// cluster of kClusterBlocks blocks; block g's consumer warps 0 .. K - 1 run
+// hosts 32 g + i + 256 k (warp k, lane i), its kClusterProducers producer
+// warps after them fill its ring with those hosts' values.  K is a template
+// parameter (one build per K, as W is on the ring route: 8% less a step at
+// 1000 hosts than with K read at run time, PERF.md §6).
+template <int MM, int QQ, int KK>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    fleet_adaptive_cluster_kernel(const Inputs in, float* __restrict__ stats,
+                                  float* __restrict__ ends, const Params P) {
+  extern __shared__ __align__(16) float ring[];
+  __shared__ __align__(8) uint64_t bars[2 * kStages];
+  __shared__ ClusterShared cs;
+  __shared__ int stop;
+  const int pt = blockIdx.x / kClusterBlocks;
+  const int g = (int)cluster_rank();
+  constexpr int K = KK;
+  const int consumers = 32 * K;
+  const int producer_lanes = 32 * kClusterProducers;
+  const uint32_t full = smem_u32(bars), empty = smem_u32(bars + kStages);
+  cluster_init(cs);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, producer_lanes);
+      mbar_init(empty + 8 * s, consumers);
+    }
+    stop = INT_MAX;
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cluster_sync();
+  const int t = threadIdx.x;
+  if (t < consumers) {
+    ClusterRoute<K> route{cs, 0};
+    consume<MM, QQ>(route, 32 * g + (t & 31) + 256 * (t >> 5), t, true, pt, in, ring, full,
+                    empty, &stop, P, stats, ends);
+  } else {
+    produce<MM, QQ, true>(t - consumers, producer_lanes, pt, g, in, ring, full, empty, &stop, P);
+  }
+  cluster_sync();
+}
+
+// ---- the scratch route (more than 256 kMaxHostsPerLane hosts) ---------------
 
 template <int MM, int QQ>
 __host__ __device__ constexpr int host_words() {
@@ -1356,9 +1608,52 @@ cudaError_t launch_ring(const Inputs& in, void* stats, void* ends, const Params&
   return cudaGetLastError();
 }
 
+// A point a cluster of kClusterBlocks blocks.  A launch the card cannot
+// place (no cluster of this shared memory and these threads fits) returns an
+// error: nothing falls back to another route.
+template <int MM, int QQ, int KK>
+cudaError_t launch_cluster(const Inputs& in, void* stats, void* ends, const Params& P,
+                           cudaStream_t st) {
+  const size_t smem = Layout<MM, QQ>::smem_bytes(32 * P.hosts_per_lane, P.flags);
+  auto kernel = fleet_adaptive_cluster_kernel<MM, QQ, KK>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(P.n_points * kClusterBlocks);
+  cfg.blockDim = dim3(32 * (P.hosts_per_lane + kClusterProducers));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kClusterBlocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorLaunchOutOfResources;
+  err = cudaLaunchKernelEx(&cfg, kernel, in, static_cast<float*>(stats),
+                           static_cast<float*>(ends), P);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 template <int MM, int QQ>
 cudaError_t launch(const Inputs& in, void* stats, void* ends, void* scratch, Params P,
                    cudaStream_t st) {
+  if (P.hosts_per_lane > 1 && P.hosts_per_lane <= kMaxHostsPerLane)
+    switch (P.hosts_per_lane) {
+      case 2: return launch_cluster<MM, QQ, 2>(in, stats, ends, P, st);
+      case 3: return launch_cluster<MM, QQ, 3>(in, stats, ends, P, st);
+      case 4: return launch_cluster<MM, QQ, 4>(in, stats, ends, P, st);
+      case 5: return launch_cluster<MM, QQ, 5>(in, stats, ends, P, st);
+      case 6: return launch_cluster<MM, QQ, 6>(in, stats, ends, P, st);
+      case 7: return launch_cluster<MM, QQ, 7>(in, stats, ends, P, st);
+      default: return cudaErrorInvalidValue;
+    }
   if (P.hosts_per_lane > 1) {
     fleet_adaptive_scratch_kernel<MM, QQ><<<P.n_points, kMaxLanes, 0, st>>>(
         in, static_cast<float*>(stats), static_cast<float*>(ends), static_cast<float*>(scratch),
@@ -1381,31 +1676,42 @@ cudaError_t launch(const Inputs& in, void* stats, void* ends, void* scratch, Par
   }
 }
 
+// the route of a point whose lanes hold `hosts_per_lane` hosts each
+enum Route : int { kRing = 0, kScratch = 1, kCluster = 2 };
+int route_for(int hosts_per_lane) {
+  return hosts_per_lane == 1 ? kRing : hosts_per_lane <= kMaxHostsPerLane ? kCluster : kScratch;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Launch layout of a point of n_hosts hosts with up to q_max queues and the
-// noise flags `flags` (host, 8 ints out): out[0] threads a block, out[1]
+// noise flags `flags` (host, 10 ints out): out[0] threads a block, out[1]
 // lanes of the host reductions, out[2] hosts a lane, out[3] float32 words of
-// scratch a host (0 on the ring route, where a lane holds one host), out[4]
-// producer warps, out[5] stages of the ring, out[6] steps a stage, out[7]
-// bytes of the ring (dynamic shared memory); the last four 0 beyond 256
-// hosts (the scratch route).
+// scratch a host (0 where a thread holds one host in registers), out[4]
+// producer warps a block, out[5] stages of the ring, out[6] steps a stage,
+// out[7] bytes of a block's ring (dynamic shared memory; 32 K lanes on the
+// cluster route), out[8] blocks a point, out[9] the route (0 ring, up to 256
+// hosts; 2 cluster, up to 256 kMaxHostsPerLane; 1 scratch, beyond: no ring).
 void fleet_adaptive_sweep_layout(int n_hosts, int q_max, int flags, int* out) {
   const int w = lanes_for(n_hosts);
   const int k = (n_hosts + w - 1) / w;
-  const bool ring = k == 1;
-  out[0] = ring ? 32 * block_warps(w) : kMaxLanes;
+  const int route = route_for(k);
+  const int rows = route == kCluster ? 32 * k : w;   // a ring row's host lanes
+  out[0] = route == kRing ? 32 * block_warps(w)
+           : route == kCluster ? 32 * (k + kClusterProducers) : kMaxLanes;
   out[1] = w;
   out[2] = k;
-  out[3] = ring ? 0 : (q_max == 1 ? host_words<4, 1>() : host_words<4, 4>());
-  out[4] = ring ? producers(w) : 0;
-  out[5] = ring ? kStages : 0;
-  out[6] = ring ? kStageSteps : 0;
-  out[7] = !ring ? 0
-                 : (int)(q_max == 1 ? Layout<4, 1>::smem_bytes(w, flags)
-                                    : Layout<4, 4>::smem_bytes(w, flags));
+  out[3] = route != kScratch ? 0 : (q_max == 1 ? host_words<4, 1>() : host_words<4, 4>());
+  out[4] = route == kRing ? producers(w) : route == kCluster ? kClusterProducers : 0;
+  out[5] = route == kScratch ? 0 : kStages;
+  out[6] = route == kScratch ? 0 : kStageSteps;
+  out[7] = route == kScratch ? 0
+                             : (int)(q_max == 1 ? Layout<4, 1>::smem_bytes(rows, flags)
+                                                : Layout<4, 4>::smem_bytes(rows, flags));
+  out[8] = route == kCluster ? kClusterBlocks : 1;
+  out[9] = route;
 }
 
 // Inputs, one per point (n_points): t_s, t_l, lam (the point's fleet rate),
@@ -1428,7 +1734,8 @@ void fleet_adaptive_sweep_layout(int n_hosts, int q_max, int flags, int* out) {
 // lattice's period stale_us and 1/stale_us (each reciprocal float32(1) /
 // float32(x)).  states (host, 3 n_states): (power_w, transition_uj,
 // min_residency_us), shallow to deep.  build (host, 3 ints out): the (M_MAX,
-// Q_MAX) instantiation launched and its route (0 ring, 1 scratch).  Returns a
+// Q_MAX) instantiation launched and its route (0 ring, 1 scratch, 2
+// cluster).  Returns a
 // cudaError_t (0 on success); the launch is asynchronous on `stream`.
 int fleet_adaptive_sweep_fwd(const void* t_s, const void* t_l, const void* m, const void* nq,
                              const void* lam, const void* seed_lo, const void* seed_hi,
@@ -1479,7 +1786,7 @@ int fleet_adaptive_sweep_fwd(const void* t_s, const void* t_l, const void* m, co
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   build[0] = 4;
   build[1] = q_max == 1 ? 1 : 4;
-  build[2] = P.hosts_per_lane > 1 ? 1 : 0;
+  build[2] = route_for(P.hosts_per_lane);
   return (int)(q_max == 1 ? launch<4, 1>(in, stats, ends, scratch, P, st)
                           : launch<4, 4>(in, stats, ends, scratch, P, st));
 }

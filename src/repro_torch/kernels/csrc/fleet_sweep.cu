@@ -94,20 +94,39 @@
 //     scale.  The same float32 operations on the same operands: the same bits.
 //  5. M_MAX and Q_MAX are template parameters (<4, 1> and <4, 4>, as S1's);
 //     lanes past a point's m or n_queues add exact zeros.
-//  6. Beyond 256 hosts (the scratch route): a lane holds hosts j, j + 256, ...
+//  6. Beyond 256 hosts (the cluster route, up to 256 kMaxHostsPerLane): a
+//     point is a thread-block cluster of kClusterBlocks = 8 blocks, the
+//     portable maximum.  Block g takes lanes 32 g .. 32 g + 31 of W = 256,
+//     and its consumer warp k runs host 32 g + i + 256 k in lane i: K =
+//     ceil(H / 256) consumer warps a block, one thread a host with its state
+//     in registers, the ring route's state machine unchanged.  Its producer
+//     warps (cluster_producers) fill a ring of the ring route's layout with
+//     only that block's hosts' values (32 K lanes a row).  A host reduction
+//     (cluster_reduce) replays host_sum's order: each lane's hosts in turn
+//     (the warps' records through shared memory, folded by warp 0 in k
+//     order), warp 0's 32-lane butterfly, then the tree over the 8 groups,
+//     which every block computes itself from the 8 partials that every
+//     block pushes into every block's shared memory with st.async, whose
+//     bytes complete that block's mbarrier: one exchange a reduction, so
+//     a hedged slot costs one exchange where the scratch route ran two
+//     reductions in turn.  Only the consumers exchange; no cluster barrier
+//     runs inside the loop (a producer waiting on `empty` would deadlock
+//     it), one before and one after it.  At 1000 hosts the grid is 8 points
+//     x 8 blocks on 64 SMs.  K_max = 8: a stage of 32 K lanes at <4, 4>
+//     with stalls (13 fields) and the K warps' records fit 227 KB.
+//  7. Beyond that (the scratch route): a lane holds hosts j, j + 256, ...
 //     whose states live in a global scratch (point, word, host), coalesced
 //     across the block, loaded and stored one host at a time, with the
 //     one-thread body (draws inline, the overshoot lazily) and the reductions
-//     of 3 over all 256 threads (the hedge stage's two in turn).  The ring
-//     does not take it: at 1000 hosts a slot's fields fill 40 KB, so 227 KB
-//     holds five slots, and the states would still go through the cache.
-//  7. The run has the slots with float(t) * slot_us < duration (the
+//     of 3 over all 256 threads (the hedge stage's two in turn).
+//  8. The run has the slots with float(t) * slot_us < duration (the
 //     reference's own float32 product); the host finds their count by
 //     bisection, so no slot past the run is drawn.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -340,12 +359,14 @@ struct MaxOf {
   float v;
   __device__ static MaxOf of(float v) { return {v}; }
   __device__ void butterfly(int off) { v = fmaxf(v, __shfl_xor_sync(kFull, v, off)); }
+  __device__ void fold(const MaxOf& o) { v = fmaxf(v, o.v); }
 };
 
 struct SumOf {
   float v;
   __device__ static SumOf of(float v) { return {v}; }
   __device__ void butterfly(int off) { v = v + __shfl_xor_sync(kFull, v, off); }
+  __device__ void fold(const SumOf& o) { v = v + o.v; }
 };
 
 // A sum (SUM), an argmin over (v, i) (ARG), a max (MX).
@@ -385,38 +406,47 @@ struct Hedge {
     if (!live) return {0.0f, 0.0f, INFINITY, INFINITY, 0.0f, 0.0f, 0x7fffffff, 0x7fffffff};
     return {dup_q, 0.0f, btot, INFINITY, dup_q, far_adm, h, 0x7fffffff};
   }
+  // this subtree and the other one, o, the subtree after it in the tree's
+  // order (the cluster route folds a lane's hosts in turn with it)
+  template <bool LINK>
+  __device__ void merge(const Hedge& o) {
+    if (LINK) far = far + o.far;
+    if (before(o.v1, o.i1, v1, i1)) {   // the other subtree holds the first
+      const bool mine = before(v1, i1, o.v2, o.i2);
+      v2 = mine ? v1 : o.v2;
+      i2 = mine ? i1 : o.i2;
+      v1 = o.v1;
+      i1 = o.i1;
+      d1 = o.d1;
+      excl = full + o.excl;
+    } else {
+      if (before(o.v1, o.i1, v2, i2)) {
+        v2 = o.v1;
+        i2 = o.i1;
+      }
+      excl = excl + o.full;
+    }
+    full = full + o.full;
+  }
   template <bool LINK>
   __device__ void combine(int off) {
-    const float o_full = __shfl_xor_sync(kFull, full, off);
-    const float o_excl = __shfl_xor_sync(kFull, excl, off);
-    const float o_v1 = __shfl_xor_sync(kFull, v1, off);
-    const float o_v2 = __shfl_xor_sync(kFull, v2, off);
-    const float o_d1 = __shfl_xor_sync(kFull, d1, off);
-    const int o_i1 = __shfl_xor_sync(kFull, i1, off);
-    const int o_i2 = __shfl_xor_sync(kFull, i2, off);
-    if (LINK) far = far + __shfl_xor_sync(kFull, far, off);
-    if (before(o_v1, o_i1, v1, i1)) {   // the other subtree holds the first
-      const bool mine = before(v1, i1, o_v2, o_i2);
-      v2 = mine ? v1 : o_v2;
-      i2 = mine ? i1 : o_i2;
-      v1 = o_v1;
-      i1 = o_i1;
-      d1 = o_d1;
-      excl = full + o_excl;
-    } else {
-      if (before(o_v1, o_i1, v2, i2)) {
-        v2 = o_v1;
-        i2 = o_i1;
-      }
-      excl = excl + o_full;
-    }
-    full = full + o_full;
+    Hedge o;
+    o.full = __shfl_xor_sync(kFull, full, off);
+    o.excl = __shfl_xor_sync(kFull, excl, off);
+    o.v1 = __shfl_xor_sync(kFull, v1, off);
+    o.v2 = __shfl_xor_sync(kFull, v2, off);
+    o.d1 = __shfl_xor_sync(kFull, d1, off);
+    o.i1 = __shfl_xor_sync(kFull, i1, off);
+    o.i2 = __shfl_xor_sync(kFull, i2, off);
+    if (LINK) o.far = __shfl_xor_sync(kFull, far, off);
+    merge<LINK>(o);
   }
 };
 
 template <bool LINK>
 struct HedgeTree : Hedge {
   __device__ void butterfly(int off) { combine<LINK>(off); }
+  __device__ void fold(const HedgeTree& o) { merge<LINK>(o); }
 };
 
 // the warps' partial results (any of the types above), two buffers used in
@@ -452,15 +482,196 @@ __device__ __forceinline__ T reduce(T a, int W, int threads, RedShared& sh, int&
   return a;
 }
 
-// ---- the ring route: producers ----------------------------------------------
+// ---- the cluster route's exchange (the design note, 6) ----------------------
+// A point is a cluster of kClusterBlocks blocks.  Block g holds host lanes
+// 32 g .. 32 g + 31 of W = 256, and its consumer warp k host 32 g + i + 256 k
+// in lane i, so that host_sum's order falls out of the layout: each lane's
+// hosts in turn (the warps' records through the block's shared memory, warp
+// 0 folding them in k order), the 32-lane tree (warp 0's butterfly), and the
+// tree over the 8 groups, which every block computes itself from the 8
+// partials pushed into its shared memory: every block ends with the same
+// bits, and no broadcast follows.
+
+// the block's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// every thread of the cluster, once before the loop (the barriers are
+// initialised) and once after (no block leaves while another can still
+// write into its shared memory); never inside the loop, where a producer
+// waiting on `empty` would deadlock it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n\tbarrier.cluster.wait.acquire;" ::: "memory");
+}
+
+// the address of the same shared variable in block `rank` of the cluster
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// an asynchronous store into another block's shared memory that completes
+// 4 bytes of the transaction count of that block's mbarrier (no release
+// fence: the barrier's phase completes when the bytes have landed)
+__device__ __forceinline__ void st_async(uint32_t addr, uint32_t v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];"
+               ::"r"(addr), "r"(v), "r"(bar) : "memory");
+}
+
+// this block's arrival on its own barrier, expecting `bytes` more
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// the wait on this block's barrier, acquiring at the cluster's scope
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+constexpr int kClusterBlocks = 8;     // blocks a point: the portable cluster size
+constexpr int kClusterLanes = 32;     // host lanes a block (kMaxLanes / kClusterBlocks)
+constexpr int kMaxHostsPerLane = 8;   // K at most: the ring of 32 K lanes fits beside the rest
+constexpr int kMaxRecord = 8;         // words of the largest reduction record (Hedge)
+
+// The exchange's shared memory, word-major (one bank a lane): the consumer
+// warps' records; the 8 blocks' partials, two buffers used in turn; a
+// barrier for each buffer, whose phase completes on this block's one
+// arrival (arrive.expect_tx of the 8 partials' bytes) and those bytes'
+// landing (st.async from every block).
+struct ClusterShared {
+  uint32_t leaf[kMaxHostsPerLane][kMaxRecord][kClusterLanes];
+  uint32_t part[2][kMaxRecord][kClusterBlocks];
+  __align__(8) uint64_t bar[2];
+};
+
+// One reduction over the point's hosts, among the block's 32 K consumer
+// threads (warp k, lane i holding host 32 g + i + 256 k); every consumer
+// thread of the cluster gets the result.  `xc` counts the exchanges (alike
+// in every consumer thread): exchange j uses part[j % 2] and bar[j % 2] at
+// parity (j / 2) % 2.  A block pushes exchange j + 1 only after each of its
+// warps has read exchange j's partials (their next records come after that,
+// and warp 0 folds them before it pushes), and it pushes j + 2 only after
+// the wait for j + 1, which every block's push of j + 1 passes, each after
+// its wait for j: so a buffer is free when it is written, and bytes never
+// land in a phase they do not belong to (bytes of j may land before this
+// block's expect_tx for j: the transaction count goes below zero, and the
+// phase still waits for the arrival).  The records too are free when
+// written: warp k writes its next record only after this exchange's wait,
+// which passes after warp 0's push, after its fold.  The pushes are
+// st.async (measured against st.shared::cluster and a remote release-arrive
+// with fleet_cluster_exchange_probe: 0.24 against 0.56 us an exchange).
+template <class T>
+__device__ __forceinline__ T cluster_reduce(T a, int K, ClusterShared& cs, int& xc) {
+  constexpr int N = sizeof(T) / 4;
+  static_assert(sizeof(T) % 4 == 0 && N <= kMaxRecord, "a record fits the exchange");
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = xc & 1;
+  const uint32_t parity = (xc >> 1) & 1;
+  ++xc;
+  uint32_t w[N];
+  if (warp > 0) {
+    memcpy(w, &a, sizeof(T));
+#pragma unroll
+    for (int n = 0; n < N; ++n) cs.leaf[warp][n][lane] = w[n];
+    asm volatile("bar.arrive %0, %1;" ::"r"(kRedBarrier), "r"(32 * K) : "memory");
+  } else {
+    if (lane == 0) mbar_expect_tx(smem_u32(&cs.bar[b]), kClusterBlocks * sizeof(T));
+    asm volatile("bar.sync %0, %1;" ::"r"(kRedBarrier), "r"(32 * K) : "memory");
+    for (int k = 1; k < K; ++k) {
+#pragma unroll
+      for (int n = 0; n < N; ++n) w[n] = cs.leaf[k][n][lane];
+      T o;
+      memcpy(&o, w, sizeof(T));
+      a.fold(o);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) a.butterfly(off);
+    if (lane < kClusterBlocks) {   // lane r pushes the block's partial into block r
+      memcpy(w, &a, sizeof(T));
+      const uint32_t g = cluster_rank();
+      const uint32_t dst = map_rank(smem_u32(&cs.part[b][0][g]), lane);
+      const uint32_t rbar = map_rank(smem_u32(&cs.bar[b]), lane);
+#pragma unroll
+      for (int n = 0; n < N; ++n) st_async(dst + 4 * kClusterBlocks * n, w[n], rbar);
+    }
+  }
+  mbar_wait_cluster(smem_u32(&cs.bar[b]), parity);
+#pragma unroll
+  for (int n = 0; n < N; ++n) w[n] = cs.part[b][n][lane & (kClusterBlocks - 1)];
+  memcpy(&a, w, sizeof(T));
+#pragma unroll
+  for (int off = kClusterBlocks / 2; off > 0; off >>= 1) a.butterfly(off);
+  return a;
+}
+
+__device__ __forceinline__ void cluster_init(ClusterShared& cs) {
+  if (threadIdx.x == 0) {
+    mbar_init(smem_u32(&cs.bar[0]), 1);
+    mbar_init(smem_u32(&cs.bar[1]), 1);
+  }
+}
+
+// producer warps a block on the cluster route, beside K consumer warps: the
+// ring route's count (K, four below four), but the block at most 12 warps.
+// An SM splits its registers over its four schedulers, so a 13th warp puts
+// four warps on one scheduler and caps a thread at 128 registers, under
+// which the <4, 4> build at K = 8 spilled; at 12 a thread keeps up to 168
+__host__ __device__ constexpr int cluster_producers(int K) {
+  return K < 4 ? 4 : K + K <= 12 ? K : 12 - K;
+}
+
+// ---- the two routes' host reductions ----------------------------------------
+
+// The ring route's: W lanes in one block (reduce).
+struct BlockRoute {
+  int lanes, threads;
+  RedShared& sh;
+  int buf;
+  __device__ int row_stride() const { return lanes; }
+  template <class T>
+  __device__ T over(T a) { return reduce(a, lanes, threads, sh, buf); }
+};
+
+// The cluster route's: W = 256 lanes over the cluster's blocks, K hosts a
+// lane (cluster_reduce); the ring's rows are the block's 32 K lanes.
+template <int KK>
+struct ClusterRoute {
+  static constexpr int K = KK;
+  ClusterShared& cs;
+  int xc;
+  __device__ int row_stride() const { return 32 * K; }
+  template <class T>
+  __device__ T over(T a) { return cluster_reduce(a, K, cs, xc); }
+};
+
+// ---- the producers ------------------------------------------------------------
 
 // Producer lane `ptid` of `npt`: every state-free value of the stage's
-// (slot, host) items ptid, ptid + npt, ... (item = slot * H + host).
-template <int MM, int QQ>
-__device__ __forceinline__ void produce(int ptid, int npt, int pt, const Inputs& in, float* ring,
-                                        uint32_t full, uint32_t empty, const Params& P) {
+// (slot, lane) items ptid, ptid + npt, ... (item = slot * lanes + lane).  On
+// the ring route a lane is a host, in rows of W; on the cluster route (CL)
+// the block's 32 K lanes, lane 32 k + i holding host 32 rank + i + 256 k (a
+// host past H skipped).  Lane 0 also writes the slot's scale.
+template <int MM, int QQ, bool CL>
+__device__ __forceinline__ void produce(int ptid, int npt, int pt, int rank, const Inputs& in,
+                                        float* ring, uint32_t full, uint32_t empty,
+                                        const Params& P) {
   using L = Layout<MM, QQ>;
-  const int W = P.lanes, H = P.n_hosts;
+  const int W = CL ? 32 * P.hosts_per_lane : P.lanes, H = P.n_hosts;
+  const int lanes = CL ? W : H;
   const int nf = L::fields(P.flags);
   const int stage_floats = L::stage_floats(W, P.flags);
   const bool stall_on = P.flags & kStallOn;
@@ -476,12 +687,14 @@ __device__ __forceinline__ void produce(int ptid, int npt, int pt, const Inputs&
     mbar_wait(empty + 8 * s, ((g / kStages) & 1) ^ 1);
     float* tab = ring + (size_t)s * stage_floats;
     const int n = min(kStageSlots, P.n_live - g * kStageSlots);
-    for (int it = ptid; it < n * H; it += npt) {
-      const int k = it / H, h = it - k * H;
+    for (int it = ptid; it < n * lanes; it += npt) {
+      const int k = it / lanes, j = it - k * lanes;
+      const int h = CL ? 32 * rank + (j & 31) + 256 * (j >> 5) : j;
+      if (CL && h >= H) continue;
       const int t = g * kStageSlots + k;
       const float now = (float)t * dt;
       const uint32_t k0 = lo + (uint32_t)h;
-      float* row = tab + k * nf * W + h;
+      float* row = tab + k * nf * W + j;
       float z[4];
       box_muller(philox(t, kNormal, 0, 0, k0, hi), QQ, z);
 #pragma unroll
@@ -498,7 +711,7 @@ __device__ __forceinline__ void produce(int ptid, int npt, int pt, const Inputs&
 #pragma unroll
         for (int i = 0; i < MM; ++i) row[(L::kJit + i) * W] = u01(jit.w[i]);
       }
-      if (h == 0) {
+      if (j == 0) {
         float scale = 1.0f;
         if (P.n_seg > 0) {
           while (seg + 1 < P.n_seg && edges[seg + 1] <= now) ++seg;
@@ -511,7 +724,7 @@ __device__ __forceinline__ void produce(int ptid, int npt, int pt, const Inputs&
   }
 }
 
-// ---- the ring route: the consumers (host lanes) -----------------------------
+// ---- the consumers (host lanes) ---------------------------------------------
 
 // One slot's state-free values of a host, as its lane reads them.
 template <int MM, int QQ>
@@ -535,17 +748,19 @@ __device__ __forceinline__ void load_slot(Slot<MM, QQ>& x, const float* row, con
   x.scale = *scale;
 }
 
-// Host lane h (live when h < H; other lanes hold the reductions' identities
-// and write nothing): S1's consumer state machine on the producers' values,
-// then the cross-host stages.  A thread's owner is -1 while it sleeps, -2
-// for a lane past the point's m, else the queue it drains.  A slot's counts
-// are whole numbers, exact in float32, counted in integers.
-template <int MM, int QQ>
-__device__ __forceinline__ void consume(int h, int pt, const Inputs& in, const float* ring,
-                                        uint32_t full, uint32_t empty, RedShared& sh,
+// Host h (live when h < H; other hosts hold the reductions' identities and
+// write nothing), whose slot values sit at lane `row` of the ring's rows
+// (route.row_stride() lanes): S1's consumer state machine on the producers'
+// values, then the cross-host stages, with the route's host reductions.  A
+// thread's owner is -1 while it sleeps, -2 for a lane past the point's m,
+// else the queue it drains.  A slot's counts are whole numbers, exact in
+// float32, counted in integers.
+template <int MM, int QQ, class R>
+__device__ __forceinline__ void consume(R& route, int h, int row, int pt, const Inputs& in,
+                                        const float* ring, uint32_t full, uint32_t empty,
                                         const Params& P, float* __restrict__ stats) {
   using L = Layout<MM, QQ>;
-  const int W = P.lanes, H = P.n_hosts, threads = P.consumers;
+  const int W = route.row_stride(), H = P.n_hosts;
   const bool live = h < H;
   const int nf = L::fields(P.flags);
   const int stage_floats = L::stage_floats(W, P.flags);
@@ -563,7 +778,6 @@ __device__ __forceinline__ void consume(int h, int pt, const Inputs& in, const f
   const bool far = h < P.far_count;
   // served / mu where a slot serves mu dt: the quotient, taken once
   const float full_us = mu_dt / mu;
-  int buf = 0;
 
   float sleep_rem[MM];
   int attached[MM];
@@ -599,7 +813,7 @@ __device__ __forceinline__ void consume(int h, int pt, const Inputs& in, const f
     mbar_wait(full + 8 * s, (g / kStages) & 1);
     const float* tab = ring + (size_t)s * stage_floats;
     const int n = min(kStageSlots, P.n_live - g * kStageSlots);
-    const float* nrow = tab + h;
+    const float* nrow = tab + row;
     const float* nscale = tab + kStageSlots * nf * W;
     Slot<MM, QQ> nx = {};
     if (live) load_slot(nx, nrow, nscale, W, stall_on);
@@ -622,9 +836,9 @@ __device__ __forceinline__ void consume(int h, int pt, const Inputs& in, const f
 #pragma unroll
         for (int q = 0; q < QQ; ++q) b = q ? b + backlog[q] : backlog[q];
         const float xs = live ? -b * P.inv_soft : -INFINITY;
-        const float mx = reduce(MaxOf::of(xs), W, threads, sh, buf).v;
+        const float mx = route.over(MaxOf::of(xs)).v;
         const float e = live ? expf(xs - mx) : 0.0f;
-        const float den = reduce(SumOf::of(e), W, threads, sh, buf).v;
+        const float den = route.over(SumOf::of(e)).v;
         lam_q = lam * (e / den) / (float)nq;
         fresh = true;
       }
@@ -772,8 +986,8 @@ __device__ __forceinline__ void consume(int h, int pt, const Inputs& in, const f
       if (hedged) {
         const Hedge leaf = Hedge::leaf(live, h, bsum, dup * q_share, far_adm);
         const Hedge r =
-            link ? static_cast<Hedge>(reduce(HedgeTree<true>{leaf}, W, threads, sh, buf))
-                 : static_cast<Hedge>(reduce(HedgeTree<false>{leaf}, W, threads, sh, buf));
+            link ? static_cast<Hedge>(route.over(HedgeTree<true>{leaf}))
+                 : static_cast<Hedge>(route.over(HedgeTree<false>{leaf}));
         far_sum = r.far;
         to_b1 = r.excl;
         to_b2 = r.d1;
@@ -785,7 +999,7 @@ __device__ __forceinline__ void consume(int h, int pt, const Inputs& in, const f
           b2 = b1;
         }
       } else if (link) {
-        far_sum = reduce(SumOf::of(far_adm), W, threads, sh, buf).v;
+        far_sum = route.over(SumOf::of(far_adm)).v;
       }
       if (topo) {
         float delay = far ? P.far_cost : P.near_cost;
@@ -830,13 +1044,54 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   __syncthreads();
   const int rank = producer_rank(threadIdx.x / 32, P.lanes);
   if ((int)threadIdx.x < consumers) {
-    consume<MM, QQ>(threadIdx.x, pt, in, ring, full, empty, sh, P, stats);
+    BlockRoute route{P.lanes, consumers, sh, 0};
+    consume<MM, QQ>(route, threadIdx.x, threadIdx.x, pt, in, ring, full, empty, P, stats);
   } else if (rank >= 0) {
-    produce<MM, QQ>(32 * rank + threadIdx.x % 32, producer_lanes, pt, in, ring, full, empty, P);
+    produce<MM, QQ, false>(32 * rank + threadIdx.x % 32, producer_lanes, pt, 0, in, ring, full,
+                           empty, P);
   }
 }
 
-// ---- the scratch route (more than 256 hosts) --------------------------------
+// The cluster route (257 to 256 kMaxHostsPerLane hosts): a point is a
+// cluster of kClusterBlocks blocks; block g's consumer warps 0 .. K - 1 run
+// hosts 32 g + i + 256 k (warp k, lane i), its cluster_producers(K) producer
+// warps after them fill its ring with those hosts' values.  K is a template
+// parameter (one build per K): the fold's trip count, the named barrier's
+// count and the ring's row stride are constants (11% less a slot at 1000
+// hosts than with K read at run time, PERF.md §6).
+template <int MM, int QQ, int KK>
+__global__ void __launch_bounds__(32 * (KK + cluster_producers(KK)), 1)
+    fleet_cluster_kernel(const Inputs in, float* __restrict__ stats, const Params P) {
+  extern __shared__ __align__(16) float ring[];
+  __shared__ __align__(8) uint64_t bars[2 * kStages];
+  __shared__ ClusterShared cs;
+  const int pt = blockIdx.x / kClusterBlocks;
+  const int g = (int)cluster_rank();
+  constexpr int K = KK;
+  const int consumers = 32 * K;
+  const int producer_lanes = 32 * cluster_producers(K);
+  const uint32_t full = smem_u32(bars), empty = smem_u32(bars + kStages);
+  cluster_init(cs);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, producer_lanes);
+      mbar_init(empty + 8 * s, consumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cluster_sync();
+  const int t = threadIdx.x;
+  if (t < consumers) {
+    ClusterRoute<K> route{cs, 0};
+    consume<MM, QQ>(route, 32 * g + (t & 31) + 256 * (t >> 5), t, pt, in, ring, full, empty, P,
+                    stats);
+  } else {
+    produce<MM, QQ, true>(t - consumers, producer_lanes, pt, g, in, ring, full, empty, P);
+  }
+  cluster_sync();
+}
+
+// ---- the scratch route (more than 256 kMaxHostsPerLane hosts) ---------------
 
 // One host's state, and this slot's values the cross-host stages read.
 template <int MM, int QQ>
@@ -1235,6 +1490,51 @@ __global__ void __launch_bounds__(kMaxLanes, 1)
   }
 }
 
+// ---- a timing probe of the cluster route's exchange -------------------------
+// One cluster runs n exchanges in turn, each feeding the next.  Mode 0: one
+// warp a block, whose lanes 0-7 push a 16-byte record into every block of
+// the cluster (st.async onto its barrier), then the warp waits on its own
+// and reads a partial: the exchange alone.  Mode 1: cluster_reduce of a sum (4
+// bytes) among 32 K consumer threads a block; mode 2: of the hedge record
+// (32 bytes, the link on).  Each thread writes what it got, so that nothing
+// is elided.
+__global__ void __cluster_dims__(kClusterBlocks, 1, 1) __launch_bounds__(kMaxThreads, 1)
+    cluster_exchange_probe(int mode, int K, int n, float* __restrict__ out) {
+  __shared__ ClusterShared cs;
+  cluster_init(cs);
+  if (threadIdx.x == 0) asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  cluster_sync();
+  const int lane = threadIdx.x & 31;
+  const float x = (float)(threadIdx.x + 1);
+  float acc = 0.0f;
+  int xc = 0;
+  for (int it = 0; it < n; ++it) {
+    if (mode == 0) {
+      const int b = xc & 1;
+      const uint32_t parity = (xc >> 1) & 1;
+      ++xc;
+      __syncwarp();   // every lane has read the buffer this push may reuse
+      if (lane == 0) mbar_expect_tx(smem_u32(&cs.bar[b]), kClusterBlocks * 16);
+      if (lane < kClusterBlocks) {
+        const uint32_t dst = map_rank(smem_u32(&cs.part[b][0][cluster_rank()]), lane);
+        const uint32_t rbar = map_rank(smem_u32(&cs.bar[b]), lane);
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          st_async(dst + 4 * kClusterBlocks * k, __float_as_uint(x + acc), rbar);
+      }
+      mbar_wait_cluster(smem_u32(&cs.bar[b]), parity);
+      acc = acc + __uint_as_float(cs.part[b][lane & 3][lane & (kClusterBlocks - 1)]) * 1e-30f;
+    } else if (mode == 1) {
+      acc = acc + cluster_reduce(SumOf::of(x + acc), K, cs, xc).v * 1e-30f;
+    } else {
+      const HedgeTree<true> leaf{Hedge::leaf(true, threadIdx.x, x + acc, x, x)};
+      acc = acc + cluster_reduce(leaf, K, cs, xc).full * 1e-30f;
+    }
+  }
+  out[blockIdx.x * blockDim.x + threadIdx.x] = acc;
+  cluster_sync();
+}
+
 // The slots the run has: the first t with !(float(t) * dt < duration), or
 // n_slots (float(t) * dt does not decrease with t, so bisection finds it)
 int live_slots(float dt, float duration, int n_slots) {
@@ -1250,8 +1550,50 @@ int live_slots(float dt, float duration, int n_slots) {
   return lo;
 }
 
+// A point a cluster of kClusterBlocks blocks.  A launch the card cannot
+// place (no cluster of this shared memory and these threads fits) returns an
+// error: nothing falls back to another route.
+template <int MM, int QQ, int KK>
+cudaError_t launch_cluster(const Inputs& in, void* stats, const Params& P, cudaStream_t st) {
+  const size_t smem = Layout<MM, QQ>::smem_bytes(32 * P.hosts_per_lane, P.flags);
+  auto kernel = fleet_cluster_kernel<MM, QQ, KK>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(P.n_points * kClusterBlocks);
+  cfg.blockDim = dim3(32 * (P.hosts_per_lane + cluster_producers(P.hosts_per_lane)));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kClusterBlocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorLaunchOutOfResources;
+  err = cudaLaunchKernelEx(&cfg, kernel, in, static_cast<float*>(stats), P);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 template <int MM, int QQ>
 cudaError_t launch(const Inputs& in, void* stats, void* scratch, Params P, cudaStream_t st) {
+  if (P.hosts_per_lane > 1 && P.hosts_per_lane <= kMaxHostsPerLane)
+    switch (P.hosts_per_lane) {
+      case 2: return launch_cluster<MM, QQ, 2>(in, stats, P, st);
+      case 3: return launch_cluster<MM, QQ, 3>(in, stats, P, st);
+      case 4: return launch_cluster<MM, QQ, 4>(in, stats, P, st);
+      case 5: return launch_cluster<MM, QQ, 5>(in, stats, P, st);
+      case 6: return launch_cluster<MM, QQ, 6>(in, stats, P, st);
+      case 7: return launch_cluster<MM, QQ, 7>(in, stats, P, st);
+      case 8: return launch_cluster<MM, QQ, 8>(in, stats, P, st);
+      default: return cudaErrorInvalidValue;
+    }
   if (P.hosts_per_lane > 1) {
     fleet_scratch_kernel<MM, QQ><<<P.n_points, kMaxLanes, 0, st>>>(
         in, static_cast<float*>(stats), static_cast<float*>(scratch), P);
@@ -1268,31 +1610,42 @@ cudaError_t launch(const Inputs& in, void* stats, void* scratch, Params P, cudaS
   return cudaGetLastError();
 }
 
+// the route of a point whose lanes hold `hosts_per_lane` hosts each
+enum Route : int { kRing = 0, kScratch = 1, kCluster = 2 };
+int route_for(int hosts_per_lane) {
+  return hosts_per_lane == 1 ? kRing : hosts_per_lane <= kMaxHostsPerLane ? kCluster : kScratch;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Launch layout of a point of n_hosts hosts with up to q_max queues and the
-// noise flags `flags` (host, 8 ints out): out[0] threads a block, out[1]
+// noise flags `flags` (host, 10 ints out): out[0] threads a block, out[1]
 // lanes of the host reductions, out[2] hosts a lane, out[3] float32 words of
-// scratch a host (0 on the ring route, where a lane holds one host), out[4]
-// producer warps, out[5] stages of the ring, out[6] slots a stage, out[7]
-// bytes of the ring (dynamic shared memory); the last four 0 beyond 256
-// hosts (the scratch route).
+// scratch a host (0 where a thread holds one host in registers), out[4]
+// producer warps a block, out[5] stages of the ring, out[6] slots a stage,
+// out[7] bytes of a block's ring (dynamic shared memory; 32 K lanes on the
+// cluster route), out[8] blocks a point, out[9] the route (0 ring, up to 256
+// hosts; 2 cluster, up to 256 kMaxHostsPerLane; 1 scratch, beyond: no ring).
 void fleet_sweep_layout(int n_hosts, int q_max, int flags, int* out) {
   const int w = lanes_for(n_hosts);
   const int k = (n_hosts + w - 1) / w;
-  const bool ring = k == 1;
-  out[0] = ring ? 32 * block_warps(w) : kMaxLanes;
+  const int route = route_for(k);
+  const int rows = route == kCluster ? 32 * k : w;   // a ring row's host lanes
+  out[0] = route == kRing ? 32 * block_warps(w)
+           : route == kCluster ? 32 * (k + cluster_producers(k)) : kMaxLanes;
   out[1] = w;
   out[2] = k;
-  out[3] = ring ? 0 : (q_max == 1 ? host_words<4, 1>() : host_words<4, 4>());
-  out[4] = ring ? producers(w) : 0;
-  out[5] = ring ? kStages : 0;
-  out[6] = ring ? kStageSlots : 0;
-  out[7] = !ring ? 0
-                 : (int)(q_max == 1 ? Layout<4, 1>::smem_bytes(w, flags)
-                                    : Layout<4, 4>::smem_bytes(w, flags));
+  out[3] = route != kScratch ? 0 : (q_max == 1 ? host_words<4, 1>() : host_words<4, 4>());
+  out[4] = route == kRing ? producers(w) : route == kCluster ? cluster_producers(k) : 0;
+  out[5] = route == kScratch ? 0 : kStages;
+  out[6] = route == kScratch ? 0 : kStageSlots;
+  out[7] = route == kScratch ? 0
+                             : (int)(q_max == 1 ? Layout<4, 1>::smem_bytes(rows, flags)
+                                                : Layout<4, 4>::smem_bytes(rows, flags));
+  out[8] = route == kCluster ? kClusterBlocks : 1;
+  out[9] = route;
 }
 
 // Inputs, one per point (n_points): t_s, t_l, lam (the point's fleet rate),
@@ -1310,9 +1663,10 @@ void fleet_sweep_layout(int n_hosts, int q_max, int flags, int* out) {
 // interference_mean_us, stall_p, stall_mean_us, active_power_w, 1 / softness,
 // near_cost_us, far_cost_us, link_rate_mpps, (1 - 0.98) link_rate_mpps, 1 /
 // slot_us, 1 / mu, 1e-6.  states (host, 3 n_states): (power_w,
-// transition_uj, min_residency_us), shallow to deep.  build (host, 2 ints
-// out): the (M_MAX, Q_MAX) instantiation launched.  Returns a cudaError_t (0
-// on success); the launch is asynchronous on `stream`.
+// transition_uj, min_residency_us), shallow to deep.  build (host, 3 ints
+// out): the (M_MAX, Q_MAX) instantiation launched and its route (0 ring, 1
+// scratch, 2 cluster).  Returns a cudaError_t (0 on success); the launch is
+// asynchronous on `stream`.
 int fleet_sweep_fwd(const void* t_s, const void* t_l, const void* m, const void* nq,
                     const void* lam, const void* seed_lo, const void* seed_hi,
                     const void* hedge_d, const void* sched_edges, const void* sched_scales,
@@ -1364,8 +1718,25 @@ int fleet_sweep_fwd(const void* t_s, const void* t_l, const void* m, const void*
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   build[0] = 4;
   build[1] = q_max == 1 ? 1 : 4;
+  build[2] = route_for(P.hosts_per_lane);
   return (int)(q_max == 1 ? launch<4, 1>(in, stats, scratch, P, st)
                           : launch<4, 4>(in, stats, scratch, P, st));
+}
+
+// The exchange probe (cluster_exchange_probe): one cluster of kClusterBlocks
+// blocks, of 32 threads in mode 0 and of 32 hosts_per_lane threads in modes
+// 1 and 2, n exchanges; out f32 (kClusterBlocks x the block's threads).
+// Returns a cudaError_t; the launch is asynchronous on `stream`.
+int fleet_cluster_exchange_probe(int mode, int hosts_per_lane, int n, void* out, int device,
+                                 void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (mode < 0 || mode > 2 || hosts_per_lane < 1 || hosts_per_lane > kMaxHostsPerLane || n < 0)
+    return (int)cudaErrorInvalidValue;
+  const int threads = mode == 0 ? 32 : 32 * hosts_per_lane;
+  cluster_exchange_probe<<<kClusterBlocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      mode, hosts_per_lane, n, static_cast<float*>(out));
+  return (int)cudaGetLastError();
 }
 
 const char* fleet_sweep_error_string(int err) {

@@ -6,11 +6,14 @@ balancer, advancing in lock-step by one shared ``dt`` a point, the body of
 the reference's ``_build_fleet_sweep.fleet_step_a``
 (``src/repro/runtime/fleet.py:497``, a ``lax.scan`` over the step budget,
 ``:794``, under ``jax.jit(jax.vmap(...))``, ``:798-808``).  For CUDA tensors
-it launches the hand-written kernel (``csrc/fleet_adaptive_sweep.cu``: one
-block a point; up to 256 hosts, producer warps make every host's draws into
+it launches the hand-written kernel (``csrc/fleet_adaptive_sweep.cu``: up
+to 256 hosts one block a point, producer warps make every host's draws into
 a ring in shared memory and a consumer lane a host runs the jumps, the
-cross-host stages as reductions over the consumer warps; beyond, several
-hosts a thread through a global scratch) and counts the call in
+cross-host stages as reductions over the consumer warps; up to 1,792 hosts
+a cluster of 8 such blocks a point, 32 host lanes a block and one consumer
+thread a host, the reductions exchanged through distributed shared memory;
+beyond, several hosts a thread through a global scratch) and counts the
+call in
 ``fleet_adaptive_sweep.launches`` and, by the (M_MAX, Q_MAX, route) build it
 launched, in ``fleet_adaptive_sweep.launches_by_build``; for CPU tensors it
 runs ``reference_fleet_adaptive_sweep``.  It never falls back from the

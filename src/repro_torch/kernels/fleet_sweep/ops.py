@@ -5,13 +5,15 @@ slots: ``n_hosts`` Metronome hosts a point behind one load balancer, the
 body of the reference's ``_build_fleet_sweep.one_fleet``
 (``src/repro/runtime/fleet.py:234``, a ``lax.scan`` over slots under a host
 ``vmap`` inside a point ``vmap``).  For CUDA tensors it launches the
-hand-written kernel (``csrc/fleet_sweep.cu``: one block a point; up to 256
-hosts, producer warps make every host's draws into a ring in shared memory
+hand-written kernel (``csrc/fleet_sweep.cu``: up to 256 hosts one block a
+point, producer warps make every host's draws into a ring in shared memory
 and a consumer lane a host runs the state machine, the cross-host stages
-as reductions over the consumer warps; beyond, several hosts a thread
-through a global scratch) and counts the call in ``fleet_sweep.launches``
-and, by the (M_MAX, Q_MAX) build it launched, in
-``fleet_sweep.launches_by_build``; for CPU tensors it runs
+as reductions over the consumer warps; up to 2,048 hosts a cluster of 8
+such blocks a point, 32 host lanes a block and one consumer thread a host,
+the reductions exchanged through distributed shared memory; beyond,
+several hosts a thread through a global scratch) and counts the call in
+``fleet_sweep.launches`` and, by the (M_MAX, Q_MAX, route) build it
+launched, in ``fleet_sweep.launches_by_build``; for CPU tensors it runs
 ``reference_fleet_sweep``.  It never falls back from the kernel to the plain
 version.
 
@@ -468,4 +470,4 @@ def fleet_sweep(t_s, t_l, m, nq, lam, seed_lo, seed_hi, hedge_d, sched_edges=Non
 
 
 fleet_sweep.launches = 0
-fleet_sweep.launches_by_build = {}  # (M_MAX, Q_MAX) -> launches
+fleet_sweep.launches_by_build = {}  # (M_MAX, Q_MAX, route) -> launches

@@ -456,8 +456,12 @@ def test_ring_layout_matches_the_kernel_source():
                 got = fleet_kernel.ring_bytes(n_hosts, q_max, stalls)
                 assert got == want, (n_hosts, q_max, stalls)
                 assert got <= SMEM_PER_BLOCK, (n_hosts, q_max, stalls)
-    # beyond 256 hosts the scratch route keeps no ring
-    assert fleet_kernel.ring_bytes(fleet_ops.MAX_BLOCK_LANES + 1, 4, True) == 0
+    # beyond 256 hosts the cluster route keeps a ring of 32 K lanes a block
+    # (K = 2 at 257 hosts; tests/test_torch_fleet_cluster.py pins the rest),
+    # and beyond it the scratch route none
+    assert fleet_kernel.ring_bytes(fleet_ops.MAX_BLOCK_LANES + 1, 4, True) == \
+        4 * stages * slots * ((4 + 4 + 4 + 1) * 64 + 1)
+    assert fleet_kernel.ring_bytes(256 * fleet_kernel.MAX_HOSTS_PER_LANE + 1, 4, True) == 0
 
 
 # the ring's edges: live slots one under, at and one over the boundary of

@@ -636,7 +636,8 @@ def test_ring_layout_matches_the_kernel_source():
     hosts the scratch route keeps no ring.  The lanes: one host a consumer
     lane up to 256 hosts (below 32 lanes thread t runs host t mod W, every
     group of W lanes of the one consumer warp holding the hosts; a warp per
-    32 lanes above), ceil(H / 256) hosts a thread beyond."""
+    32 lanes above), and beyond 256 hosts the cluster route's ring of 32 K
+    lanes a block (``tests/test_torch_fleet_cluster.py`` pins that route)."""
     src = (Path(fa_kernel.__file__).parents[1] / "csrc" / "fleet_adaptive_sweep.cu").read_text()
     flat = " ".join(src.split())
 
@@ -655,8 +656,10 @@ def test_ring_layout_matches_the_kernel_source():
                  "unsigned char slot[2][kMaxWarps][32];",
                  "__shared__ __align__(8) uint64_t bars[2 * kStages];",
                  "inline int consumer_warps(int lanes) { return lanes < 32 ? 1 : lanes / 32; }",
-                 "const int h = lane & (W - 1); const bool live = h < H;",
-                 "if (!live || lane >= W) return;",
+                 "const int h = threadIdx.x & (BlockRoute<LW>::kLanes - 1);",
+                 "(int)threadIdx.x < BlockRoute<LW>::kLanes, pt,",
+                 "const bool live = h < H;",
+                 "if (!live || !first) return;",
                  "P.hosts_per_lane = (n_hosts + P.lanes - 1) / P.lanes;"):
         assert line in flat, line
     stages, steps = const("kStages"), const("kStageSteps")
@@ -669,7 +672,9 @@ def test_ring_layout_matches_the_kernel_source():
                 assert got == want, (n_hosts, q_max, stalls)
                 assert got + STATIC_SMEM <= SMEM_PER_BLOCK, (n_hosts, q_max, stalls)
     assert fa_kernel.ring_bytes(256, 4, True) == 229_376
-    assert fa_kernel.ring_bytes(257, 4, True) == 0
+    # 257 hosts: the cluster route, two hosts a lane, 64 ring lanes a block
+    assert fa_kernel.ring_bytes(257, 4, True) == 229_376 // 4
+    assert fa_kernel.ring_bytes(256 * fa_kernel.MAX_HOSTS_PER_LANE + 1, 4, True) == 0
 
 
 # -- the port's surface ------------------------------------------------------------
@@ -708,8 +713,9 @@ def test_cpu_runs_the_plain_version_and_cuda_never_falls_back():
 @pytest.mark.gpu
 def test_kernel_equals_plain_version_on_the_card():
     """The kernel against its plain version on the card, every output bit
-    for bit: 1, 3, 4, 33, 64, 256 and 257 hosts (both routes and the lane
-    edges), each balancer, topology with the link, hedge deadlines 0, 20 and
+    for bit: 1, 3, 4, 33, 64, 256 and 257 hosts (the ring and cluster routes
+    and the lane edges; the scratch route: ``test_torch_fleet_cluster.py``),
+    each balancer, topology with the link, hedge deadlines 0, 20 and
     80, every noise family and a schedule, one queue a point (<4, 1>) and
     up to four (<4, 4>); runs that stop more than three stages before the
     budget's end, some of them on a stage's first step; the tail's pacing
@@ -785,7 +791,7 @@ def test_kernel_equals_plain_version_on_the_card():
             edge_stops += int((plain["n_steps"].long() % STAGE == 0).sum())
         for name in (*STAT_NAMES, *POINT_NAMES):
             assert torch.equal(out[name], plain[name]), (fparams.n_hosts, slot_us, name)
-    assert routes == {(4, q, r) for q in (1, 4) for r in ("ring", "scratch")}
+    assert routes == {(4, q, r) for q in (1, 4) for r in ("ring", "cluster")}
     assert kinds == {"early stop", "paced"}
     assert edge_stops > 0
 
