@@ -7,13 +7,15 @@ Phases, each a hard failure (nonzero exit, no result line):
 1. the card (nvidia-smi name and power limit), torch/CUDA versions, and the
    build of every kernel of ``src/repro_torch/kernels`` (flash attention,
    decode attention, SSD chunk scan, the four sweeps; one nvcc per source, in
-   parallel), with every kernel's registers and spills (the wgmma kernel,
-   the mma decode split, the K3 kernels and the sweeps must not spill);
+   parallel), with every kernel's registers and spills (both flash-attention
+   kernels, the mma decode split, the K3 kernels and the sweeps must not
+   spill);
 2. each kernel against its plain PyTorch version on the card, at the
    serving path's shapes, the reference test sweep's and the full widths of
    gemma-2b, gemma2-2b and mamba2-370m, with the tolerance stated per case;
-   flash attention's bf16 cases go to its "wgmma" route, decode
-   attention's to its "mma" route, f32 to "simt"; the SSD scan also against
+   flash attention's bf16 cases go to its "wgmma" route and its f32 cases to
+   "mma" (split TF32), decode attention's bf16 to its "mma" route and f32 to
+   "simt"; the SSD scan also against
    its plain version in f64; and each kernel must refuse an input that
    requires grad under grad mode (they have no backward);
 3. kernel, plain version and the PyTorch library call (where one computes
@@ -141,6 +143,23 @@ memory):
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
+    python3 chip_smoke.py --ssd-ab SRC [SRC ...]
+
+times this checkout's SSD scan (``csrc/ssd_scan.cu``) against other sources
+with its C interface (a parent commit's, a variant, kept under
+``scratch/``) at phase 3's three shapes, launched past the wrapper, in the
+order this, SRC1 .. SRCn, SRCn .. SRC1, this: each visit the whole call's
+median and each launch's (torch.profiler), the state pass beside its own
+bytes bound, and whether y and h_final are bit-equal to this checkout's
+(``phase_ssd_source_ab``).
+
+    python3 chip_smoke.py --attention-ab SRC [SRC ...]
+
+does the same for flash attention (``csrc/flash_attention.cu``) at phase
+3's shapes and the f32 route at hd 128 and 64: bf16 outputs bit for bit
+against this checkout's, f32 outputs each against the plain version at
+2e-5 (``phase_attention_source_ab``).
+
     python3 chip_smoke.py --sweep-ab SRC [SRC ...]
 
 times this checkout's sweep kernel against other sources with its C
@@ -261,8 +280,8 @@ def bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
 
 def within(out, ref, *, atol: float, rtol: float) -> tuple[bool, float]:
     """(all finite and |out - ref| <= atol + rtol |ref|, max abs error)."""
-    diff = (out.float() - ref.float()).abs()
-    ok = bool((diff <= atol + rtol * ref.float().abs()).all()) and bool(torch.isfinite(out).all())
+    diff = (out.double() - ref.double()).abs()
+    ok = bool((diff <= atol + rtol * ref.double().abs()).all()) and bool(torch.isfinite(out).all())
     return ok, float(diff.max())
 
 
@@ -285,6 +304,15 @@ def attn_bound(b, s, h, kv, hd, dtype, *, causal, window):
     flops = 4.0 * b * h * hd * int(mask.sum())
     itemsize = torch.tensor([], dtype=dtype).element_size()
     return (*bound(flops, itemsize * hd * b * s * (2 * h + 2 * kv), dtype), flops)
+
+
+def attn_route_bound(b, s, h, kv, hd, flops) -> tuple[float, str]:
+    """The f32 route's own least time (ms) and what sets it: every product
+    as three TF32 passes at the TF32 peak, or the f32 bytes of
+    ``attn_bound``."""
+    ops_ms = 1e3 * 3 * flops / PEAK_TF32
+    bytes_ms = 1e3 * 4.0 * hd * b * s * (2 * h + 2 * kv) / PEAK_BYTES_PER_S
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
 def phase_card() -> None:
@@ -316,14 +344,15 @@ def phase_card() -> None:
         info = _build.BUILD_INFO[source]
         regs = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln]
         log(f"  {source}: nvcc {info['seconds']:.2f} s; ptxas: {regs}")
-    for source, kernel in (("flash_attention.cu", "flash_fwd_wgmma_bf16"),
-                           ("decode_attention.cu", "decode_split_mma_bf16")):
+    for source, names in (("flash_attention.cu", ("flash_fwd_wgmma_bf16", "flash_fwd_mma_f32")),
+                          ("decode_attention.cu", ("decode_split_mma_bf16",))):
         kernels = ptxas_kernels(_build.BUILD_INFO[source]["log"])
         for name, (regs, spills, _) in kernels.items():
             log(f"  {name}: {regs} registers, {spills} bytes of spill stores + loads")
-        tc = {n: v for n, v in kernels.items() if n.startswith(kernel + "<")}
-        if len(tc) != 3 or any(spills for _, spills, _ in tc.values()):
-            fail(f"want {kernel} at hd 64, 128 and 256 without spills; ptxas gave {tc}")
+        for kernel in names:
+            tc = {n: v for n, v in kernels.items() if n.startswith(kernel + "<")}
+            if len(tc) != 3 or any(spills for _, spills, _ in tc.values()):
+                fail(f"want {kernel} at hd 64, 128 and 256 without spills; ptxas gave {tc}")
     # K3: chunk states and chunk outputs (one per type pair and hd) and the
     # state pass; every one that ptxas lists must be free of spills
     kernels = ptxas_kernels(_build.BUILD_INFO["ssd_scan.cu"]["log"])
@@ -488,7 +517,7 @@ def ptxas_kernels(log_text: str) -> dict[str, tuple[int, int, int]]:
 def phase_compare() -> dict[str, float]:
     """Kernel vs plain version; returns the max abs error per route at the
     shapes of the ``kernels`` line: gemma-2b prefill in bf16 ("wgmma") and
-    in f32 ("simt")."""
+    in f32 ("mma", split TF32)."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 plain version in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -516,27 +545,54 @@ def phase_compare() -> dict[str, float]:
                50.0, 32.0),
               ("gemma-2b prefill B=2", 2, 512, 8, 1, 256, torch.bfloat16, True, 0, 0.0, 1.0),
               ("gemma-2b prefill f32", 1, 1024, 8, 1, 256, torch.float32, True, 0, 0.0, 1.0)]
-    flash_attention.launches_by_route = {"wgmma": 0, "simt": 0}
-    route_err = {"wgmma": 0.0, "simt": 0.0}
+    # f32 edges of the split-TF32 kernel: rows past S and T zero-filled by
+    # cp.async, windows that cut its 32-row and 64- or 32-key tiles, logits
+    # that the softcap bends (q x4) and that reach past it (q x32, held
+    # against the plain version in f64: the f32 one is itself up to ~3e-5
+    # off there), the batch stride, an odd count of q tiles (a block of one
+    # tile under causal), and each hd without causal
+    cases += [("f32 ragged S=100", 1, 100, 4, 2, 64, torch.float32, True, 0, 0.0, 1.0),
+              ("f32 ragged S=192, window 100", 1, 192, 8, 2, 128, torch.float32, True, 100, 0.0,
+               1.0),
+              ("f32 ragged S=200, window 40", 1, 200, 4, 1, 256, torch.float32, True, 40, 0.0,
+               1.0),
+              ("gemma2-2b window+softcap, q x4, f32", 1, 1024, 8, 4, 256, torch.float32, True,
+               256, 50.0, 4.0),
+              ("gemma2-2b window+softcap, q x32, f32", 1, 1024, 8, 4, 256, torch.float32, True,
+               256, 50.0, 32.0),
+              ("f32 B=2", 2, 512, 8, 1, 256, torch.float32, True, 0, 0.0, 1.0),
+              ("f32 S=1000, not causal", 1, 1000, 8, 2, 256, torch.float32, False, 0, 0.0, 1.0),
+              ("f32 S=800, not causal", 1, 800, 8, 8, 128, torch.float32, False, 0, 0.0, 1.0),
+              ("f32 S=300, not causal, window 64", 1, 300, 4, 4, 64, torch.float32, False, 64,
+               0.0, 1.0)]
+    flash_attention.launches_by_route = {"wgmma": 0, "mma": 0}
+    route_err = {"wgmma": 0.0, "mma": 0.0}
     for name, b, s, h, kv, hd, dtype, causal, window, cap, q_scale in cases:
         q, k, v = attn_inputs(gen, b, s, h, kv, hd, dtype)
         q = (q_scale * q.float()).to(dtype)
         out = flash_attention(q, k, v, causal=causal, window=window, softcap=cap)
         torch.cuda.synchronize()
-        ref = flash_attention_ref(q, k, v, causal=causal, window=window, softcap=cap)
+        f64 = dtype == torch.float32 and q_scale > 4
+        ref = flash_attention_ref(*(x.double() if f64 else x for x in (q, k, v)),
+                                  causal=causal, window=window, softcap=cap)
         tol = TOL[dtype]
         ok, err = within(out, ref, **tol)
+        f64_note = ""
+        if f64:
+            plain = flash_attention_ref(q, k, v, causal=causal, window=window, softcap=cap)
+            f64_note = (f", plain version in f64 (the f32 one is "
+                        f"{float((plain.double() - ref).abs().max()):.3e} from it)")
         log(f"  {name}: B={b} S=T={s} H={h} KV={kv} hd={hd} {str(dtype)[6:]} "
             f"causal={causal} window={window} softcap={cap} q scale {q_scale}: "
-            f"max_abs_err={err:.3e} (max|ref| {float(ref.float().abs().max()):.3e}) "
+            f"max_abs_err={err:.3e} (max|ref| {float(ref.float().abs().max()):.3e}{f64_note}) "
             f"tol atol={tol['atol']} rtol={tol['rtol']} {'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"flash_attention disagrees with its plain version ({name}, S={s})")
         if name.startswith("gemma-2b prefill"):
-            route = "wgmma" if dtype == torch.bfloat16 else "simt"
+            route = "wgmma" if dtype == torch.bfloat16 else "mma"
             route_err[route] = max(route_err[route], err)
     want = {"wgmma": sum(c[6] == torch.bfloat16 for c in cases),
-            "simt": sum(c[6] == torch.float32 for c in cases)}
+            "mma": sum(c[6] == torch.float32 for c in cases)}
     if flash_attention.launches_by_route != want:
         fail(f"flash_attention routes {flash_attention.launches_by_route}, want {want}")
     log(f"  launches by route: {flash_attention.launches_by_route}")
@@ -545,7 +601,9 @@ def phase_compare() -> dict[str, float]:
 
 def phase_time() -> dict[str, list[dict]]:
     """K1 rows by route: "wgmma" holds gemma-2b's three prefill buckets and
-    a gemma2-2b softcap row, "simt" the f32 row at gemma-2b heads."""
+    a gemma2-2b softcap row, "mma" the f32 row at gemma-2b heads, whose
+    ``bound_ms`` is the route's own (its three TF32 passes at the TF32
+    peak), the f32 CUDA-core one beside it (``f32_bound_ms``)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
@@ -557,13 +615,13 @@ def phase_time() -> dict[str, list[dict]]:
               for s in SERVE_BUCKETS]
     shapes += [("gemma2-2b prefill S=1024, local layer (window 4096, softcap 50, q x32)",
                 "wgmma", 1024, 8, 4, torch.bfloat16, 4096, 50.0, 32.0),
-               ("gemma-2b prefill S=1024 f32", "simt", 1024, 8, 1, torch.float32, 0, 0.0, 1.0)]
-    rows = {"wgmma": [], "simt": []}
+               ("gemma-2b prefill S=1024 f32", "mma", 1024, 8, 1, torch.float32, 0, 0.0, 1.0)]
+    rows = {"wgmma": [], "mma": []}
     for name, route, s, h, kv, dtype, window, cap, q_scale in shapes:
         q, k, v = attn_inputs(gen, 1, s, h, kv, 256, dtype)
         q = (q_scale * q.float()).to(dtype)
         kw = dict(causal=True, window=window, softcap=cap)
-        flash_attention.launches_by_route = {"wgmma": 0, "simt": 0}
+        flash_attention.launches_by_route = {"wgmma": 0, "mma": 0}
         ms = time_ms(flash_attention, q, k, v, **kw)
         launches = flash_attention.launches_by_route[route]
         if launches != 23:
@@ -576,15 +634,26 @@ def phase_time() -> dict[str, list[dict]]:
                              is_causal=True, enable_gqa=True)
         bound_ms, bound_by, flops = attn_bound(1, s, h, kv, 256, dtype, causal=True,
                                                window=window)
-        rows[route].append({"name": name, "ms": ms, "plain_ms": plain_ms,
-                            "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                            "launches": launches, "tflops": flops / ms / 1e9,
-                            "bound_share": bound_ms / ms})
+        row = {"name": name, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "launches": launches, "tflops": flops / ms / 1e9}
+        f32_bound = ""
+        if dtype == torch.float32:
+            row.update(f32_bound_ms=bound_ms, f32_bound_by=bound_by,
+                       f32_bound_share=bound_ms / ms)
+            f32_bound = (f"; f32 CUDA-core bound {bound_ms * 1e3:.2f} us ({bound_by}), "
+                         f"{100 * bound_ms / ms:.1f}% of it")
+            bound_ms, bound_by = attn_route_bound(1, s, h, kv, 256, flops)
+            peak = "3 TF32 passes at the TF32 peak"
+        else:
+            peak = f"{str(dtype)[6:]} peak"
+        row.update(bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / ms)
+        rows[route].append(row)
         lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
         ratio = "" if lib_ms is None else f", kernel/sdpa {ms / lib_ms:.2f}"
         log(f"  {name} [{route}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib}, "
-            f"bound {bound_ms * 1e3:.2f} us ({bound_by}, {str(dtype)[6:]} peak); "
-            f"{flops / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of the bound{ratio}")
+            f"bound {bound_ms * 1e3:.2f} us ({bound_by}, {peak}); "
+            f"{flops / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of the bound"
+            f"{f32_bound}{ratio}")
     return rows
 
 
@@ -946,18 +1015,181 @@ def phase_time_ssd() -> list[dict]:
             b, length, nh, hd, n, chunk, x_dtype, bc_dtype)
         shape = (f"B={b} L={length} nh={nh} hd={hd} N={n} chunk={chunk} x "
                  f"{str(x_dtype)[6:]} B/C {str(bc_dtype)[6:]}")
+        pass_ms, pass_bytes = ssd_pass_bound(b, length, nh, hd, n, chunk)
         rows.append({"name": name, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
                      "bound_ms": route_ms, "bound_by": route_by, "launches": launches,
-                     "per_launch_ms": per_launch, "shape": shape})
+                     "per_launch_ms": per_launch, "state_pass_bound_ms": pass_ms,
+                     "shape": shape})
         if by_name:
             log(f"  {name}: " + ", ".join(f"{k} {t:.4f} ms" for k, t in per_launch.items())
-                + " (torch.profiler, one warm call)")
+                + f" (torch.profiler, one warm call); the state pass's own bound "
+                f"{pass_ms * 1e3:.2f} us ({pass_bytes / 1e6:.2f} MB over "
+                f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s), "
+                f"{100 * pass_ms / per_launch['ssd_state_pass']:.1f}% of it")
         log(f"  {name} ({shape}): kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, library none; "
             f"route bound {route_ms * 1e3:.2f} us ({route_by}: {pass_flops / 1e9:.3f} GFLOP of "
             f"TF32 passes and bf16 products, bytes {bytes_ms * 1e3:.2f} us), "
             f"{100 * route_ms / ms:.1f}% of it; f32 CUDA-core bound {f32_ms * 1e3:.2f} us "
             f"({f32_by}) for {flops / 1e9:.3f} GFLOP, {100 * f32_ms / ms:.1f}% of it; "
             f"kernel {flops / ms / 1e9:.2f} TFLOP/s; launches {launches}")
+    return rows
+
+
+def ssd_pass_bound(b, length, nh, hd, n, chunk) -> tuple[float, float]:
+    """The state pass's own least time (ms) and bytes: the chunk states
+    read and written once in place, the decays read once, h_final written
+    once, over the card's memory rate (it does 2 FLOPs an element)."""
+    nc = length // chunk
+    nbytes = 4.0 * b * nh * (2 * nc * hd * n + nc + hd * n)
+    return 1e3 * nbytes / PEAK_BYTES_PER_S, nbytes
+
+
+SSD_LAUNCHES = ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_out")
+
+
+def ssd_launch(args, chunk: int, lib=None):
+    """One SSD scan past its wrapper (so that no launch counter moves), for
+    ``--ssd-ab``'s comparison of two sources (``lib``, default this
+    checkout's): (y, h_final)."""
+    from repro_torch.kernels.ssd_scan.kernel import launch_ssd_scan
+    x, bmat = args[0], args[3]
+    b, _, nh, hd = x.shape
+    y = torch.empty_like(x)
+    h = torch.empty((b, nh, hd, bmat.shape[-1]), dtype=torch.float32, device="cuda")
+    launch_ssd_scan(*args, y, h, chunk=chunk, lib=lib)
+    return y, h
+
+
+def phase_ssd_source_ab(sources: list[str]) -> list[dict]:
+    """``--ssd-ab SRC...``: this checkout's ``csrc/ssd_scan.cu`` against
+    other sources with its C interface (a parent commit's, a variant), each
+    built with the same flags, at phase 3's shapes (``ssd_shapes``).  In the
+    order this, SRC1 .. SRCn, SRCn .. SRC1, this (A B B A for one source),
+    each visit takes the whole call's median of 20 CUDA-event timings after
+    3 warm-ups (behind the spin) and each launch's median over 10 calls
+    under torch.profiler, all launched the same way (``ssd_launch``); y and
+    h_final of each source are compared bit for bit with this checkout's
+    (reported, not required: a variant may compute something else)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    named = {"this": ssd_kernel._SOURCE, **{s: str(Path(s).resolve()) for s in sources}}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(named)) as pool:
+        libs = dict(zip(named, pool.map(ssd_kernel.build, named.values())))
+    log(f"ssd A/B: built {len(named)} sources in parallel in {time.perf_counter() - t0:.2f} s")
+    for name, source in named.items():
+        info = _build.BUILD_INFO[source]
+        log(f"  {name}: nvcc {info['seconds']:.2f} s; ptxas "
+            f"{ {k: v for k, v in ptxas_kernels(info['log']).items() if 'state_pass' in k} }")
+    order = [*named, *reversed(named)]
+    gen = torch.Generator("cuda").manual_seed(5)
+    rows = []
+    for name, b, length, nh, hd, n, chunk, x_dtype, bc_dtype in ssd_shapes():
+        args = ssd_inputs(gen, b, length, nh, hd, n, x_dtype, bc_dtype)
+        outs = {k: ssd_launch(args, chunk, lib) for k, lib in libs.items()}
+        torch.cuda.synchronize()
+        equal = {k: torch.equal(outs["this"][0], o[0]) and torch.equal(outs["this"][1], o[1])
+                 for k, o in outs.items() if k != "this"}
+        times = {k: [] for k in named}
+        per_launch = {k: [] for k in named}
+        for k in order:
+            times[k].append(time_ms(ssd_launch, args, chunk, libs[k]))
+            by_name = profile(f"ssd_scan {name} {k}", ssd_launch, args, chunk, libs[k],
+                              kernel=("ssd_scan", "ssd_"), calls=10)
+            per_launch[k].append({s: sum(t for kn, t in by_name.items() if s in kn)
+                                  for s in SSD_LAUNCHES if any(s in kn for kn in by_name)})
+        pass_ms, pass_bytes = ssd_pass_bound(b, length, nh, hd, n, chunk)
+        log(f"  {name} (B={b} L={length} nh={nh} hd={hd} N={n} chunk={chunk}), order "
+            f"{' '.join(order)}; state pass bound {pass_ms * 1e3:.2f} us "
+            f"({pass_bytes / 1e6:.2f} MB over {PEAK_BYTES_PER_S / 1e12:.2f} TB/s): " + "; ".join(
+                f"{k} call " + ", ".join(f"{t:.4f}" for t in ts) + " ms, by launch " + ", ".join(
+                    "/".join(f"{d.get(s, float('nan')):.4f}" for s in SSD_LAUNCHES)
+                    for d in per_launch[k]) for k, ts in times.items())
+            + f"; y and h_final bit-equal to this: {equal}")
+        rows.append({"name": name, "times_ms": times, "per_launch_ms": per_launch,
+                     "state_pass_bound_ms": pass_ms, "bit_equal": equal})
+    log(f"ssd A/B took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def attention_launch(q, k, v, kw: dict, lib=None):
+    """One flash attention past its wrapper (so that no launch counter
+    moves), for ``--attention-ab``'s comparison of two sources (``lib``,
+    default this checkout's)."""
+    from repro_torch.kernels.flash_attention.kernel import launch_flash_attention
+    out = torch.empty_like(q)
+    launch_flash_attention(q, k, v, out, scale=q.shape[-1] ** -0.5, lib=lib, **kw)
+    return out
+
+
+# --attention-ab's shapes: phase 3's (hd 256, causal) and the f32 route at
+# hd 64 and 128: (name, B, S, H, KV, hd, dtype, causal, window, softcap, q scale)
+ATTENTION_AB_SHAPES = (
+    *((f"gemma-2b prefill S={s}", 1, s, 8, 1, 256, torch.bfloat16, True, 0, 0.0, 1.0)
+      for s in SERVE_BUCKETS),
+    ("gemma2-2b S=1024 window 4096 softcap 50 q x32", 1, 1024, 8, 4, 256, torch.bfloat16,
+     True, 4096, 50.0, 32.0),
+    ("gemma-2b prefill S=1024 f32", 1, 1024, 8, 1, 256, torch.float32, True, 0, 0.0, 1.0),
+    ("S=1024 H=8 KV=2 hd=128 f32", 1, 1024, 8, 2, 128, torch.float32, True, 0, 0.0, 1.0),
+    ("S=1024 H=8 KV=8 hd=64 f32, not causal", 1, 1024, 8, 8, 64, torch.float32, False, 0,
+     0.0, 1.0),
+)
+
+
+def phase_attention_source_ab(sources: list[str]) -> list[dict]:
+    """``--attention-ab SRC...``: this checkout's ``csrc/flash_attention.cu``
+    against other sources with its C interface (a parent commit's, a
+    variant), each built with the same flags, at ``ATTENTION_AB_SHAPES``.
+    Each is timed as the median of 20 CUDA-event timings after 3 warm-ups
+    (behind the spin), in the order this, SRC1 .. SRCn, SRCn .. SRC1, this,
+    all launched the same way (``attention_launch``).  bf16 outputs are
+    compared bit for bit with this checkout's; f32 outputs, which another
+    route rounds otherwise, each against the plain version at 2e-5 (both
+    reported, not required: a variant may compute something else)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    named = {"this": fa_kernel._SOURCE, **{s: str(Path(s).resolve()) for s in sources}}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(named)) as pool:
+        libs = dict(zip(named, pool.map(fa_kernel.build, named.values())))
+    log(f"attention A/B: built {len(named)} sources in parallel in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for name, source in named.items():
+        info = _build.BUILD_INFO[source]
+        log(f"  {name}: nvcc {info['seconds']:.2f} s; ptxas {ptxas_kernels(info['log'])}")
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 plain version in full f32
+    order = [*named, *reversed(named)]
+    gen = torch.Generator("cuda").manual_seed(1)
+    rows = []
+    for name, b, s, h, kv, hd, dtype, causal, window, cap, q_scale in ATTENTION_AB_SHAPES:
+        q, k, v = attn_inputs(gen, b, s, h, kv, hd, dtype)
+        q = (q_scale * q.float()).to(dtype)
+        kw = dict(causal=causal, window=window, softcap=cap)
+        outs = {n: attention_launch(q, k, v, kw, lib) for n, lib in libs.items()}
+        torch.cuda.synchronize()
+        if dtype == torch.bfloat16:
+            check = {n: torch.equal(outs["this"], o) for n, o in outs.items() if n != "this"}
+            what = "bit-equal to this"
+        else:
+            ref = flash_attention_ref(q, k, v, **kw)
+            check = {n: within(o, ref, **TOL[dtype]) for n, o in outs.items()}
+            what = "(within 2e-5 of the plain version, max abs err)"
+        times = {n: [] for n in named}
+        for n in order:
+            times[n].append(time_ms(attention_launch, q, k, v, kw, libs[n]))
+        bound_ms, bound_by, flops = attn_bound(b, s, h, kv, hd, dtype, causal=causal,
+                                               window=window)
+        route = ("" if dtype == torch.bfloat16 else
+                 f", route bound {attn_route_bound(b, s, h, kv, hd, flops)[0] * 1e3:.2f} us")
+        log(f"  {name}, order {' '.join(order)}: " + "; ".join(
+            f"{n} " + ", ".join(f"{t:.4f}" for t in ts) + " ms ("
+            f"{flops / statistics.mean(ts) / 1e9:.1f} TFLOP/s)" for n, ts in times.items())
+            + f"; {str(dtype)[6:]} bound {bound_ms * 1e3:.2f} us ({bound_by}){route}; {what}: "
+            f"{check}")
+        rows.append({"name": name, "times_ms": times, "check": check, "bound_ms": bound_ms,
+                     "bound_by": bound_by})
+    log(f"attention A/B took {time.perf_counter() - t0:.1f} s")
     return rows
 
 
@@ -1014,7 +1246,7 @@ def phase_serve() -> dict:
                     max_new_tokens=MAX_NEW) for n in PROMPT_LENS]
     prefills_before = engine.prefill_tokens
     flash_attention.launches = 0            # counts from the main path only
-    flash_attention.launches_by_route = {"wgmma": 0, "simt": 0}
+    flash_attention.launches_by_route = {"wgmma": 0, "mma": 0}
     decode_attention.launches = 0
     decode_attention.launches_by_route = {"mma": 0, "simt": 0}
     ssd_scan.launches = 0
@@ -1043,7 +1275,7 @@ def phase_serve() -> dict:
     if launches != want:
         fail(f"flash_attention launched {launches} times, want {want} "
              f"({cfg.n_layers} per prefill x {len(reqs)} prefills)")
-    if by_route != {"wgmma": want, "simt": 0}:
+    if by_route != {"wgmma": want, "mma": 0}:
         fail(f"flash_attention routes {by_route}: every bf16 prefill launch must be wgmma")
     if any(other_launches.values()) or any(decode_by_route.values()):
         fail(f"the serving path launched {other_launches} (decode attention by route "
@@ -2314,7 +2546,7 @@ def phase_calibration_main(engine, compared: set) -> dict:
     for k in counters:
         k.launches = 0
     adaptive_sweep.launches_by_build = {}
-    flash_attention.launches_by_route = {"wgmma": 0, "simt": 0}
+    flash_attention.launches_by_route = {"wgmma": 0, "mma": 0}
     t1 = time.perf_counter()
     table = build_operating_table(
         rhos=f["rhos"], target_mean_latency_us=FRONTIER_TARGET_US, t_s_grid=f["t_s_grid"],
@@ -2382,7 +2614,7 @@ def phase_calibration_main(engine, compared: set) -> dict:
     want = {"flash_attention": n_layers * len(reqs), "decode_attention": 0, "ssd_scan": 0,
             "slot_sweep": 0, "adaptive_sweep": 1, "fleet_sweep": 0}
     if completed != len(reqs) or launches != want or by_route != {
-            "wgmma": n_layers * len(reqs), "simt": 0}:
+            "wgmma": n_layers * len(reqs), "mma": 0}:
         fail(f"calibrated serving: completed {completed}/{len(reqs)}, launches {launches} "
              f"(want {want}), flash attention by route {by_route}")
     log(f"  table from one adaptive_sweep launch in {build_s:.3f} s host clock (sweep, guard, "
@@ -3686,13 +3918,14 @@ def phase_fleet_adaptive_main(compared: set, timed: list[dict], s3_main: dict) -
 
 
 def profile(name: str, fn, *args, kernel: tuple[str, str] = ("flash_attention", "flash_fwd"),
-            **kwargs) -> dict[str, float]:
-    """Device busy share of one call of ``fn(*args, **kwargs)``: the sum of
+            calls: int = 1, **kwargs) -> dict[str, float]:
+    """Device busy share of a call of ``fn(*args, **kwargs)``: the sum of
     its CUDA kernels' times (torch.profiler) over its wall time (host clock
-    around a synchronised call), the time of the kernels whose names
+    around synchronised calls), the time of the kernels whose names
     contain ``kernel[1]`` (reported as ``kernel[0]``), and the kernels that
-    take the most of it.  Returns ms by kernel name (empty where the
-    profiler recorded no CUDA kernel)."""
+    take the most of it, after one warm-up call.  Returns ms a call by
+    kernel name, the median over ``calls`` calls (empty where the profiler
+    recorded no CUDA kernel)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -3701,13 +3934,18 @@ def profile(name: str, fn, *args, kernel: tuple[str, str] = ("flash_attention", 
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn(*args, **kwargs)
+        for _ in range(calls):
+            fn(*args, **kwargs)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    runs: dict[str, list[float]] = {}
+    for e in sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start):
+        runs.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
+    # each call launches the same kernels, so a name's runs, in time order,
+    # split evenly into the calls
+    by_name = {n: statistics.median(sum(ts[i * len(ts) // calls:(i + 1) * len(ts) // calls])
+                                    for i in range(calls)) for n, ts in runs.items()}
     if not by_name:
         log(f"  profile {name}: wall {wall_ms:.2f} ms; device time not measured "
             "(the profiler recorded no CUDA kernels)")
@@ -3717,7 +3955,7 @@ def profile(name: str, fn, *args, kernel: tuple[str, str] = ("flash_attention", 
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
     log(f"  profile {name}: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
         f"({100 * busy / wall_ms:.1f}%), {kernel[0]} {focus:.3f} ms, "
-        f"{sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)} kernels; top: "
+        f"{sum(map(len, runs.values())) // calls} kernels; top: "
         + "; ".join(f"{n[:60]} {ms:.4f} ms" for n, ms in top))
     return by_name
 
@@ -3736,30 +3974,16 @@ def main() -> int:
               "CUDA device", file=sys.stderr)
         return 2
     import repro_torch  # noqa: F401  (fails here, before any output, outside a checkout)
-    if sys.argv[1:2] == ["--sweep-ab"]:
+    ab = {"--sweep-ab": phase_sweep_source_ab, "--fleet-ab": phase_fleet_source_ab,
+          "--adaptive-ab": phase_adaptive_source_ab,
+          "--fleet-adaptive-ab": phase_fleet_adaptive_source_ab,
+          "--ssd-ab": phase_ssd_source_ab, "--attention-ab": phase_attention_source_ab}
+    if sys.argv[1:2] and sys.argv[1] in ab:
         log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                             "--format=csv,noheader"], capture_output=True, text=True,
                            check=True).stdout.strip().splitlines()[0])
-        print(json.dumps({"sweep_ab": phase_sweep_source_ab(sys.argv[2:])}), flush=True)
-        return 0
-    if sys.argv[1:2] == ["--fleet-ab"]:
-        log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                            "--format=csv,noheader"], capture_output=True, text=True,
-                           check=True).stdout.strip().splitlines()[0])
-        print(json.dumps({"fleet_ab": phase_fleet_source_ab(sys.argv[2:])}), flush=True)
-        return 0
-    if sys.argv[1:2] == ["--adaptive-ab"]:
-        log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                            "--format=csv,noheader"], capture_output=True, text=True,
-                           check=True).stdout.strip().splitlines()[0])
-        print(json.dumps({"adaptive_ab": phase_adaptive_source_ab(sys.argv[2:])}), flush=True)
-        return 0
-    if sys.argv[1:2] == ["--fleet-adaptive-ab"]:
-        log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                            "--format=csv,noheader"], capture_output=True, text=True,
-                           check=True).stdout.strip().splitlines()[0])
-        print(json.dumps({"fleet_adaptive_ab": phase_fleet_adaptive_source_ab(sys.argv[2:])}),
-              flush=True)
+        key = sys.argv[1][2:].replace("-", "_")
+        print(json.dumps({key: ab[sys.argv[1]](sys.argv[2:])}), flush=True)
         return 0
     phase_card()
     route_err = phase_compare()
@@ -3787,10 +4011,11 @@ def main() -> int:
     s3b_main = phase_fleet_adaptive_main(s3b_cmp["builds"], s3b_rows, fleet_main)
     # K1 has one kernel per type: bf16 ("wgmma", the serving path; its
     # numbers at the largest prefill bucket, every row beside them) and f32
-    # ("simt", on no model path: launches are its timing phase's, the
-    # serving run's count, 0, beside them)
+    # ("mma", split TF32, on no model path: launches are its timing phase's,
+    # the serving run's count, 0, beside them; its bound is its route's, as
+    # K3's is, with the f32 CUDA-core one left to phase 3's log)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    main_row, f32_row = rows["wgmma"][len(SERVE_BUCKETS) - 1], rows["simt"][0]
+    main_row, f32_row = rows["wgmma"][len(SERVE_BUCKETS) - 1], rows["mma"][0]
     k1 = {"route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
           "replaces": "src/repro/kernels/flash_attention/kernel.py:81"}
     kernels = [
@@ -3800,10 +4025,10 @@ def main() -> int:
          "rows": [{k: r[k] for k in ("name", "ms", "plain_ms", "library_ms", "bound_ms",
                                      "bound_by", "tflops", "bound_share")}
                   for r in rows["wgmma"]]},
-        {"name": "flash_attention (simt, f32)", **k1, "launches": f32_row["launches"],
-         "max_abs_err": route_err["simt"], **{k: f32_row[k] for k in keys},
+        {"name": "flash_attention (mma, f32)", **k1, "launches": f32_row["launches"],
+         "max_abs_err": route_err["mma"], **{k: f32_row[k] for k in keys},
          "shape": "B=1 S=T=1024 H=8 KV=1 hd=256 f32 causal",
-         "serving_launches": served["by_route"]["simt"]},
+         "serving_launches": served["by_route"]["mma"]},
     ]
     # decode attention and the SSD scan are on no model path: their launches
     # are the timing phase's, at the shape of the row (K2: bf16 "mma" at
@@ -3814,7 +4039,7 @@ def main() -> int:
     # of each launch goes beside it, and its other shapes (mamba2-370m B=4,
     # kernels_bench) in "rows"
     da = "decode_attention"
-    ssd_keys = ("per_launch_ms",)
+    ssd_keys = ("per_launch_ms", "state_pass_bound_ms")
     for name, source, replaces, row, err, serving, extra in (
             (f"{da} (mma, bf16)", da, "src/repro/kernels/decode_attention/kernel.py:73",
              decode_rows[0], decode_err["mma"], served["decode_by_route"]["mma"], {}),

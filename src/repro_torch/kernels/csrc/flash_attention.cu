@@ -32,11 +32,31 @@
 //   are never loaded.  Under causal the q tiles run longest-first.  TMA
 //   zero-fills rows past S and T (ragged edges need no padding).  The one
 //   rounding the Pallas kernel does not make is P -> bf16 before P V.
-// * f32, flash_fwd_simt_f32.  TF32 keeps ~3 decimal digits and would miss
-//   the reference's 2e-5, so f32 stays on the CUDA cores: a 64x64 tile of
-//   logits per iteration with a 4x4 register micro-tile per thread, f32
-//   tiles in padded shared memory, synchronous loads.  It runs against the
-//   67 TFLOP/s f32 rate.
+// * f32, flash_fwd_mma_f32 (route "mma").  One TF32 pass keeps ~3 decimal
+//   digits and would miss the reference's 2e-5; the split of
+//   csrc/ssd_scan.cu does not: each f32 operand is v = hi + lo (hi rounded
+//   to TF32), and each product hi.hi + hi.lo + lo.hi on mma.sync m16n8k8
+//   with f32 accumulators.  The tensor cores truncate as they accumulate,
+//   so the passes go into short sums from zero that are added in f32: every
+//   16-deep step of hd in S = Q K^T, every tile's keys in O += P V.  3 x
+//   4.29 GFLOP at gemma-2b S=1024 is 26 us at the 495 TFLOP/s TF32 peak,
+//   against 64 us for f32 on the CUDA cores.  One block per 32 q rows
+//   (under causal a pair, tiles n - 1 - x and x, so every block has the
+//   same work and 128 blocks fill the card at S=1024), 8 warps: each
+//   16-row group is 4 warps, warp r computing S for a quarter of each K/V
+//   tile's keys and O for a quarter of hd's columns, so O takes 32 (hd 256)
+//   registers a thread.  The group's row maxima meet in shared memory (one
+//   m a row), and P goes through shared memory once, split into (hi, lo)
+//   pairs; Q is split once per q tile.  K and V tiles of 64 keys arrive by
+//   cp.async into one buffer each, in turn: the next K while this tile's
+//   softmax and P V run, the next V while its S runs (at hd 256 a 2-stage
+//   ring of both would need 32-key tiles, and those were 7% slower); rows
+//   past S and T are zero-filled.  Rows are padded (HD + 4 words) so that
+//   the fragment reads are free of bank conflicts; V's rows are read in the
+//   order 2t, 2t + 1, as P's pairs hold them.  Scale, softcap, mask and the
+//   online softmax (natural units, as the reference) run on the
+//   fragments.  wgmma is not used: TF32 wgmma reads B only K-major from
+//   shared memory, so P V would need V transposed and split.
 //
 // Both keep the two guards of the TPU kernel: p = mask ? p : 0 (a fully
 // masked tile has m_prev = m_new = NEG_INF, so exp(0) = 1 would leak in)
@@ -54,204 +74,392 @@ constexpr int BK = 64;        // kv rows per iteration
 constexpr float NEG_INF = -2.3819763e38f;  // bf16-safe large negative, as in the reference
 
 // ---------------------------------------------------------------------------
-// f32: CUDA cores
+// f32: split TF32 on mma.sync
 // ---------------------------------------------------------------------------
 
-constexpr int THREADS = 256;  // 16 x 16 threads, each a 4 x 4 logit micro-tile
-constexpr int P_STRIDE = BK + 16;
+constexpr int MQ = 32;             // q rows a tile: two 16-row groups
+constexpr int MMA_W = 4;           // warps a row group
+constexpr int MMA_THREADS = 64 * MMA_W;
 
+// Per head dim: keys a K/V tile; keys a warp takes of a tile for S, and
+// its n-tiles; O's n-tiles a warp owns (2 to 8); the row stride of the K
+// and V tiles in words and of Q's (hi, lo) pairs in pairs (HD + 4 is 4 mod
+// 32 and mod 16: the fragment reads [row g][k t] of Q and K and [key
+// 2t][col g] of V put the 32 lanes on 32 banks), and of P's pairs (BKT + 8:
+// 8 mod 16, so that the 16-byte reads and writes of rows g and g + 1 land
+// on distinct banks).
 template <int HD>
-constexpr size_t simt_smem_bytes() {
-  return sizeof(float) * ((size_t)BQ * (HD + 4) + (size_t)BK * (HD + 4) +
-                          (size_t)BK * HD + (size_t)BQ * P_STRIDE);
+struct MmaTile {
+  static constexpr int BKT = 64;
+  static constexpr int KW = BKT / MMA_W;
+  static constexpr int NTS = KW / 8;
+  static constexpr int NTC = HD / 8 / MMA_W;
+  static constexpr int RS = HD + 4;
+  static constexpr int PS = BKT + 8;
+  // Q's pairs, a K tile and a V tile, P's pairs of both row groups, the row
+  // maxima (then sums) of each warp
+  static constexpr size_t BYTES = 8 * (size_t)MQ * RS + 4 * (size_t)RS * 2 * BKT +
+                                  8 * (size_t)MQ * PS + 4 * (size_t)MQ * MMA_W;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Rows [row0, row0 + ROWS) of a (rows, HD) slice with the given row stride
-// (in elements) -> shared memory with stride sm_stride; rows at or past
-// n_rows are zero.
+// 16 bytes global -> shared, asynchronously; zeros where !valid (src is then
+// not read, but stays a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// The 32 x MMA_W threads of row group rg (ids 1, 2; 0 is __syncthreads).
+__device__ __forceinline__ void row_group_sync(int rg) {
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + rg), "n"(32 * MMA_W) : "memory");
+}
+
+// Rows [row0, row0 + ROWS) of a (rows, HD) f32 slice with the given row
+// stride (elements) -> shared memory with row stride RS; rows at or past
+// n_rows are zero (a row past T must not bring a NaN into P V).
 template <int HD, int ROWS>
-__device__ __forceinline__ void load_tile(float* sm, int sm_stride, const float* g,
-                                          long row_stride, int row0, int n_rows) {
-  constexpr int CPR = HD / 4;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < ROWS * CPR; i += THREADS) {
-    const int r = i / CPR;
-    const int c = (i % CPR) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n_rows) x = *reinterpret_cast<const float4*>(g + (long)(row0 + r) * row_stride + c);
-    *reinterpret_cast<float4*>(&sm[r * sm_stride + c]) = x;
+__device__ __forceinline__ void load_rows(float* sm, const float* g, long row_stride, int row0,
+                                          int n_rows) {
+  constexpr int CPR = HD / 4, RS = MmaTile<HD>::RS;
+  for (int i = threadIdx.x; i < ROWS * CPR; i += MMA_THREADS) {
+    const int r = i / CPR, c = (i % CPR) * 4;
+    const bool ok = row0 + r < n_rows;
+    cp_async16(sm + r * RS + c, g + (long)(ok ? row0 + r : 0) * row_stride + c, ok);
   }
 }
 
+// v = hi + lo.  hi is v rounded to nearest (ties away) onto TF32's 10
+// mantissa bits, as cvt.rna.tf32 gives it, in two integer operations (v is
+// finite); lo = v - hi is exact in f32 and goes to the tensor cores as it
+// is: they read its top 10 mantissa bits, and the bits they drop are below
+// 2^-21 of v.
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+// Rows [row0, row0 + MQ) of q (row stride in elements) -> shared memory as
+// (hi, lo) pairs with row stride RS pairs; rows at or past n_rows are zero.
 template <int HD>
-__global__ void __launch_bounds__(THREADS, 1)
-flash_fwd_simt_f32(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, float* __restrict__ o, int S, int T_len,
-                   int H, int KV, int causal, int window, float softcap, float scale) {
-  constexpr int QKS = HD + 4;    // padded row stride of the Q and K tiles
-  constexpr int NC = HD / 16;    // accumulator columns per thread
-  constexpr int NV4 = HD / 64;   // float4 column chunks per thread
+__device__ __forceinline__ void load_q_split(uint2* sm, const float* g, long row_stride,
+                                             int row0, int n_rows) {
+  constexpr int CPR = HD / 4, RS = MmaTile<HD>::RS;
+  for (int i = threadIdx.x; i < MQ * CPR; i += MMA_THREADS) {
+    const int r = i / CPR, c = (i % CPR) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < n_rows)
+      x = *reinterpret_cast<const float4*>(g + (long)(row0 + r) * row_stride + c);
+    uint4 a, b;
+    split(x.x, a.x, a.y);
+    split(x.y, a.z, a.w);
+    split(x.z, b.x, b.y);
+    split(x.w, b.z, b.w);
+    *reinterpret_cast<uint4*>(sm + r * RS + c) = a;
+    *reinterpret_cast<uint4*>(sm + r * RS + c + 2) = b;
+  }
+}
 
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* Ks = Qs + BQ * QKS;
-  float* Vs = Ks + BK * QKS;
-  float* Ps = Vs + BK * HD;
+// d (16x8 f32) += a (16x8 tf32, row) b (8x8 tf32, col)
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;   // rows ty + 16 i
-  const int tx = tid & 15;   // logit columns tx + 16 j; output columns 64 c + 4 tx
+// d[e] += a b[e] for NT n-tiles of one 8-deep step, as split TF32: the
+// three passes (hi.lo, lo.hi, then hi.hi; lo.lo, below 2^-22 of the
+// product, is dropped) run pass by pass over the n-tiles, so that
+// consecutive mma.sync are independent.  The tensor cores truncate as they
+// accumulate, so d holds a short sum that starts from zero (16 deep in S,
+// one tile's keys in P V) and the caller adds it to its running sum in f32.
+template <int NT>
+__device__ __forceinline__ void mma_passes(float (&d)[NT][4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const uint32_t (&bh)[NT][2],
+                                           const uint32_t (&bl)[NT][2]) {
+#pragma unroll
+  for (int e = 0; e < NT; ++e) mma_tf32(d[e], ah, bl[e][0], bl[e][1]);
+#pragma unroll
+  for (int e = 0; e < NT; ++e) mma_tf32(d[e], al, bh[e][0], bh[e][1]);
+#pragma unroll
+  for (int e = 0; e < NT; ++e) mma_tf32(d[e], ah, bh[e][0], bh[e][1]);
+}
 
-  const long q_stride = (long)H * HD;
-  const long kv_stride = (long)KV * HD;
+// One block: one q tile of MQ rows of one (head, batch), or under causal a
+// pair of them, tiles n_qt - 1 - x and x, whose visible key ranges add up to
+// the same length in every block.  Row group rg (16 rows) is MMA_W warps;
+// its warp r computes S for the keys [r KW, (r + 1) KW) of each K/V tile and
+// O for the columns [r HD / MMA_W, (r + 1) HD / MMA_W).  The group's row
+// maxima meet in shared memory, so every warp of it holds the same m; its P
+// goes to shared memory as (hi, lo) pairs, and each warp's l (the sum over
+// its own keys, under the shared m) is added up at the end.
+template <int HD>
+__global__ void __launch_bounds__(MMA_THREADS)
+flash_fwd_mma_f32(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o, int S, int T_len, int H,
+                  int KV, int causal, int window, float softcap, float scale, int paired) {
+  using L = MmaTile<HD>;
+  constexpr int BKT = L::BKT, KW = L::KW, NTS = L::NTS, NTC = L::NTC, RS = L::RS, PS = L::PS;
+
+  extern __shared__ __align__(16) float smem[];
+  uint2* qs = reinterpret_cast<uint2*>(smem);                     // [MQ][RS] (hi, lo)
+  float* kt = smem + 2 * MQ * RS;                                 // [BKT][RS]
+  float* vt = kt + BKT * RS;                                      // [BKT][RS]
+  uint2* ps = reinterpret_cast<uint2*>(vt + BKT * RS);            // [MQ][PS] (hi, lo)
+  float* red = reinterpret_cast<float*>(ps + MQ * PS);            // [2][MMA_W][16]
+
+  const int n_qt = (S + MQ - 1) / MQ;
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / (H / KV);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int rg = warp / MMA_W, r = warp % MMA_W;
+  const long q_stride = (long)H * HD, kv_stride = (long)KV * HD;
   const float* qb = q + ((long)b * S * H + h) * HD;
   const float* kb = k + ((long)b * T_len * KV + kvh) * HD;
   const float* vb = v + ((long)b * T_len * KV + kvh) * HD;
   float* ob = o + ((long)b * S * H + h) * HD;
+  const uint2* qa = qs + (16 * rg + g) * RS + t4;   // this lane's A rows g and g + 8
+  uint2* pw = ps + (16 * rg + g) * PS + r * KW + 2 * t4;   // P of its S keys
+  const uint2* pa = ps + (16 * rg + g) * PS + 2 * t4;      // P as P V's A operand
+  float* red_g = red + rg * MMA_W * 16;
+  const int c0 = r * NTC * 8;                              // first column of its O
 
-  load_tile<HD, BQ>(Qs, QKS, qb, q_stride, q0, S);
+  const int x = blockIdx.x;
+  const int n_tiles = paired && 2 * x + 1 != n_qt ? 2 : 1;
+  for (int tp = 0; tp < n_tiles; ++tp) {
+    // the longer tile first
+    const int q0 = (paired && tp == 0 ? n_qt - 1 - x : x) * MQ;
+    // kv range this q tile can see; tiles outside it are wholly masked and
+    // would change neither m, l nor acc, so they are not loaded
+    int k_lo = 0, k_hi = T_len;
+    if (causal) k_hi = min(T_len, q0 + MQ);
+    if (window > 0) k_lo = max(0, q0 - window + 1);
+    const int k_first = (k_lo / BKT) * BKT;
+    const int n_kt = k_hi > k_first ? (k_hi - k_first + BKT - 1) / BKT : 0;
+    // one K and one V buffer, loaded in turn: K of tile n + 1 while the
+    // softmax and P V of tile n run, V of tile n + 1 while its S runs; each
+    // load is one commit group, K0 V0 K1 V1 ...
+    auto load_k = [&](int n) {
+      if (n < n_kt) load_rows<HD, BKT>(kt, kb, kv_stride, k_first + n * BKT, T_len);
+      cp_async_commit();
+    };
+    auto load_v = [&](int n) {
+      if (n < n_kt) load_rows<HD, BKT>(vt, vb, kv_stride, k_first + n * BKT, T_len);
+      cp_async_commit();
+    };
 
-  // kv range this q tile can see; tiles outside it are wholly masked and
-  // would change neither m, l nor acc.
-  int k_lo = 0, k_hi = T_len;
-  if (causal) k_hi = min(T_len, q0 + BQ);
-  if (window > 0) k_lo = max(0, q0 - window + 1);
+    if (tp > 0) __syncthreads();  // every warp done with the previous tile's buffers and sums
+    load_k(0);
+    load_v(0);
+    // Q once per q tile, split, while the first K/V tile is in flight
+    load_q_split<HD>(qs, qb, q_stride, q0, S);
 
-  float m[4], l[4], acc[4][NC];
+    float acc[NTC][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
+    for (int e = 0; e < NTC; ++e) acc[e][0] = acc[e][1] = acc[e][2] = acc[e][3] = 0.f;
+    float m[2] = {NEG_INF, NEG_INF};
+    float l[2] = {0.f, 0.f};
 
-  for (int k0 = (k_lo / BK) * BK; k0 < k_hi; k0 += BK) {
-    __syncthreads();  // Q visible; previous readers of Ks, Vs, Ps done
-    load_tile<HD, BK>(Ks, QKS, kb, kv_stride, k0, T_len);
-    load_tile<HD, BK>(Vs, HD, vb, kv_stride, k0, T_len);
-    __syncthreads();
+    for (int n = 0; n < n_kt; ++n) {
+      cp_async_wait<1>();  // K of tile n (V of tile n may be in flight)
+      __syncthreads();     // ... landed for all, and Q
+      const int kt0 = k_first + n * BKT;
 
-    float s[4][4];
+      // S = Q K^T over this warp's KW keys; the passes of each 16-deep step
+      // of hd start from zero and are added to s in f32
+      float s[NTS][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-
+      for (int e = 0; e < NTS; ++e) s[e][0] = s[e][1] = s[e][2] = s[e][3] = 0.f;
+      const float* ks = kt + (r * KW + g) * RS + t4;
 #pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      float4 qv[4], kv[4];
+      for (int d0 = 0; d0 < HD; d0 += 16) {
+        float d[NTS][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(&Qs[(ty + 16 * i) * QKS + d]);
+        for (int e = 0; e < NTS; ++e) d[e][0] = d[e][1] = d[e][2] = d[e][3] = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(&Ks[(tx + 16 * j) * QKS + d]);
+        for (int k8 = 0; k8 < 2; ++k8) {
+          const int kk = d0 + 8 * k8;
+          const uint2 qa0 = qa[kk], qa1 = qa[8 * RS + kk], qa2 = qa[kk + 4],
+                      qa3 = qa[8 * RS + kk + 4];
+          const uint32_t ah[4] = {qa0.x, qa1.x, qa2.x, qa3.x};
+          const uint32_t al[4] = {qa0.y, qa1.y, qa2.y, qa3.y};
+          uint32_t bh[NTS][2], bl[NTS][2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
-          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
-          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
-          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+          for (int e = 0; e < NTS; ++e) {
+            split(ks[8 * e * RS + kk], bh[e][0], bl[e][0]);
+            split(ks[8 * e * RS + kk + 4], bh[e][1], bl[e][1]);
+          }
+          mma_passes<NTS>(d, ah, al, bh, bl);
         }
-    }
-
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty + 16 * i;
-      bool ok[4];
-      float rmax = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        ok[j] = kpos < T_len;
-        if (causal) ok[j] = ok[j] && kpos <= qpos;
-        if (window > 0) ok[j] = ok[j] && kpos > qpos - window;
-        float x = s[i][j] * scale;
-        if (softcap != 0.f) x = softcap * tanhf(x / softcap);
-        x = ok[j] ? x : NEG_INF;
-        s[i][j] = x;
-        rmax = fmaxf(rmax, x);
+        for (int e = 0; e < NTS; ++e) {
+          s[e][0] += d[e][0];
+          s[e][1] += d[e][1];
+          s[e][2] += d[e][2];
+          s[e][3] += d[e][3];
+        }
       }
-      // the 16 threads of a row are lanes 0-15 or 16-31 of one warp
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
-      const float m_new = fmaxf(m[i], rmax);
-      float rsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        s[i][j] = p;
-        rsum += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rsum += __shfl_xor_sync(0xffffffffu, rsum, off);
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + rsum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= corr;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) Ps[(ty + 16 * i) * P_STRIDE + tx + 16 * j] = s[i][j];
-    }
-    __syncthreads();
+      __syncthreads();  // everyone done with K of tile n
+      load_k(n + 1);
 
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      float p[4];
+      // scale, softcap and mask on the fragment (element i of n-tile e: row
+      // g + 8 (i >> 1), key r KW + 8 e + 2 t + (i & 1)); only tiles that
+      // straddle the causal diagonal, the window edge or T are masked
+      const bool full = kt0 + BKT <= T_len && (!causal || kt0 + BKT - 1 <= q0) &&
+                        (window <= 0 || kt0 > q0 + MQ - 1 - window);
+      const int qrow = q0 + 16 * rg + g, kcol = kt0 + r * KW + 2 * t4;
+      float mx[2] = {NEG_INF, NEG_INF};
+      uint32_t ok_bits = 0xffffffffu;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ps[(ty + 16 * i) * P_STRIDE + j];
-#pragma unroll
-      for (int c4 = 0; c4 < NV4; ++c4) {
-        const float4 vv = *reinterpret_cast<const float4*>(&Vs[j * HD + 64 * c4 + 4 * tx]);
+      for (int e = 0; e < NTS; ++e)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          acc[i][4 * c4 + 0] = fmaf(p[i], vv.x, acc[i][4 * c4 + 0]);
-          acc[i][4 * c4 + 1] = fmaf(p[i], vv.y, acc[i][4 * c4 + 1]);
-          acc[i][4 * c4 + 2] = fmaf(p[i], vv.z, acc[i][4 * c4 + 2]);
-          acc[i][4 * c4 + 3] = fmaf(p[i], vv.w, acc[i][4 * c4 + 3]);
+          float xv = s[e][i] * scale;
+          if (softcap != 0.f) xv = softcap * tanhf(xv / softcap);
+          if (!full) {
+            const int qpos = qrow + 8 * (i >> 1), kpos = kcol + 8 * e + (i & 1);
+            bool ok = kpos < T_len;
+            if (causal) ok = ok && kpos <= qpos;
+            if (window > 0) ok = ok && kpos > qpos - window;
+            if (!ok) {
+              xv = NEG_INF;
+              ok_bits &= ~(1u << (4 * e + i));
+            }
+          }
+          s[e][i] = xv;
+          mx[i >> 1] = fmaxf(mx[i >> 1], xv);
         }
+      // the row group's maxima meet: every warp of it takes the same m
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+        if (t4 == 0) red_g[r * 16 + g + 8 * hh] = mx[hh];
       }
+      row_group_sync(rg);
+      float corr[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float m_tile = red_g[g + 8 * hh];
+#pragma unroll
+        for (int w = 1; w < MMA_W; ++w) m_tile = fmaxf(m_tile, red_g[w * 16 + g + 8 * hh]);
+        const float m_new = fmaxf(m[hh], m_tile);
+        corr[hh] = expf(m[hh] - m_new);
+        m[hh] = m_new;
+        l[hh] *= corr[hh];
+      }
+      // p, this warp's share of l, and P as (hi, lo) pairs: a 16-byte store
+      // holds keys 2t and 2t + 1 of a row, as P V's A fragment reads them
+#pragma unroll
+      for (int e = 0; e < NTS; ++e) {
+        float p[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          p[i] = expf(s[e][i] - m[i >> 1]);
+          if (!full) p[i] = (ok_bits >> (4 * e + i)) & 1u ? p[i] : 0.f;
+          l[i >> 1] += p[i];
+        }
+        uint4 a, c;
+        split(p[0], a.x, a.y);
+        split(p[1], a.z, a.w);
+        split(p[2], c.x, c.y);
+        split(p[3], c.z, c.w);
+        *reinterpret_cast<uint4*>(pw + 8 * e) = a;
+        *reinterpret_cast<uint4*>(pw + 8 * PS + 8 * e) = c;
+      }
+      cp_async_wait<1>();  // V of tile n (K of tile n + 1 may be in flight)
+      __syncthreads();     // ... for all, and the row group's P
+      // O = O corr + P V over this warp's NTC column tiles; the passes over
+      // the tile's BKT keys start from zero and meet O in one f32 fma.  Slot
+      // t of key step j is key 8 j + 2 t, slot t + 4 key 8 j + 2 t + 1, in P
+      // and in V alike (the sum over keys takes any order)
+      float d[NTC][4];
+#pragma unroll
+      for (int e = 0; e < NTC; ++e) d[e][0] = d[e][1] = d[e][2] = d[e][3] = 0.f;
+#pragma unroll
+      for (int j = 0; j < BKT / 8; ++j) {
+        const uint4 p0 = *reinterpret_cast<const uint4*>(pa + 8 * j);
+        const uint4 p1 = *reinterpret_cast<const uint4*>(pa + 8 * PS + 8 * j);
+        const uint32_t ah[4] = {p0.x, p1.x, p0.z, p1.z};
+        const uint32_t al[4] = {p0.y, p1.y, p0.w, p1.w};
+        const float* vr = vt + (8 * j + 2 * t4) * RS + c0 + g;
+        uint32_t bh[NTC][2], bl[NTC][2];
+#pragma unroll
+        for (int e = 0; e < NTC; ++e) {
+          split(vr[8 * e], bh[e][0], bl[e][0]);
+          split(vr[RS + 8 * e], bh[e][1], bl[e][1]);
+        }
+        mma_passes<NTC>(d, ah, al, bh, bl);
+      }
+#pragma unroll
+      for (int e = 0; e < NTC; ++e) {
+        acc[e][0] = fmaf(acc[e][0], corr[0], d[e][0]);
+        acc[e][1] = fmaf(acc[e][1], corr[0], d[e][1]);
+        acc[e][2] = fmaf(acc[e][2], corr[1], d[e][2]);
+        acc[e][3] = fmaf(acc[e][3], corr[1], d[e][3]);
+      }
+      __syncthreads();  // everyone done with V of tile n
+      load_v(n + 1);
     }
-  }
 
+    // l: the quad's shares, then the row group's warps' (each over its own
+    // keys, under the same m) in a fixed order
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + ty + 16 * i;
-    if (qpos >= S) continue;
-    const float denom = l[i] == 0.f ? 1.f : l[i];
+    for (int hh = 0; hh < 2; ++hh) {
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // every warp done reading the last tile's maxima
 #pragma unroll
-    for (int c4 = 0; c4 < NV4; ++c4) {
-      float4 out;
-      out.x = acc[i][4 * c4 + 0] / denom;
-      out.y = acc[i][4 * c4 + 1] / denom;
-      out.z = acc[i][4 * c4 + 2] / denom;
-      out.w = acc[i][4 * c4 + 3] / denom;
-      *reinterpret_cast<float4*>(ob + (long)qpos * q_stride + 64 * c4 + 4 * tx) = out;
+    for (int hh = 0; hh < 2; ++hh)
+      if (t4 == 0) red_g[r * 16 + g + 8 * hh] = l[hh];
+    row_group_sync(rg);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float l_all = red_g[g + 8 * hh];
+#pragma unroll
+      for (int w = 1; w < MMA_W; ++w) l_all += red_g[w * 16 + g + 8 * hh];
+      const float inv = 1.f / (l_all == 0.f ? 1.f : l_all);
+      const int qpos = q0 + 16 * rg + g + 8 * hh;
+      if (qpos >= S) continue;
+      float* orow = ob + (long)qpos * q_stride + c0 + 2 * t4;
+#pragma unroll
+      for (int e = 0; e < NTC; ++e)
+        *reinterpret_cast<float2*>(orow + 8 * e) =
+            make_float2(acc[e][2 * hh] * inv, acc[e][2 * hh + 1] * inv);
     }
   }
 }
 
 template <int HD>
-cudaError_t launch_simt(const void* q, const void* k, const void* v, void* o, int B,
-                        int S, int T_len, int H, int KV, int causal, int window,
-                        float softcap, float scale, cudaStream_t stream) {
-  constexpr size_t smem = simt_smem_bytes<HD>();
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int B, int S,
+                       int T_len, int H, int KV, int causal, int window, float softcap,
+                       float scale, cudaStream_t stream) {
+  constexpr size_t smem = MmaTile<HD>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_simt_f32<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_mma_f32<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_fwd_simt_f32<HD><<<grid, THREADS, smem, stream>>>(
+  const int n_qt = (S + MQ - 1) / MQ;
+  const int paired = causal ? 1 : 0;
+  dim3 grid(paired ? (n_qt + 1) / 2 : n_qt, H, B);
+  flash_fwd_mma_f32<HD><<<grid, MMA_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, T_len, H, KV, causal,
-      window, softcap, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), S, T_len, H, KV, causal, window,
+      softcap, scale, paired);
   return cudaGetLastError();
 }
 
@@ -271,10 +479,6 @@ __host__ __device__ constexpr uint32_t tile_bytes() { return 64u * HD * 2u; }  /
 template <int HD>
 constexpr size_t wgmma_smem_bytes() {
   return 1024 + (size_t)tile_bytes<HD>() * (1 + 2 * STAGES);  // + slack to align to 1 KB
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
@@ -659,7 +863,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, i
 
 extern "C" {
 
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (wgmma + TMA).  Returns a
+// dtype: 0 = float32 (split TF32 on mma.sync), 1 = bfloat16 (wgmma + TMA).  Returns a
 // cudaError_t (0 on success); the launch is asynchronous on `stream`.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         int B, int S, int T_len, int H, int KV, int hd,
@@ -673,9 +877,9 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
 #define FA_ARGS q, k, v, o, B, S, T_len, H, KV, causal, window, softcap, scale, st
   if (dtype == 0) {
     switch (hd) {
-      case 64: return (int)launch_simt<64>(FA_ARGS);
-      case 128: return (int)launch_simt<128>(FA_ARGS);
-      case 256: return (int)launch_simt<256>(FA_ARGS);
+      case 64: return (int)launch_mma<64>(FA_ARGS);
+      case 128: return (int)launch_mma<128>(FA_ARGS);
+      case 256: return (int)launch_mma<256>(FA_ARGS);
     }
   } else if (dtype == 1) {
     switch (hd) {

@@ -47,10 +47,11 @@
 //                        exp(cum_last - cum_j) dt_j, and exp(cum_last);
 //                        x and B stream through a 2-stage cp.async ring of
 //                        64-row tiles;
-//       ssd_state_pass   per (b*h, 256 state elements): h_c =
+//       ssd_state_pass   per (b*h, 1024 state elements): h_c =
 //                        exp(cum_last,c) h_{c-1} + S_c, NC steps, written in
 //                        place over S_c as the state in force before chunk
-//                        c, and h_final;
+//                        c, and h_final; 16-byte accesses, the loads of 8
+//                        chunks in flight before their stores;
 //       ssd_chunk_out    per (b, chunk, group of HG heads, pair of 64-row
 //                        tiles): intra + inter.
 //  2. C.B^T has no head axis.  ssd_chunk_out builds a tile's 64 rows of it
@@ -398,21 +399,54 @@ ssd_chunk_state(const TX* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
-// The carried state, chunk by chunk: states[bh, c] <- state before chunk c.
+// ---------------------------------------------------------------------------
+// ssd_state_pass: the carried state, chunk by chunk, in place: states[bh, c]
+// <- the state before chunk c, and h_final <- the state after the last.  Two
+// FLOPs and 8 bytes an element: bound by bytes.  The in-place store to chunk
+// c and the load from chunk c + 1 go through one pointer, so the compiler
+// keeps them in program order: a loop that loads and stores one chunk at a
+// time has one load in flight.  So a thread owns 4 consecutive elements
+// (16-byte loads and stores) and issues the loads of PASS_BATCH chunks
+// before any store; the batch loop carries hs, so any NC works.  A block
+// reads its bh's decays once, a batch at a time, into shared memory.  hs =
+// decay * hs + sc contracts to one fma, as in the reference's order of the
+// recurrence.  No streaming hint on the stores: ssd_chunk_out reads the
+// states next, from L2.
+// ---------------------------------------------------------------------------
+
+constexpr int PASS_BATCH = 8;  // chunks whose loads are in flight together
+
 __global__ void __launch_bounds__(THREADS)
 ssd_state_pass(float* __restrict__ states, const float* __restrict__ decay,
                float* __restrict__ h_final, int NC, int size) {
-  const int e = blockIdx.x * THREADS + threadIdx.x;
+  __shared__ float dec[PASS_BATCH];
+  const int e = blockIdx.x * THREADS + threadIdx.x;       // float4 of the state
   const int bh = blockIdx.y;
-  if (e >= size) return;
-  float* s = states + (long)bh * NC * size + e;
-  float hs = 0.f;
-  for (int c = 0; c < NC; ++c) {
-    const float sc = s[(long)c * size];
-    s[(long)c * size] = hs;
-    hs = decay[(long)bh * NC + c] * hs + sc;
+  const long step = size / 4;                             // float4s a chunk
+  const bool live = e < step;
+  float4* s = reinterpret_cast<float4*>(states) + (long)bh * NC * step + e;
+  float4 hs = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c0 = 0; c0 < NC; c0 += PASS_BATCH) {
+    const int nb = min(PASS_BATCH, NC - c0);
+    float4 sc[PASS_BATCH];
+#pragma unroll
+    for (int i = 0; i < PASS_BATCH; ++i)
+      if (live && i < nb) sc[i] = s[(c0 + i) * step];
+    if (threadIdx.x < nb) dec[threadIdx.x] = decay[(long)bh * NC + c0 + threadIdx.x];
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < PASS_BATCH; ++i)
+      if (live && i < nb) {
+        s[(c0 + i) * step] = hs;
+        const float d = dec[i];
+        hs.x = d * hs.x + sc[i].x;
+        hs.y = d * hs.y + sc[i].y;
+        hs.z = d * hs.z + sc[i].z;
+        hs.w = d * hs.w + sc[i].w;
+      }
+    __syncthreads();  // dec read before the next batch writes it
   }
-  h_final[(long)bh * size + e] = hs;
+  if (live) reinterpret_cast<float4*>(h_final)[(long)bh * step + e] = hs;
 }
 
 // ---------------------------------------------------------------------------
@@ -816,8 +850,8 @@ cudaError_t launch(const void* x, const float* dt, const float* a, const void* b
       return cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return err;
-  const int size = HD * N;
-  ssd_state_pass<<<dim3((size + THREADS - 1) / THREADS, BH), THREADS, 0, stream>>>(
+  const int size = HD * N;  // a multiple of 4: hd and N are
+  ssd_state_pass<<<dim3((size / 4 + THREADS - 1) / THREADS, BH), THREADS, 0, stream>>>(
       states, decay, h_final, NC, size);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;

@@ -20,21 +20,24 @@ _SIGNATURES = {
                                  _I, _I, _F, _F, _I, _P]),
     "flash_attention_error_string": (ctypes.c_char_p, [_I]),
 }
-# the C entry point picks the kernel by this code: 0 -> f32 on the CUDA
-# cores, 1 -> bf16 on wgmma (ops.ROUTES names the two routes)
+# the C entry point picks the kernel by this code: 0 -> f32 as split TF32
+# on mma.sync, 1 -> bf16 on wgmma (ops.ROUTES names the two routes)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def build():
-    """Build (once) and load the kernel's library."""
-    return load_library(_SOURCE, _SIGNATURES)
+def build(source: str = _SOURCE):
+    """Build (once) and load the kernel's library; ``source`` may name
+    another file with the same C interface (an absolute path), for an A/B
+    of two versions of the kernel in one process."""
+    return load_library(source, _SIGNATURES)
 
 
 def launch_flash_attention(q, k, v, out, *, causal: bool, window: int,
-                           softcap: float, scale: float) -> None:
-    """Launch the kernel on the current stream of ``q``'s device.  Shapes,
-    types, devices and alignment are checked by the caller (``ops``)."""
-    lib = build()
+                           softcap: float, scale: float, lib=None) -> None:
+    """Launch the kernel on the current stream of ``q``'s device (``lib``,
+    default this checkout's library).  Shapes, types, devices and alignment
+    are checked by the caller (``ops``)."""
+    lib = build() if lib is None else lib
     b, s, h, hd = q.shape
     t, kv = k.shape[1], k.shape[2]
     device = q.device.index if q.device.index is not None else torch.cuda.current_device()

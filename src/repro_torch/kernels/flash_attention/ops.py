@@ -8,9 +8,12 @@ tensors it launches one of the two hand-written kernels of
 * bf16 -> ``"wgmma"``: both products on the tensor cores (bf16 operands,
   f32 accumulation), tiles fed by TMA.  The one rounding the reference
   does not make is the probabilities P -> bf16 before P V.
-* f32 -> ``"simt"``: f32 on the CUDA cores.  The tensor cores take f32
-  only as TF32, which keeps about three decimal digits and would miss the
-  reference's 2e-5.
+* f32 -> ``"mma"``: both products on the tensor cores as split TF32
+  (``mma.sync``): each f32 operand is hi + lo, hi rounded to TF32, and each
+  product hi.hi + hi.lo + lo.hi, the passes summed from zero over short
+  steps (16 deep in q k^T, a tile's keys in P V) and added in f32.  One
+  TF32 pass keeps about three decimal digits and would miss the
+  reference's 2e-5; the split meets it.
 
 Each launch counts in ``flash_attention.launches`` and in
 ``flash_attention.launches_by_route[route]``.  For CPU tensors it computes
@@ -31,20 +34,21 @@ __all__ = ["flash_attention", "flash_attention_ref"]
 
 NEG_INF = -2.3819763e38
 HEAD_DIMS = (64, 128, 256)
-ROUTES = {torch.bfloat16: "wgmma", torch.float32: "simt"}
+ROUTES = {torch.bfloat16: "wgmma", torch.float32: "mma"}
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
                         softcap: float = 0.0, scale: float | None = None):
     """Plain version: the reference's ``ref.reference_attention`` in the
-    model layout.  q: (B,S,H,hd); k, v: (B,T,KV,hd) -> (B,S,H,hd), f32 math,
-    output in q's dtype."""
+    model layout.  q: (B,S,H,hd); k, v: (B,T,KV,hd) -> (B,S,H,hd), f32 math
+    (f64 for f64 inputs), output in q's dtype."""
     b, s, h, hd = q.shape
     t, kv = k.shape[1], k.shape[2]
     group = h // kv
     scale = hd ** -0.5 if scale is None else scale
-    qg = q.float().reshape(b, s, kv, group, hd)
-    logits = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * scale
+    math = torch.promote_types(q.dtype, torch.float32)
+    qg = q.to(math).reshape(b, s, kv, group, hd)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, k.to(math)) * scale
     if softcap:
         logits = softcap * torch.tanh(logits / softcap)
     qpos = torch.arange(s, device=q.device)[:, None]
@@ -56,7 +60,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
         mask &= kpos > qpos - window
     logits = torch.where(mask, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v.to(math))
     return out.reshape(b, s, h, hd).to(q.dtype)
 
 
@@ -87,7 +91,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """q: (B,S,H,hd); k, v: (B,T,KV,hd) -> (B,S,H,hd) in q's dtype.
 
     CUDA tensors go through the kernel of their type's route (hd in
-    {64, 128, 256}, bf16 -> "wgmma", f32 -> "simt", contiguous); CPU
+    {64, 128, 256}, bf16 -> "wgmma", f32 -> "mma", contiguous); CPU
     tensors through ``flash_attention_ref``."""
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")

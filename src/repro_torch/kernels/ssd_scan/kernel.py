@@ -22,17 +22,21 @@ _SIGNATURES = {
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def build():
-    """Build (once) and load the kernel's library."""
-    return load_library(_SOURCE, _SIGNATURES)
+def build(source: str = _SOURCE):
+    """Build (once) and load the kernel's library; ``source`` may name
+    another file with the same C interface (an absolute path), for an A/B
+    of two versions of the kernels in one process."""
+    return load_library(source, _SIGNATURES)
 
 
-def launch_ssd_scan(x, dt, a, bmat, cmat, y, h_final, *, chunk: int) -> tuple[int, int]:
+def launch_ssd_scan(x, dt, a, bmat, cmat, y, h_final, *, chunk: int,
+                    lib=None) -> tuple[int, int]:
     """Launch the three kernels (chunk states, state pass, chunk outputs) on
-    the current stream of ``x``'s device; returns the chunk outputs' block
-    layout, (heads a block, 1 if a block takes a pair of row tiles else 0).
-    Shapes, types, devices and alignment are checked by the caller (``ops``)."""
-    lib = build()
+    the current stream of ``x``'s device (``lib``, default this checkout's
+    library); returns the chunk outputs' block layout, (heads a block, 1 if
+    a block takes a pair of row tiles else 0).  Shapes, types, devices and
+    alignment are checked by the caller (``ops``)."""
+    lib = build() if lib is None else lib
     b, length, nh, hd = x.shape
     n = bmat.shape[-1]
     nc = length // chunk

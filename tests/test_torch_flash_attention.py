@@ -2,9 +2,10 @@
 inputs through JAX ``flash_attention`` (the Pallas kernel in interpret
 mode) and the port's wrapper, which on CPU tensors computes its plain
 version.  Sweep and tolerances are those of tests/test_kernels.py (f32
-2e-5, bf16 2e-2).  The bf16 kernel's arithmetic (bf16 operands on the
-tensor cores, P rounded to bf16 before P V) is emulated here and held
-against the same JAX kernel.  The kernels themselves run only on a card:
+2e-5, bf16 2e-2).  Both routes' arithmetic is emulated here and held
+against the same JAX kernel: bf16 operands on the tensor cores with P
+rounded to bf16 before P V, and f32 as split TF32 on its tile sizes (also
+against an f64 reference).  The kernels themselves run only on a card:
 their test is marked ``gpu`` and skips here."""
 
 import jax.numpy as jnp
@@ -155,21 +156,194 @@ def test_wgmma_arithmetic_matches_jax_kernel(b, s, h, kv, hd, bq, bk, causal, wi
     np.testing.assert_allclose(_np(out), _np(ref), **TOL["bfloat16"])
 
 
+def _tf32(v, rounded=True):
+    """v onto TF32's 10 mantissa bits: rounded to nearest, ties away from
+    zero (cvt.rna), or truncated, as the tensor cores read an f32 register."""
+    bits = v.contiguous().view(torch.int32)
+    return (((bits + 0x1000) if rounded else bits) & ~0x1FFF).view(torch.float32)
+
+
+def _split(v):
+    """v = hi + lo: hi rounded to TF32, lo the rest as the tensor cores read
+    it (truncated)."""
+    hi = _tf32(v)
+    return hi, _tf32(v - hi, rounded=False)
+
+
+def _steps(a, b, depth):
+    """a @ b over the last axis of a as the f32 route runs it: for every
+    ``depth``-deep step, hi.lo + lo.hi, then + hi.hi (lo.lo dropped),
+    summed from zero in f32, and each step's sum added to the running sum
+    in f32."""
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    out = None
+    for k0 in range(0, a.shape[-1], depth):
+        k = slice(k0, k0 + depth)
+        d = (ah[..., k] @ bl[..., k, :] + al[..., k] @ bh[..., k, :]) + ah[..., k] @ bh[..., k, :]
+        out = d if out is None else out + d
+    return out
+
+
+MQ = 32   # the f32 route's q rows a tile
+
+
+def _mma_f32_emulation(q, k, v, *, causal, window, softcap):
+    """The f32 route's arithmetic on the CPU, tile by tile as the kernel
+    walks it: 32 q rows against K/V tiles of 64 keys from the first
+    visible one; split-TF32 logits (the passes of every 16-deep step
+    of hd summed from zero), scale, softcap and mask, an online softmax in
+    natural units, and a split-TF32 P V whose passes over the tile's keys
+    start from zero and meet O as O corr + d; a row that sees no key gives 0
+    (the l == 0 guard)."""
+    b, s, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    kf = k.float().repeat_interleave(h // kv, dim=2).permute(0, 2, 3, 1)   # b h d t
+    vf = v.float().repeat_interleave(h // kv, dim=2).permute(0, 2, 1, 3)   # b h t d
+    scale = hd ** -0.5
+    bkt = 64
+    out = torch.zeros(b, s, h, hd)
+    for q0 in range(0, s, MQ):
+        qf = q[:, q0:q0 + MQ].float().permute(0, 2, 1, 3)                  # b h r d
+        rows = qf.shape[2]
+        qpos = torch.arange(q0, q0 + rows)[:, None]
+        k_lo = max(0, q0 - window + 1) if window else 0
+        k_hi = min(t, q0 + MQ) if causal else t
+        m = torch.full((b, h, rows), NEG_INF)
+        l = torch.zeros(b, h, rows)
+        acc = torch.zeros(b, h, rows, hd)
+        for ka in range(k_lo // bkt * bkt, k_hi, bkt):
+            kb = min(ka + bkt, t)     # keys past T: zeros in the kernel, masked
+            x = _steps(qf, kf[..., ka:kb], 16) * scale
+            if softcap:
+                x = softcap * torch.tanh(x / softcap)
+            kpos = torch.arange(ka, kb)[None, :]
+            ok = torch.ones(x.shape[-2:], dtype=torch.bool)
+            if causal:
+                ok &= kpos <= qpos
+            if window:
+                ok &= kpos > qpos - window
+            x = torch.where(ok, x, NEG_INF)
+            m_new = torch.maximum(m, x.amax(-1))
+            p = torch.where(ok, torch.exp(x - m_new[..., None]), 0.0)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + _steps(p, vf[:, :, ka:kb], bkt)
+            m = m_new
+        inv = 1.0 / torch.where(l == 0, 1.0, l)
+        out[:, q0:q0 + MQ] = (acc * inv[..., None]).permute(0, 2, 1, 3)
+    return out.to(q.dtype)
+
+
+MMA_CASES = [
+    *[(*shape, causal, 0, 0.0)
+      for shape in ((1, 128, 4, 4, 64, 64, 64), (2, 256, 8, 2, 64, 128, 64),
+                    (1, 192, 4, 1, 128, 64, 96), (1, 64, 2, 2, 256, 64, 64))
+      for causal in (True, False)],
+    (2, 128, 4, 2, 64, 64, 32, True, 32, 0.0),     # the reference's window/softcap cases
+    (2, 128, 4, 2, 64, 64, 32, True, 0, 20.0),
+    (2, 128, 4, 2, 64, 64, 32, True, 64, 30.0),
+    (1, 100, 4, 2, 64, 100, 100, True, 0, 0.0),    # ragged: rows past S and T
+    (1, 200, 2, 1, 256, 100, 100, True, 40, 0.0),  # hd 256, tiles cut by a window
+    (1, 160, 4, 4, 128, 32, 32, False, 50, 10.0),  # a window and a softcap without causal
+]
+
+
+@pytest.fixture
+def one_thread():
+    """The emulations' small tensors gain nothing from intra-op threads;
+    one keeps a parallel test run from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("b,s,h,kv,hd,bq,bk,causal,window,softcap", MMA_CASES)
+def test_mma_f32_arithmetic_matches_jax_kernel(b, s, h, kv, hd, bq, bk, causal, window,
+                                               softcap):
+    """Split TF32 with the passes of every 16-deep step of S (and of each
+    64-key tile of P V) added in f32, on the kernel's 32-row q tiles and
+    64-key K/V tiles, stays inside the reference's f32 2e-5."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        hash((b, s, h, kv, hd, causal, window)) % 2**31,
+        [(b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)], "float32")
+    ref = jax_flash_attention(jq, jk, jv, causal=causal, window=window, softcap=softcap,
+                              block_q=bq, block_k=bk)
+    out = _mma_f32_emulation(tq, tk, tv, causal=causal, window=window, softcap=softcap)
+    assert out.dtype == torch.float32 and out.shape == tq.shape
+    np.testing.assert_allclose(_np(out), _np(ref), **TOL["float32"])
+
+
+def _attention_f64(q, k, v, *, causal, softcap):
+    """The plain version's math in float64, written out apart from the
+    port's ``flash_attention_ref``."""
+    b, s, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    kd, vd = (x.double().repeat_interleave(h // kv, dim=2) for x in (k, v))
+    x = torch.einsum("bshd,bthd->bhst", q.double(), kd) * hd ** -0.5
+    if softcap:
+        x = softcap * torch.tanh(x / softcap)
+    if causal:
+        x = x.masked_fill(torch.arange(t)[None, :] > torch.arange(s)[:, None], -torch.inf)
+    return torch.einsum("bhst,bthd->bshd", torch.softmax(x, dim=-1), vd).numpy()
+
+
+def test_plain_version_computes_in_f64_for_f64_inputs():
+    """``flash_attention_ref`` keeps f64 inputs in f64 (the card's check of
+    a softcap that binds holds the f32 route against it), and matches the
+    attention written out here."""
+    _, (tq, tk, tv) = _inputs(7, [(1, 96, 4, 64), (1, 96, 2, 64), (1, 96, 2, 64)], "float32")
+    q, k, v = (32 * tq).double(), tk.double(), tv.double()
+    out = flash_attention_ref(q, k, v, causal=True, softcap=50.0)
+    assert out.dtype == torch.float64
+    np.testing.assert_allclose(out.numpy(), _attention_f64(q, k, v, causal=True, softcap=50.0),
+                               rtol=1e-12, atol=1e-12)
+
+
+F64_CASES = [*[(hd, causal, softcap) for hd in (64, 128, 256)
+               for causal, softcap in ((True, 0.0), (False, 0.0), (False, 20.0))],
+             (256, True, 50.0)]
+F64_MAX_FACTOR = 1.25   # hd 64, not causal, softcap 20: 4.80e-7 against 4.22e-7
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("hd,causal,softcap", F64_CASES)
+def test_mma_f32_arithmetic_is_no_further_from_f64_than_the_jax_kernel(hd, causal, softcap):
+    """Against the attention in f64, the route's output is on average no
+    further off than the reference kernel's (f32 products and sums), and
+    its largest error is within ``F64_MAX_FACTOR`` of the kernel's: at a
+    few elements a split-TF32 sum lands further from f64 than the f32 one
+    (1.14x at hd 64, not causal, softcap 20), while its mean is 22-53%
+    below over these cases."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        hd + causal, [(1, 256, 4, hd), (1, 256, 2, hd), (1, 256, 2, hd)], "float32")
+    exact = _attention_f64(tq, tk, tv, causal=causal, softcap=softcap)
+    ref = jax_flash_attention(jq, jk, jv, causal=causal, softcap=softcap, block_q=64,
+                              block_k=64)
+    out = _mma_f32_emulation(tq, tk, tv, causal=causal, window=0, softcap=softcap)
+    err = np.abs(_np(out).astype(np.float64) - exact)
+    err_jax = np.abs(np.asarray(ref, np.float64) - exact)
+    assert err.max() <= F64_MAX_FACTOR * err_jax.max(), (err.max(), err_jax.max())
+    assert err.mean() <= err_jax.mean(), (err.mean(), err_jax.mean())
+
+
 def test_routes_by_dtype_and_cpu_calls_count_nothing():
-    """bf16 goes to the wgmma kernel (dtype code 1), f32 to the CUDA-core
-    kernel (code 0); a CPU call computes the plain version and leaves every
-    counter at 0."""
-    assert fa_ops.ROUTES == {torch.bfloat16: "wgmma", torch.float32: "simt"}
+    """bf16 goes to the wgmma kernel (dtype code 1), f32 to the split-TF32
+    mma.sync kernel (code 0); a CPU call computes the plain version and
+    leaves every counter at 0."""
+    assert fa_ops.ROUTES == {torch.bfloat16: "wgmma", torch.float32: "mma"}
     assert {fa_ops.ROUTES[d]: fa_kernel._DTYPE_CODE[d] for d in fa_ops.ROUTES} == {
-        "wgmma": 1, "simt": 0}
-    assert flash_attention.launches_by_route == {"wgmma": 0, "simt": 0}
+        "wgmma": 1, "mma": 0}
+    assert flash_attention.launches_by_route == {"wgmma": 0, "mma": 0}
     for dtype in ("bfloat16", "float32"):
         (_, _, _), (tq, tk, tv) = _inputs(
             13, [(1, 64, 4, 64), (1, 64, 2, 64), (1, 64, 2, 64)], dtype)
         out = flash_attention(tq, tk, tv, window=16, softcap=10.0)
         assert torch.equal(out, flash_attention_ref(tq, tk, tv, window=16, softcap=10.0))
     assert flash_attention.launches == 0
-    assert flash_attention.launches_by_route == {"wgmma": 0, "simt": 0}
+    assert flash_attention.launches_by_route == {"wgmma": 0, "mma": 0}
 
 
 def test_flash_attention_on_cpu_is_the_plain_version_and_counts_nothing():
@@ -200,7 +374,7 @@ def cuda_device():
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_matches_plain_version_on_card(cuda_device, dtype):
-    """Both routes (bf16 -> wgmma, f32 -> simt) at ragged S, windows that
+    """Both routes (bf16 -> wgmma, f32 -> mma) at ragged S, windows that
     cut tiles, a softcap that binds (q scaled by 32) and a batch stride."""
     torch.backends.cuda.matmul.allow_tf32 = False
     tdt = DTYPES[dtype][1]

@@ -282,6 +282,88 @@ def test_route_arithmetic_is_no_further_from_f64_than_the_jax_kernel():
         assert err <= err_jax, (err, err_jax)
 
 
+PASS_THREADS, PASS_BATCH = 256, 8   # csrc/ssd_scan.cu's THREADS and PASS_BATCH
+
+
+def _fma(a, b, c):
+    """a * b + c rounded once to f32, as the kernel's contracted expression:
+    the product of two f32 values is exact in f64."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _state_pass_mirror(states, decay):
+    """ssd_state_pass as the kernel walks it: block x's thread e owns the
+    four elements 4 (PASS_THREADS x + e) .. + 3 of every (bh, chunk) state;
+    the chunks go in batches of PASS_BATCH, every load of a batch before its
+    first store.  states (BH, NC, size) f32 is rewritten in place with the
+    state before each chunk; returns h_final (BH, size)."""
+    bh, nc, size = states.shape
+    step = size // 4
+    h_final = torch.full((bh, size), float("nan"))
+    for x in range(-(-step // PASS_THREADS)):
+        e = torch.arange(x * PASS_THREADS, min((x + 1) * PASS_THREADS, step))
+        idx = (4 * e[:, None] + torch.arange(4)).reshape(-1)
+        hs = torch.zeros(bh, idx.numel())
+        for c0 in range(0, nc, PASS_BATCH):
+            nb = min(PASS_BATCH, nc - c0)
+            sc = [states[:, c0 + i, idx].clone() for i in range(nb)]
+            dec = decay[:, c0:c0 + nb].clone()
+            for i in range(nb):
+                states[:, c0 + i, idx] = hs
+                hs = _fma(dec[:, i, None], hs, sc[i])
+        h_final[:, idx] = hs
+    return h_final
+
+
+def _chunk_states(x, dt, a, bm, chunk):
+    """Each chunk's own state S_c = sum_j exp(cum_last - cum_j) dt_j x_j B_j^T
+    and its decay exp(cum_last), in f64 and cast to f32: (BH, NC, hd*N),
+    (BH, NC)."""
+    b, length, nh, hd = x.shape
+    n, nc = bm.shape[-1], length // chunk
+    xd = x.double().reshape(b, nc, chunk, nh, hd)
+    da = (dt.double() * a.double()).reshape(b, nc, chunk, nh)
+    cum = da.cumsum(2)
+    w = torch.exp(cum[:, :, -1:] - cum) * dt.double().reshape(b, nc, chunk, nh)
+    sc = torch.einsum("bcqh,bcqhd,bcqn->bhcdn", w, xd, bm.double().reshape(b, nc, chunk, n))
+    decay = torch.exp(cum[:, :, -1]).permute(0, 2, 1)
+    return sc.reshape(b * nh, nc, hd * n).float(), decay.reshape(b * nh, nc).float()
+
+
+@pytest.fixture
+def one_thread():
+    """The emulations' small tensors gain nothing from intra-op threads;
+    one keeps a parallel test run from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("nc", [1, 2, 7, 8, 9, 16])
+def test_state_pass_layout_matches_the_chunk_recurrence(nc):
+    """The kernel's thread -> 4-element map and batch loop (NC below, at and
+    past a batch, and not a multiple of it; a state of 8192 elements over 8
+    blocks, and one of 256 where most of a block's threads idle) give, bit
+    for bit, the chunk-by-chunk recurrence in the same arithmetic, and its
+    h_final is the plain version's (the sequential recurrence over
+    positions) at 2e-5."""
+    for b, nh, hd, n, chunk in ((1, 2, 64, 128, 16), (2, 1, 16, 16, 32)):
+        _, (x, dt, a, bm, cm) = _inputs(nc, b, nc * chunk, nh, hd, n)
+        states, decay = _chunk_states(x, dt, a, bm, chunk)
+        walked = states.clone()
+        h_final = _state_pass_mirror(walked, decay)
+        h, before = torch.zeros(b * nh, hd * n), torch.empty_like(states)
+        for c in range(nc):
+            before[:, c] = h
+            h = _fma(decay[:, c, None], h, states[:, c])
+        assert torch.equal(walked, before) and torch.equal(h_final, h)
+        _, h_ref = fold_and_scan(x, dt, a, bm, cm, chunk=chunk)
+        np.testing.assert_allclose(_np(h_final), _np(h_ref.reshape(b * nh, hd * n)),
+                                   **TOL["float32"])
+
+
 def test_cpu_path_stays_differentiable():
     _, tx = _inputs(4, 1, 32, 2, 16, 16)
     x = tx[0].clone().requires_grad_(True)
@@ -303,8 +385,12 @@ def cuda_device():
                                               ("float32", "bfloat16")])
 def test_kernel_matches_plain_version_on_card(cuda_device, x_dtype, bc_dtype):
     torch.backends.cuda.matmul.allow_tf32 = False
+    # the last six: the state pass at chunk counts below, at and past its
+    # batch of 8 chunks
     for b, length, nh, hd, n, chunk in ((1, 64, 2, 16, 16, 16), (2, 128, 4, 32, 64, 32),
-                                        (1, 512, 2, 64, 128, 256)):
+                                        (1, 512, 2, 64, 128, 256),
+                                        *((1, 32 * nc, 2, 64, 128, 32)
+                                          for nc in (1, 2, 7, 8, 9, 16))):
         _, tx = _inputs(0, b, length, nh, hd, n, x_dtype, bc_dtype)
         tx = [t.to(cuda_device) for t in tx]
         before = ssd_scan.launches
