@@ -8,21 +8,26 @@ Phases, each a hard failure (nonzero exit, no result line):
    build of every kernel of ``src/repro_torch/kernels`` (flash attention,
    decode attention, SSD chunk scan, the four sweeps; one nvcc per source, in
    parallel), with every kernel's registers and spills (both flash-attention
-   kernels, the mma decode split, the K3 kernels and the sweeps must not
-   spill);
+   kernels, both decode splits, the K3 kernels and the sweeps must not
+   spill; the f32 decode split's 12 builds also print their stack frame and
+   the blocks an SM the card places, 8 warps);
 2. each kernel against its plain PyTorch version on the card, at the
    serving path's shapes, the reference test sweep's and the full widths of
    gemma-2b, gemma2-2b and mamba2-370m, with the tolerance stated per case;
    flash attention's bf16 cases go to its "wgmma" route and its f32 cases to
    "mma" (split TF32), decode attention's bf16 to its "mma" route and f32 to
-   "simt"; the SSD scan also against
+   "simt" (one launch: every f32 case twice, bit for bit alike, and a row
+   with no visible key gives 0); the SSD scan also against
    its plain version in f64; and each kernel must refuse an input that
    requires grad under grad mode (they have no backward);
 3. kernel, plain version and the PyTorch library call (where one computes
    the same function) timed with CUDA events at those shapes, beside the
    card's bound for the same work, with the achieved TFLOP/s and the share
-   of the bound; decode attention also at every piece length it can pick,
-   and its split and combine apart (torch.profiler);
+   of the bound; decode attention's bf16 route also at every piece length
+   it can pick, its split and combine apart (torch.profiler), and its f32
+   route at three shapes (kernels_bench, gemma-2b and gemma2-2b local in
+   f32) with its schedule (blocks, rows and tiles a block, blocks a unit)
+   and one kernel a call;
 4. full-width gemma-2b (random weights from a seed, bf16) served through
    ``Server`` + ``MetronomePolicy`` with the kernel route, with every
    launch counter set to 0 just before and read just after (flash
@@ -160,6 +165,24 @@ does the same for flash attention (``csrc/flash_attention.cu``) at phase
 against this checkout's, f32 outputs each against the plain version at
 2e-5 (``phase_attention_source_ab``).
 
+    python3 chip_smoke.py --decode-ab SRC [SRC ...]
+
+does the same for decode attention (``csrc/decode_attention.cu``; a parent
+commit's source takes its own scratch layout) at the five
+``DECODE_SHAPES``, flushed and warm, each f32 visit's kernels by
+torch.profiler and each source's registers, stack frame and spills: bf16
+outputs bit for bit against this checkout's, f32 outputs each against the
+plain version at 2e-5 and two calls of this checkout's bit for bit, masked
+SDPA beside the shapes without a softcap (``phase_decode_source_ab``).
+
+    python3 chip_smoke.py --decode-phases [SRC ...]
+
+builds a copy of this checkout's ``csrc/decode_attention.cu`` (and of each
+SRC) with clock64 probes in the f32 route's kernel and prints, at the three
+f32 ``DECODE_SHAPES``, each phase's cycles a block (min / median / max, and
+the slowest blocks): setup, first tile, each tile's parts, segment ends,
+the counts and merges after the walk (``phase_decode_phases``).
+
     python3 chip_smoke.py --sweep-ab SRC [SRC ...]
 
 times this checkout's sweep kernel against other sources with its C
@@ -223,14 +246,19 @@ SERVE_BUCKETS = (128, 512, 1024)
 PROMPT_LENS = (40, 100, 200, 400, 600, 900, 1000, 64)
 MAX_NEW = 16
 # decode attention at full width: gemma-2b with the serving engine (4 slots,
-# max_len 2048), a gemma2-2b local layer, and kernels_bench's shape
-# (name, B, H, KV, hd, T, dtype, window, softcap, pos, q scale); q is scaled
-# where a softcap is set so that the logits (std 32) reach past it
+# max_len 2048), a gemma2-2b local layer, and kernels_bench's shape, then the
+# first two in f32 (name, B, H, KV, hd, T, dtype, window, softcap, pos, q
+# scale); q is scaled where a softcap is set so that the logits (std 32)
+# reach past it
 DECODE_SHAPES = (
     ("gemma-2b decode", 4, 8, 1, 256, 2048, torch.bfloat16, 0, 0.0, (2047, 1024, 7, 1948), 1.0),
     ("gemma2-2b local", 4, 8, 4, 256, 8192, torch.bfloat16, 4096, 50.0, (8191, 4096, 7, 8092),
      32.0),
     ("kernels_bench", 4, 8, 2, 64, 8192, torch.float32, 0, 0.0, (8191, 4096, 7, 8092), 1.0),
+    ("gemma-2b decode f32", 4, 8, 1, 256, 2048, torch.float32, 0, 0.0, (2047, 1024, 7, 1948),
+     1.0),
+    ("gemma2-2b local f32", 4, 8, 4, 256, 8192, torch.float32, 4096, 50.0,
+     (8191, 4096, 7, 8092), 32.0),
 )
 FLUSH_BYTES = 256 << 20      # written between timed launches to empty the 50 MB L2
 
@@ -353,6 +381,25 @@ def phase_card() -> None:
             tc = {n: v for n, v in kernels.items() if n.startswith(kernel + "<")}
             if len(tc) != 3 or any(spills for _, spills, _ in tc.values()):
                 fail(f"want {kernel} at hd 64, 128 and 256 without spills; ptxas gave {tc}")
+    # K2's f32 route: decode_split_f32<hd, heads> at hd 64/128/256 x 1/2/4/8
+    # heads a unit, none spilling; its blocks an SM as the card places them
+    # (its shared memory allows 8 warps an SM, and its registers must not
+    # allow fewer)
+    recs = ptxas_records(_build.BUILD_INFO["decode_attention.cu"]["log"])
+    want = {f"decode_split_f32<{hd}, {gc}>" for hd in (64, 128, 256) for gc in (1, 2, 4, 8)}
+    f32 = {n: r for n, r in recs.items() if n.startswith("decode_split_f32<")}
+    lib = da_kernel.build()
+    placed = {}
+    for name, (regs, spills, _, frame) in sorted(f32.items()):
+        hd, gc = (int(x) for x in name[len("decode_split_f32<"):-1].split(", "))
+        placed[name] = da_kernel._blocks_per_sm(lib, hd, gc, 0) * hd // 32
+        log(f"  {name}: {regs} registers ({65536 // (32 * regs)} warps an SM by registers), "
+            f"{spills} bytes of spill stores + loads, {frame} bytes of stack frame; the card "
+            f"places {placed[name] * 32 // hd} blocks an SM ({placed[name]} warps)")
+    if set(f32) != want or any(r[1] for r in f32.values()) or any(
+            w != 8 for w in placed.values()):
+        fail(f"want {sorted(want)} without spills, 8 warps an SM each; ptxas gave {f32}, the "
+             f"card places {placed}")
     # K3: chunk states and chunk outputs (one per type pair and hd) and the
     # state pass; every one that ptxas lists must be free of spills
     kernels = ptxas_kernels(_build.BUILD_INFO["ssd_scan.cu"]["log"])
@@ -489,10 +536,16 @@ def ptxas_kernels(log_text: str) -> dict[str, tuple[int, int, int]]:
     """``nvcc -Xptxas -v`` output -> {kernel<[types, ]ints>: (registers, spill
     bytes, static shared memory bytes)} for every kernel of the seven
     sources."""
-    out, name, spills = {}, None, 0
+    return {name: rec[:3] for name, rec in ptxas_records(log_text).items()}
+
+
+def ptxas_records(log_text: str) -> dict[str, tuple[int, int, int, int]]:
+    """As ``ptxas_kernels``, with each kernel's stack frame bytes last."""
+    out, name, spills, frame = {}, None, 0, 0
     for ln in log_text.splitlines():
         if m := re.search(r"Compiling entry function '.*?(flash_fwd_\w+?|decode_split_mma_bf16|"
-                          r"decode_split|decode_combine|ssd_chunk_state|ssd_chunk_out|"
+                          r"decode_split_f32|decode_split|decode_combine|ssd_chunk_state|"
+                          r"ssd_chunk_out|"
                           r"slot_sweep_kernel|adaptive_sweep_kernel|fleet_sweep_kernel|"
                           r"fleet_scratch_kernel|fleet_cluster_kernel|fleet_adaptive_kernel|"
                           r"fleet_adaptive_scratch_kernel|fleet_adaptive_cluster_kernel)"
@@ -501,15 +554,16 @@ def ptxas_kernels(log_text: str) -> dict[str, tuple[int, int, int]]:
             types = ["float" if t == "f" else "bf16"
                      for t in re.findall(r"f|13__nv_bfloat16|S\d*_", m.group(2))]
             ints = re.findall(r"Li(\d+)E", m.group(3))
-            name, spills = f"{m.group(1)}<{', '.join([*types, *ints])}>", 0
+            name, spills, frame = f"{m.group(1)}<{', '.join([*types, *ints])}>", 0, 0
         elif m := re.search(r"Compiling entry function '.*?(ssd_state_pass|"
                             r"cluster_exchange_probe)", ln):
-            name, spills = m.group(1), 0
-        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
-            spills = int(m.group(1)) + int(m.group(2))
+            name, spills, frame = m.group(1), 0, 0
+        elif name and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                                      r"(\d+) bytes spill loads", ln)):
+            frame, spills = int(m.group(1)), int(m.group(2)) + int(m.group(3))
         elif name and (m := re.search(r"Used (\d+) registers", ln)):
             smem = re.search(r"(\d+) bytes smem", ln)
-            out[name] = (int(m.group(1)), spills, int(smem.group(1)) if smem else 0)
+            out[name] = (int(m.group(1)), spills, int(smem.group(1)) if smem else 0, frame)
             name = None
     return out
 
@@ -686,6 +740,25 @@ def decode_bound(b, h, kv, hd, dtype, pos, window):
     return (*bound(4.0 * hd * h * visible, nbytes, dtype), visible)
 
 
+def f32_schedule_summary(b, h, kv, hd, t, window, pos, sms) -> str:
+    """The f32 route's schedule at these inputs on this card (the wrapper's
+    grid, ``kernel.f32_schedule``): blocks, rows and slices a block, blocks
+    a unit; fails if a block takes no row."""
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
+    per_sm = da_kernel._blocks_per_sm(da_kernel.build(), hd, h // kv, 0)
+    grid = da_kernel.f32_grid(b, h, kv, t, window, sms, per_sm)
+    sched = da_kernel.f32_schedule(list(pos), b=b, h=h, kv=kv, t=t, window=window, grid=grid)
+    rows = [sum(g["hi"] - g["lo"] for g in segs) for segs in sched["blocks"]]
+    slices = [sum(-(-(g["hi"] - g["lo"]) // da_kernel.SLICE) for g in segs)
+              for segs in sched["blocks"]]
+    per_unit = [len(c) for c in sched["contributors"] if c]
+    if min(rows) == 0:
+        fail(f"decode_attention f32: {rows.count(0)} of {grid} blocks take no row")
+    return (f"f32 schedule: {grid} blocks ({per_sm} an SM x {sms} SMs), rows a block "
+            f"{min(rows)}-{max(rows)}, slices a block {min(slices)}-{max(slices)}, blocks "
+            f"(partials) a unit {min(per_unit)}-{max(per_unit)} over {len(per_unit)} units")
+
+
 def phase_compare_decode() -> dict[str, float]:
     """Decode attention against its plain version; returns the max abs error
     per route at the shapes of the ``kernels`` line: gemma-2b decode in bf16
@@ -710,9 +783,21 @@ def phase_compare_decode() -> dict[str, float]:
               ("pieces of 512, window 1000", 8, 16, 8, 64, 4096, torch.bfloat16, 1000, 0.0, None,
                1.0),
               ("pieces of 512", 8, 32, 8, 128, 4096, torch.bfloat16, 0, 0.0, None, 1.0),
-              *DECODE_SHAPES,
-              ("gemma2-2b local f32", *DECODE_SHAPES[1][1:6], torch.float32,
-               *DECODE_SHAPES[1][7:])]
+              *DECODE_SHAPES]
+    # f32 edges of the one-launch route: logits past the softcap, two units a
+    # kv head (16 heads), heads padded to the unit's 4 or 8 (3 and 6 a
+    # group), T not a multiple of 32, a window at hd 256, many short units
+    # (blocks across many units), fewer rows than blocks, one unit over the
+    # whole grid
+    f32 = torch.float32
+    cases += [("softcap, q x32", 2, 8, 4, 128, 256, f32, 0, 50.0, None, 32.0),
+              ("16 heads a group", 2, 16, 1, 64, 192, f32, 0, 0.0, (191, 70), 1.0),
+              ("3 heads a group", 3, 12, 4, 128, 300, f32, 0, 0.0, (299, 5, 150), 1.0),
+              ("6 heads a group, T=200", 2, 12, 2, 64, 200, f32, 0, 0.0, (199, 130), 1.0),
+              ("window 100 hd 256", 3, 8, 2, 256, 1000, f32, 100, 0.0, (999, 50, 640), 1.0),
+              ("64 short rows", 64, 8, 2, 64, 512, f32, 0, 0.0, None, 1.0),
+              ("fewer rows than blocks", 4, 4, 1, 128, 64, f32, 0, 0.0, (0, 3, 1, 10), 1.0),
+              ("one unit", 1, 8, 1, 256, 16384, f32, 0, 0.0, (16383,), 1.0)]
     decode_attention.launches = 0
     decode_attention.launches_by_route = {"mma": 0, "simt": 0}
     route_err = {}
@@ -731,11 +816,28 @@ def phase_compare_decode() -> dict[str, float]:
             fail(f"decode_attention disagrees with its plain version ({name})")
         if name in (DECODE_SHAPES[0][0], DECODE_SHAPES[2][0]):
             route_err[ROUTES[dtype]] = err
+        if dtype == torch.float32:     # the merge's fixed order: the same bits again
+            if not torch.equal(out, decode_attention(q, k, v, p, window=window, softcap=cap)):
+                fail(f"decode_attention f32 gave other bits on a second call ({name})")
+    # a batch row whose pos (-1) leaves no visible key gives 0 (the plain
+    # version averages v there); the other rows match it
+    q, k, v, p = decode_inputs(gen, 3, 8, 2, 128, 300, torch.float32, (299, -1, 40))
+    out = decode_attention(q, k, v, p, window=64)
+    ref = reference_decode_attention(q, k, v, p, window=64)
+    ok, err = within(out[[0, 2]], ref[[0, 2]], **TOL[torch.float32])
+    log(f"  f32 pos=[299, -1, 40] window=64: row 1 all zero {bool((out[1] == 0).all())}, rows "
+        f"0 and 2 max_abs_err={err:.3e}")
+    if not ok or not bool((out[1] == 0).all()):
+        fail("decode_attention f32: a row with no visible key must give 0, the others the "
+             "plain version's")
+    n_f32 = sum(c[6] == torch.float32 for c in cases)
     want = {route: sum(ROUTES[c[6]] == route for c in cases) for route in ROUTES.values()}
-    if decode_attention.launches != len(cases) or decode_attention.launches_by_route != want:
+    want["simt"] += n_f32 + 1
+    if decode_attention.launches != len(cases) + n_f32 + 1 or (
+            decode_attention.launches_by_route != want):
         fail(f"decode_attention counted {decode_attention.launches} launches, by route "
-             f"{decode_attention.launches_by_route}, for {len(cases)} calls ({want})")
-    log(f"  launches by route: {decode_attention.launches_by_route}")
+             f"{decode_attention.launches_by_route}, for {len(cases) + n_f32 + 1} calls ({want})")
+    log(f"  launches by route: {decode_attention.launches_by_route} (f32 cases twice: bit-equal)")
     return route_err
 
 
@@ -958,16 +1060,19 @@ def phase_time_decode() -> list[dict]:
             sdpa_kw = dict(attn_mask=mask[:, None, None, :], enable_gqa=True)
             lib_warm = time_ms(F.scaled_dot_product_attention, *sdpa_args, **sdpa_kw)
             lib_ms = time_ms(F.scaled_dot_product_attention, *sdpa_args, flush=flush, **sdpa_kw)
-        # the piece length the kernel picks, against every length it could pick
-        out = torch.empty_like(q)
-        pieces = {piece: time_ms(da_kernel.launch_decode_attention, q, k, v, p, out,
-                                 window=window, softcap=cap, scale=hd ** -0.5, piece=piece,
-                                 flush=flush)
-                  for piece in da_kernel.PIECES}
-        chosen = da_kernel.piece_len(b, h, kv, t, sms)
-        log(f"  {name}: flushed ms by piece length: "
-            + ", ".join(f"{n}: {t_ms:.4f}" for n, t_ms in pieces.items())
-            + f"; the kernel picks {chosen} ({sms} SMs)")
+        if dtype == torch.bfloat16:
+            # the piece length the kernel picks, against every length it could pick
+            out = torch.empty_like(q)
+            pieces = {piece: time_ms(da_kernel.launch_decode_attention, q, k, v, p, out,
+                                     window=window, softcap=cap, scale=hd ** -0.5, piece=piece,
+                                     flush=flush)
+                      for piece in da_kernel.PIECES}
+            chosen = da_kernel.piece_len(b, h, kv, t, sms)
+            log(f"  {name}: flushed ms by piece length: "
+                + ", ".join(f"{n}: {t_ms:.4f}" for n, t_ms in pieces.items())
+                + f"; the kernel picks {chosen} ({sms} SMs)")
+        else:
+            log(f"  {name}: {f32_schedule_summary(b, h, kv, hd, t, window, pos, sms)}")
         bound_ms, bound_by, visible = decode_bound(b, h, kv, hd, dtype, pos, window)
         rows.append({"name": name, "route": route, "ms": ms, "warm_ms": warm,
                      "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
@@ -979,8 +1084,10 @@ def phase_time_decode() -> list[dict]:
         split_ms = sum(t_ms for n, t_ms in by_name.items() if "decode_split" in n)
         combine_ms = sum(t_ms for n, t_ms in by_name.items() if "decode_combine" in n)
         if by_name:
-            log(f"  {name} [{route}]: split {split_ms:.4f} ms, combine {combine_ms:.4f} ms "
-                "(torch.profiler, one warm call)")
+            log(f"  {name} [{route}]: {len(by_name)} kernel(s) a call: split {split_ms:.4f} ms, "
+                f"combine {combine_ms:.4f} ms (torch.profiler, one warm call)")
+            if dtype == torch.float32 and (len(by_name) != 1 or combine_ms):
+                fail(f"decode_attention f32 ran {sorted(by_name)}; want one launch a call")
         lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms flushed ({lib_warm:.4f} warm)"
         ratio = "" if lib_ms is None else f", kernel/sdpa {ms / lib_ms:.2f} flushed"
         log(f"  {name} [{route}] ({rows[-1]['shape']}, {visible} visible positions): kernel "
@@ -1190,6 +1297,208 @@ def phase_attention_source_ab(sources: list[str]) -> list[dict]:
         rows.append({"name": name, "times_ms": times, "check": check, "bound_ms": bound_ms,
                      "bound_by": bound_by})
     log(f"attention A/B took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def decode_launch(q, k, v, p, kw: dict, lib=None):
+    """One decode attention past its wrapper (so that no launch counter
+    moves), for ``--decode-ab``'s comparison of two sources (``lib``,
+    default this checkout's).  An older source without
+    ``decode_f32_blocks_per_sm`` has the two-launch f32 route: its scratch
+    holds B*H*ceil(T/piece)*(hd + 2) floats, as its bf16 route's."""
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
+    out = torch.empty_like(q)
+    if lib is None or q.dtype != torch.float32 or hasattr(lib, da_kernel._F32_BLOCKS):
+        da_kernel.launch_decode_attention(q, k, v, p, out, scale=q.shape[-1] ** -0.5, lib=lib,
+                                          **kw)
+        return out
+    b, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    piece = da_kernel.piece_len(b, h, kv, t, da_kernel._sm_count(0))
+    scratch = torch.empty(b * h * -(-t // piece) * (hd + 2), dtype=torch.float32, device="cuda")
+    err = lib.decode_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), p.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), b, t, h, kv, hd, 0, piece, kw["window"], kw["softcap"],
+        hd ** -0.5, 0, torch.cuda.current_stream().cuda_stream)
+    if err:
+        fail(f"decode_attention_fwd of an older source returned {err}")
+    return out
+
+
+def phase_decode_source_ab(sources: list[str]) -> list[dict]:
+    """``--decode-ab SRC...``: this checkout's ``csrc/decode_attention.cu``
+    against other sources with its C interface (a parent commit's, a
+    variant), each built with the same flags, at ``DECODE_SHAPES`` (three
+    f32 shapes, two bf16).  Each is timed as the median of 20 CUDA-event
+    timings after 3 warm-ups (behind the spin), flushed and warm, in the
+    order this, SRC1 .. SRCn, SRCn .. SRC1, this, all launched the same way
+    (``decode_launch``); each f32 visit's kernels also by torch.profiler
+    (medians of 10 calls).  bf16 outputs are compared bit for bit with this
+    checkout's; f32 outputs each against the plain version at 2e-5, and two
+    calls of this checkout's bit for bit (reported, not required: a variant
+    may compute something else).  Masked SDPA is timed beside the shapes
+    without a softcap."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build, reference_decode_attention
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
+    named = {"this": da_kernel._SOURCE, **{s: str(Path(s).resolve()) for s in sources}}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(named)) as pool:
+        libs = dict(zip(named, pool.map(da_kernel.build, named.values())))
+    log(f"decode A/B: built {len(named)} sources in parallel in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for name, source in named.items():
+        info = _build.BUILD_INFO[source]
+        recs = {k: dict(zip(("registers", "spill_bytes", "smem", "stack_frame"), r))
+                for k, r in ptxas_records(info["log"]).items() if "combine" not in k}
+        log(f"  {name}: nvcc {info['seconds']:.2f} s; ptxas {recs}")
+    order = [*named, *reversed(named)]
+    gen = torch.Generator("cuda").manual_seed(7)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    rows = []
+    for name, b, h, kv, hd, t, dtype, window, cap, pos, q_scale in DECODE_SHAPES:
+        q, k, v, p = decode_inputs(gen, b, h, kv, hd, t, dtype, pos, q_scale)
+        kw = dict(window=window, softcap=cap)
+        outs = {n: decode_launch(q, k, v, p, kw, lib) for n, lib in libs.items()}
+        again = decode_launch(q, k, v, p, kw, libs["this"])
+        torch.cuda.synchronize()
+        if dtype == torch.bfloat16:
+            check = {n: torch.equal(outs["this"], o) for n, o in outs.items() if n != "this"}
+            what = "bit-equal to this"
+        else:
+            ref = reference_decode_attention(q, k, v, p, window=window, softcap=cap)
+            check = {n: within(o, ref, **TOL[dtype]) for n, o in outs.items()}
+            what = "(within 2e-5 of the plain version, max abs err)"
+        repeat = torch.equal(outs["this"], again)
+        times = {n: {"flushed": [], "warm": []} for n in named}
+        kernels = {n: [] for n in named}
+        for n in order:
+            times[n]["flushed"].append(time_ms(decode_launch, q, k, v, p, kw, libs[n],
+                                               flush=flush))
+            times[n]["warm"].append(time_ms(decode_launch, q, k, v, p, kw, libs[n]))
+            if dtype == torch.float32:
+                kernels[n].append(profile(f"decode {name} {n}", decode_launch, q, k, v, p, kw,
+                                          libs[n], kernel=("decode_attention", "decode_"),
+                                          calls=10))
+        sdpa = None
+        if not cap:
+            kpos = torch.arange(t, device="cuda")[None, :]
+            mask = kpos <= p.long()[:, None]
+            if window:
+                mask &= kpos > p.long()[:, None] - window
+            sdpa_args = (q[:, :, None], k.transpose(1, 2).contiguous(),
+                         v.transpose(1, 2).contiguous())
+            sdpa_kw = dict(attn_mask=mask[:, None, None, :], enable_gqa=True)
+            sdpa = {"flushed": time_ms(F.scaled_dot_product_attention, *sdpa_args, flush=flush,
+                                       **sdpa_kw),
+                    "warm": time_ms(F.scaled_dot_product_attention, *sdpa_args, **sdpa_kw)}
+        bound_ms, bound_by, visible = decode_bound(b, h, kv, hd, dtype, pos, window)
+        log(f"  {name} (B={b} H={h} KV={kv} hd={hd} T={t} {str(dtype)[6:]} window={window} "
+            f"softcap={cap}, {visible} visible positions), order {' '.join(order)}: " + "; ".join(
+                f"{n} flushed " + ", ".join(f"{x:.4f}" for x in ts["flushed"]) + " warm "
+                + ", ".join(f"{x:.4f}" for x in ts["warm"]) + " ms"
+                + ("" if not kernels[n] else " (kernels " + ", ".join(
+                    "/".join(f"{kn.split('<')[0].split('::')[-1]} {x:.4f}" for kn, x in d.items())
+                    for d in kernels[n]) + ")")
+                for n, ts in times.items())
+            + f"; masked SDPA {sdpa}; bound {bound_ms * 1e3:.2f} us ({bound_by}); {what}: "
+              f"{check}; this twice bit-equal: {repeat}")
+        rows.append({"name": name, "times_ms": times, "kernels_ms": kernels, "check": check,
+                     "repeat_bit_equal": repeat, "sdpa_ms": sdpa, "bound_ms": bound_ms,
+                     "bound_by": bound_by})
+    log(f"decode A/B took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+# --decode-phases: clock64 probes spliced into a copy of the f32 route's
+# kernel, (anchor, text put before it); each block's thread 0 writes its
+# probes to a device array that ``decode_phases_read`` copies out
+_PHASE_PROBES = (
+    ("namespace {\n", "__device__ long long g_phase[4096 * 16];\n", 1),
+    ("  constexpr int NW = L::NW, THREADS = L::THREADS;\n  constexpr int CPR = HD / 4;",
+     "  long long ph[16] = {};\n  const long long ph_start = clock64();\n", 1),
+    ("  // the ring's first kStages - 1 slices", "  ph[0] = clock64() - ph_start;\n", 1),
+    ("  for (int i = 0; cw.u >= 0; ++i) {",
+     "  ph[1] = clock64() - ph_start - ph[0];\n  long long ph_t = clock64();\n", 1),
+    ("    if (count_first) {", "    ph[2] += clock64() - ph_t; ph_t = clock64(); ++ph[8];\n", 1),
+    ("    cp_async_wait<kStages - 2>();  // this thread's part of the next slice",
+     "    ph[3] += clock64() - ph_t; ph_t = clock64();\n", 1),
+    ("    // O = O corr + P V: lane = column", "    ph[4] += clock64() - ph_t; ph_t = clock64();\n",
+     1),
+    ("    if (cw.r + kSlice >= cw.hi) {  // the segment's last slice",
+     "    ph[5] += clock64() - ph_t; ph_t = clock64();\n", 1),
+    ("    walk_next(cw, un, s_end);\n  }", "    ph[6] += clock64() - ph_t; ph_t = clock64();\n", 1),
+    ("  // the merge trees of the (at most two) partials",
+     "  ph[7] = clock64() - ph_start; ph_t = clock64();\n", 1),
+    ("  // Merge count <= 32 partials", "  ph[9] = clock64() - ph_t; ph_t = clock64();\n", 1),
+    ("    __syncthreads();\n    float a[GC];", "    ++ph[10];\n", 1),
+    ("  if (lane == 0 && warp < n_parts) {  // merge() ends on a barrier",
+     "  ph[11] = clock64() - ph_t; ph_t = clock64();\n", 1),
+    ("\n}\n\n// Blocks of decode_split_f32<HD, GC> an SM holds",
+     "\n  ph[12] = clock64() - ph_t;\n  ph[13] = clock64() - ph_start;\n"
+     "  if (tid == 0 && blockIdx.x < 4096)\n"
+     "    for (int z = 0; z < 16; ++z) g_phase[blockIdx.x * 16 + z] = ph[z];", 1),
+    ("const char* decode_attention_error_string(int err) {",
+     "int decode_phases_read(void* dst, int n) {\n"
+     "  return (int)cudaMemcpyFromSymbol(dst, g_phase, sizeof(long long) * 16 * n);\n}\n\n", 1),
+)
+_PHASE_NAMES = ("setup", "first tile in", "q k + barrier", "softmax + loads issued",
+                "wait + barrier", "P V", "segment ends", "walk's end", "tiles", "counts",
+                "merges run", "level-1 merges", "level-2 count + merges", "block")
+
+
+def phase_decode_phases(sources: list[str]) -> list[dict]:
+    """``--decode-phases [SRC ...]``: where the f32 route's time goes, block
+    by block.  A copy of this checkout's ``csrc/decode_attention.cu`` (and of
+    each SRC with the same text at the probes' anchors) gets clock64 probes
+    (``_PHASE_PROBES``; a missing anchor fails), is built into ``build/``
+    and launched at the three f32 ``DECODE_SHAPES``; each block's thread 0
+    writes its cycles in each phase: the setup (pos, the tile scan), the
+    first tile's arrival, each tile's q kᵀ, softmax with the next loads'
+    issue, the wait for the next tile, P V, the segment ends, the whole walk,
+    then the counts and the merges after it, and the whole block.  Prints
+    min / median / max over blocks and the slowest blocks' own lines."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
+    rows = []
+    gen = torch.Generator("cuda").manual_seed(8)
+    for src in [str(_build.CSRC_DIR / da_kernel._SOURCE), *sources]:
+        text = Path(src).read_text()
+        for anchor, probe, count in _PHASE_PROBES:
+            if text.count(anchor) != count:
+                fail(f"--decode-phases: {src} has {text.count(anchor)} of the anchor "
+                     f"{anchor[:60]!r}, want {count}")
+            text = text.replace(anchor, anchor + probe if anchor == "namespace {\n"
+                                else probe + anchor)
+        copy = _build.BUILD_DIR / f"{Path(src).stem}_phases.cu"
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        copy.write_text(text)
+        lib = da_kernel.build(str(copy))
+        lib.decode_phases_read.restype = ctypes.c_int
+        lib.decode_phases_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        for name, b, h, kv, hd, t, dtype, window, cap, pos, q_scale in DECODE_SHAPES:
+            if dtype != torch.float32:
+                continue
+            q, k, v, p = decode_inputs(gen, b, h, kv, hd, t, dtype, pos, q_scale)
+            kw = dict(window=window, softcap=cap)
+            ms = time_ms(decode_launch, q, k, v, p, kw, lib)
+            decode_launch(q, k, v, p, kw, lib)
+            torch.cuda.synchronize()
+            grid = da_kernel.f32_grid(b, h, kv, t, window, da_kernel._sm_count(0),
+                                      da_kernel._blocks_per_sm(lib, hd, h // kv, 0))
+            buf = np.zeros((grid, 16), np.int64)
+            if lib.decode_phases_read(buf.ctypes.data, grid):
+                fail("--decode-phases: reading the probes failed")
+            stats = {n: [int(x) for x in (buf[:, i].min(), np.median(buf[:, i]), buf[:, i].max())]
+                     for i, n in enumerate(_PHASE_NAMES)}
+            log(f"  {Path(src).name} {name}: {ms:.4f} ms warm (CUDA events), {grid} blocks; "
+                "cycles a block, min/median/max: " + "; ".join(
+                    f"{n} {'/'.join(map(str, s))}" for n, s in stats.items()))
+            for i in np.argsort(-buf[:, 13])[:3]:
+                log(f"    block {i}: " + ", ".join(f"{n} {buf[i, j]}"
+                                                for j, n in enumerate(_PHASE_NAMES)))
+            rows.append({"source": src, "name": name, "ms": ms, "grid": grid, "cycles": stats})
     return rows
 
 
@@ -3977,7 +4286,8 @@ def main() -> int:
     ab = {"--sweep-ab": phase_sweep_source_ab, "--fleet-ab": phase_fleet_source_ab,
           "--adaptive-ab": phase_adaptive_source_ab,
           "--fleet-adaptive-ab": phase_fleet_adaptive_source_ab,
-          "--ssd-ab": phase_ssd_source_ab, "--attention-ab": phase_attention_source_ab}
+          "--ssd-ab": phase_ssd_source_ab, "--attention-ab": phase_attention_source_ab,
+          "--decode-ab": phase_decode_source_ab, "--decode-phases": phase_decode_phases}
     if sys.argv[1:2] and sys.argv[1] in ab:
         log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                             "--format=csv,noheader"], capture_output=True, text=True,
@@ -4044,7 +4354,10 @@ def main() -> int:
             (f"{da} (mma, bf16)", da, "src/repro/kernels/decode_attention/kernel.py:73",
              decode_rows[0], decode_err["mma"], served["decode_by_route"]["mma"], {}),
             (f"{da} (simt, f32)", da, "src/repro/kernels/decode_attention/kernel.py:73",
-             decode_rows[2], decode_err["simt"], served["decode_by_route"]["simt"], {}),
+             decode_rows[2], decode_err["simt"], served["decode_by_route"]["simt"],
+             {"warm_ms": decode_rows[2]["warm_ms"],
+              "rows": [{k: r[k] for k in ("name", "shape", "warm_ms", *keys)}
+                       for r in decode_rows[3:5]]}),
             ("ssd_scan", "ssd_scan", "src/repro/kernels/ssd_scan/kernel.py:78", ssd_rows[0],
              ssd_err, served["ssd_scan"],
              {**{k: ssd_rows[0][k] for k in ssd_keys},

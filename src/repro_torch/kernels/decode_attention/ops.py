@@ -3,15 +3,20 @@
 ``decode_attention`` takes the reference's layout: q (B,H,hd), the
 sequence-major cache k/v (B,T,KV,hd) and pos (B,), the last visible
 position of each sequence.  For CUDA tensors it launches the hand-written
-kernels of ``csrc/decode_attention.cu`` (a split over T, then a combine),
-with the split chosen by the input type:
+kernels of ``csrc/decode_attention.cu``, chosen by the input type:
 
-* bf16 -> ``"mma"``: q kᵀ and P V on the tensor cores (``mma.sync``,
-  bf16 operands, f32 accumulation), K/V tiles fed by ``cp.async``.  The
-  one rounding the reference does not make is the probabilities P -> bf16
-  before P V.
-* f32 -> ``"simt"``: f32 on the CUDA cores.  The tensor cores take f32
-  only as TF32, which would miss the reference's 2e-5.
+* bf16 -> ``"mma"``: a split over T, then a combine; q kᵀ and P V on the
+  tensor cores (``mma.sync``, bf16 operands, f32 accumulation), K/V tiles
+  fed by ``cp.async``.  The one rounding the reference does not make is
+  the probabilities P -> bf16 before P V.
+* f32 -> ``"simt"``: one launch, f32 FMAs on the CUDA cores.  The route is
+  bound by bytes (4 FLOPs a byte at most, against the CUDA cores' 20), so
+  its design moves bytes: the visible rows spread evenly over one wave of
+  blocks from ``pos`` on the card, K/V through a shared-memory ring, keys
+  on lanes in q kᵀ (no shuffle chain a key), and the blocks that share a
+  unit merged inside the launch, in a fixed order (outputs bit-identical
+  from call to call).  The merge's counters live in a scratch the wrapper
+  keeps per stream (``kernel._f32_scratch``).
 
 Each launch counts in ``decode_attention.launches`` and in
 ``decode_attention.launches_by_route[route]``.  For CPU tensors it

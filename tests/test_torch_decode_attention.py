@@ -5,8 +5,15 @@ version.  Sweep and tolerances are those of tests/test_kernels.py (f32
 2e-5, bf16 2e-2).  The bf16 kernel's arithmetic (the "mma" route: bf16
 operands on the tensor cores, P rounded to bf16 before P V, warps that
 split each tile's keys, pieces merged by the combine) is emulated here and
-held against the same JAX kernel.  The kernels themselves run only on a
-card: their test is marked ``gpu`` and skips here."""
+held against the same JAX kernel.  So is the f32 route's (one launch: the
+visible rows spread evenly over the blocks from ``pos``, 32-key slices,
+partial dots over 32-column chunks, a softmax per slice, a partial a shared
+unit, merged in block order), and its schedule is checked row by row and
+pinned to the source.  The kernels themselves run only on a card: their
+tests are marked ``gpu`` and skip here."""
+
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -220,6 +227,331 @@ def test_mma_arithmetic_matches_jax_kernel(b, h, kv, hd, t, bk, pos, window, sof
             np.testing.assert_allclose(got[g], np.broadcast_to(_np(tx[2][0, 0, g]), got[g].shape))
 
 
+@pytest.fixture
+def one_thread():
+    """The emulations' small tensors gain nothing from intra-op threads;
+    one keeps a parallel test run from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+CSRC = Path(da_kernel.__file__).parents[1] / "csrc"
+SLICE = da_kernel.SLICE
+
+
+def _unit(u, h, kv):
+    """Unit u -> (batch row, first query head, heads)."""
+    group = h // kv
+    n_hc = -(-group // 8)
+    bi, rem = divmod(u, kv * n_hc)
+    kvh, hc = divmod(rem, n_hc)
+    return bi, kvh, kvh * group + 8 * hc, min(8, group - 8 * hc)
+
+
+def _f32_emulation(q, k, v, pos, *, window, softcap, grid):
+    """The f32 route's arithmetic on the CPU, as its one launch walks it.
+    The schedule (``kernel.f32_schedule``) gives each block its segments;
+    a segment is walked in slices of 32 rows from its first row (rows past
+    its end arrive as zeros and are masked).  Per slice: q kᵀ as partial
+    dots over 32-column chunks of hd, summed in chunk order; scale, softcap,
+    mask; the slice's max per head, the online softmax with one running sum
+    a key position (summed at the segment's end); O = O corr + P V.  A
+    segment that is its whole unit writes the output; the others leave (m,
+    l, acc) in their block's slot, merged in block order in two levels
+    (groups of ceil(sqrt(n)) blocks, then the groups): weights exp(m - M),
+    A / L (1 where L == 0).  A unit with no visible row gives 0."""
+    b, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    scale = hd ** -0.5
+    sched = da_kernel.f32_schedule(pos.tolist(), b=b, h=h, kv=kv, t=t, window=window,
+                                   grid=grid)
+    out = torch.zeros(b, h, hd)
+    parts = {}
+    for blk, segs in enumerate(sched["blocks"]):
+        for seg in segs:
+            bi, kvh, h0, gc = _unit(seg["unit"], h, kv)
+            qf = q[bi, h0:h0 + gc].float()
+            m, l = torch.full((gc,), NEG_INF), torch.zeros(gc, SLICE)
+            acc = torch.zeros(gc, hd)
+            for r0 in range(seg["lo"], seg["hi"], SLICE):
+                rows = torch.arange(r0, r0 + SLICE)
+                ok = rows < seg["hi"]
+                rows = rows.clamp(max=t - 1)
+                kk = k[bi, rows, kvh].float() * ok[:, None]
+                vv = v[bi, rows, kvh].float() * ok[:, None]
+                x = torch.zeros(gc, SLICE)
+                for c0 in range(0, hd, 32):
+                    x = x + qf[:, c0:c0 + 32] @ kk[:, c0:c0 + 32].T
+                x = x * scale
+                if softcap:
+                    x = softcap * torch.tanh(x / softcap)
+                x = torch.where(ok, x, NEG_INF)
+                m_new = torch.maximum(m, x.amax(-1))
+                corr = torch.exp(m - m_new)
+                p = torch.where(ok, torch.exp(x - m_new[:, None]), 0.0)
+                l = l * corr[:, None] + p
+                acc = acc * corr[:, None] + p @ vv
+                m = m_new
+            big_l = l.sum(-1)
+            if seg["slot"] is None:
+                out[bi, h0:h0 + gc] = acc / torch.where(big_l == 0, 1.0, big_l)[:, None]
+            else:
+                parts[blk, seg["slot"]] = (m, big_l, acc)
+    def merge(partials):
+        ms = torch.stack([pt[0] for pt in partials])
+        big_m = ms.amax(0)
+        w = torch.exp(ms - big_m)
+        big_l = (w * torch.stack([pt[1] for pt in partials])).sum(0)
+        return big_m, big_l, (w[..., None] * torch.stack([pt[2] for pt in partials])).sum(0)
+
+    for u, tree in enumerate(sched["merge_groups"]):
+        if tree is None:
+            continue
+        bi, _, h0, gc = _unit(u, h, kv)
+        groups = [merge([parts[s] for s in g]) for g in tree["groups"]]
+        _, big_l, a = groups[0] if len(groups) == 1 else merge(groups)
+        out[bi, h0:h0 + gc] = a / torch.where(big_l == 0, 1.0, big_l)[:, None]
+    return out.to(q.dtype)
+
+
+# blocks an SM holds on an H100 (228 KB of shared memory an SM, 1 KB of it
+# reserved a block) by hd, from the source's shared-memory layout
+# (``_f32_smem_bytes``); the card's own count comes from the kernel
+# (``decode_f32_blocks_per_sm``, chip_smoke phase 1)
+H100_BLOCKS_PER_SM = {64: 4, 128: 2, 256: 1}
+
+
+def _f32_grids(b, h, kv, hd, t, window):
+    """One block, five, and the H100's one wave."""
+    full = da_kernel.f32_grid(b, h, kv, t, window, 132, H100_BLOCKS_PER_SM[hd])
+    return sorted({1, 5, full})
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("b,h,kv,hd,t,bk,pos,window,softcap,q_scale", [
+    (2, 4, 4, 64, 256, 64, None, 0, 0.0, 1.0),       # the f32 sweep of the reference's tests
+    (3, 8, 2, 64, 512, 128, None, 0, 0.0, 1.0),
+    (1, 4, 1, 128, 256, 256, None, 0, 0.0, 1.0),
+    (4, 4, 2, 64, 128, 32, (0, 1, 63, 127), 0, 0.0, 1.0),   # ragged pos, pos = 0
+    (2, 4, 4, 64, 128, 32, (100, 127), 16, 0.0, 1.0),       # windows
+    (2, 4, 4, 64, 128, 32, (100, 127), 64, 0.0, 1.0),
+    (2, 8, 4, 128, 256, 64, None, 0, 50.0, 32.0),    # logits (std 32) past the softcap
+    (2, 16, 1, 64, 192, 64, (191, 70), 0, 0.0, 1.0),  # 16 heads a group: two units a kv head
+    (2, 8, 1, 256, 512, 128, (511, 200), 0, 0.0, 1.0),  # gemma-2b heads
+])
+def test_f32_arithmetic_matches_jax_kernel(b, h, kv, hd, t, bk, pos, window, softcap, q_scale):
+    """The f32 route's arithmetic within the reference's 2e-5 of the Pallas
+    kernel, with one block (every unit whole in it), five (units split over
+    blocks, blocks across units) and the H100's grid."""
+    jx, tx = _inputs(hash((b, h, kv, hd, t, window, "f32")) % 2**31, b, h, kv, hd, t,
+                     "float32", pos=pos, q_scale=q_scale)
+    ref = jax_decode_attention(*jx, window=window, softcap=softcap, block_k=bk)
+    for grid in _f32_grids(b, h, kv, hd, t, window):
+        out = _f32_emulation(*tx, window=window, softcap=softcap, grid=grid)
+        assert out.dtype == torch.float32 and out.shape == tx[0].shape
+        np.testing.assert_allclose(_np(out), _np(ref), **TOL["float32"], err_msg=f"grid {grid}")
+    if pos is not None and pos[0] == 0:       # pos = 0 sees kv row 0 only
+        got = _np(out[0]).reshape(kv, h // kv, hd)
+        for g in range(kv):
+            np.testing.assert_allclose(got[g], np.broadcast_to(_np(tx[2][0, 0, g]), got[g].shape),
+                                       rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_f32_row_with_no_visible_key_gives_zero():
+    """pos = -1 leaves a batch row no visible key: its unit reads nothing and
+    its output is 0 (the TPU kernel's l == 0 -> 1); the other rows are
+    unchanged by it."""
+    _, tx = _inputs(41, 3, 8, 2, 64, 96, "float32", pos=(95, -1, 40))
+    ref = reference_decode_attention(*tx)
+    for grid in (1, 4, 9):
+        sched = da_kernel.f32_schedule([95, -1, 40], b=3, h=8, kv=2, t=96, window=0, grid=grid)
+        assert all(seg["unit"] not in (2, 3) for segs in sched["blocks"] for seg in segs)
+        out = _f32_emulation(*tx, window=0, softcap=0.0, grid=grid)
+        assert torch.equal(out[1], torch.zeros_like(out[1]))
+        np.testing.assert_allclose(_np(out[[0, 2]]), _np(ref[[0, 2]]), **TOL["float32"])
+
+
+def _check_schedule(pos, b, h, kv, t, window, grid):
+    """Every visible row read by exactly one block, no row outside its
+    unit's visible range, the blocks' tiles within one of each other, two
+    partial slots a block at most (the scratch the wrapper allocates), and
+    each merge reading exactly the slots its unit's blocks wrote.  With
+    fewer rows than blocks, the blocks past the rows take none."""
+    sched = da_kernel.f32_schedule(pos, b=b, h=h, kv=kv, t=t, window=window, grid=grid)
+    units = da_kernel.f32_units(b, h, kv)
+    assert len(sched["visible"]) == units and len(sched["blocks"]) == grid
+    read = [[] for _ in range(units)]
+    written, group_slots = {}, []
+    rows = []
+    for blk, segs in enumerate(sched["blocks"]):
+        slots = [seg["slot"] for seg in segs if seg["slot"] is not None]
+        assert len(slots) == len(set(slots)) <= 2 and set(slots) <= {0, 1}
+        assert all(seg["slot"] is None for seg in segs[1:-1])   # middle units: whole here
+        n = 0
+        for seg in segs:
+            u, lo, hi = seg["unit"], seg["lo"], seg["hi"]
+            vlo, vhi = sched["visible"][u]
+            assert vlo <= lo < hi <= vhi and (lo - vlo) % SLICE == 0   # whole tiles
+            for r0 in range(lo, hi, SLICE):                     # the slices' rows
+                read[u].extend(range(r0, min(r0 + SLICE, hi)))
+            n += -(-(hi - lo) // SLICE)
+            if seg["slot"] is not None:
+                written.setdefault(u, []).append((blk, seg["slot"]))
+        rows.append(n)
+    for u, (vlo, vhi) in enumerate(sched["visible"]):
+        assert sorted(read[u]) == list(range(vlo, vhi)), u
+        want = written.get(u, [])
+        if len(sched["contributors"][u]) > 1:
+            assert sched["merge_slots"][u] == want, u
+            tree = sched["merge_groups"][u]
+            f = tree["fan_in"]
+            assert f == len(want) <= 16 or (f - 1) ** 2 < len(want) <= f * f <= 32 * 32
+            assert [s for g in tree["groups"] for s in g] == want
+            assert all(len(g) == f for g in tree["groups"][:-1]) and len(tree["groups"]) <= 32
+            group_slots.extend(tree["group_slots"])
+        else:
+            assert not want and sched["merge_groups"][u] is None, u
+    takers = [n for n in rows if n]
+    assert max(rows) - min(takers, default=0) <= 1
+    assert rows[:len(takers)] == takers     # the blocks that take rows come first
+    slots = [2 * blk + s for blk, segs in enumerate(sched["blocks"]) for seg in segs
+             if (s := seg["slot"]) is not None]
+    assert len(group_slots) == len(set(group_slots)) and set(group_slots) <= set(slots)
+    floats = da_kernel.f32_scratch_floats(b, h, kv, 64, grid)
+    counters = da_kernel.f32_counters(b, h, kv, grid)
+    assert counters >= units + 2 * grid     # a unit's count, then a group's by its slot
+    assert (max(slots, default=0) + 1 + 2 * grid) * 8 * (64 + 2) <= floats - counters
+    return sched, rows
+
+
+try:
+    from hypothesis import given, settings
+    from hypothesis import strategies as st
+    HAVE_HYPOTHESIS = True
+except ImportError:                                   # pragma: no cover
+    HAVE_HYPOTHESIS = False
+
+
+if HAVE_HYPOTHESIS:
+    @settings(max_examples=200, deadline=None)
+    @given(b=st.integers(1, 6), kv=st.integers(1, 4),
+           group=st.sampled_from([1, 2, 3, 4, 5, 8, 12, 16]), t=st.integers(1, 3000),
+           window=st.one_of(st.just(0), st.integers(1, 3100)), sms=st.integers(1, 140),
+           per_sm=st.integers(1, 4), data=st.data())
+    def test_f32_schedule_by_hypothesis(b, kv, group, t, window, sms, per_sm, data):
+        pos = data.draw(st.lists(st.integers(-2, t + 3), min_size=b, max_size=b))
+        grid = da_kernel.f32_grid(b, group * kv, kv, t, window, sms, per_sm)
+        assert 1 <= grid <= min(sms * per_sm, da_kernel.MAX_BLOCKS)
+        _check_schedule(pos, b, group * kv, kv, t, window, grid)
+
+
+@pytest.mark.parametrize("name,b,h,kv,hd,t,window,pos", [
+    ("kernels_bench", 4, 8, 2, 64, 8192, 0, (8191, 4096, 7, 8092)),
+    ("gemma-2b decode f32", 4, 8, 1, 256, 2048, 0, (2047, 1024, 7, 1948)),
+    ("gemma2-2b local f32", 4, 8, 4, 256, 8192, 4096, (8191, 4096, 7, 8092)),
+])
+def test_f32_schedule_at_the_timed_shapes(name, b, h, kv, hd, t, window, pos):
+    """On an H100's grid every block holds visible rows (none is launched for
+    nothing) and the tiles spread within one of each other."""
+    grid = da_kernel.f32_grid(b, h, kv, t, window, 132, H100_BLOCKS_PER_SM[hd])
+    assert grid == 132 * H100_BLOCKS_PER_SM[hd]
+    _, rows = _check_schedule(list(pos), b, h, kv, t, window, grid)
+    assert min(rows) > 0
+
+
+def _const(src, name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def _f32_smem_bytes(hd, gc):
+    """``F32Smem<hd, gc>::BYTES``: the ring (3 stages of a K and a V slice),
+    two q buffers, the warps' partial dots, P, the rescales and (m, l) of 8
+    heads, 32 words for the schedule."""
+    nw, stages = hd // 32, da_kernel.STAGES
+    floats = (stages * 2 * SLICE * hd + (stages - 1) * gc * hd + nw * gc * SLICE + SLICE * gc
+              + 8 + 16 + 32)
+    return 4 * floats
+
+
+def test_f32_schedule_and_layout_match_the_source():
+    """The mirror's constants and rules are the source's: slice, ring depth,
+    grid cap, units of 8 heads, the rows a block takes, the block of a row,
+    the grid of one wave, the scratch (counters, then two slots a block of
+    8 heads' (m, l) and acc), the slot a block writes and the slot a merge
+    reads; and the shared memory that sets the H100's blocks an SM."""
+    src = (CSRC / "decode_attention.cu").read_text()
+    flat = " ".join(src.split())
+    assert _const(src, "kSlice") == da_kernel.SLICE == 32
+    assert _const(src, "kStages") == da_kernel.STAGES == 3
+    assert _const(src, "kMaxBlocks") == da_kernel.MAX_BLOCKS
+    assert _const(src, "GMAX") == da_kernel._GROUP_MAX == 8
+    for line in (
+            "const int G = (int)min((long long)gridDim.x, max(R, 1LL));",
+            "const long long s_beg = takes_tiles ? (long long)blockIdx.x * R / G : 0;",
+            "const long long s_end = takes_tiles ? (long long)(blockIdx.x + 1) * R / G : 0;",
+            "__device__ __forceinline__ int tiles_of(int rows) { return (rows + kSlice - 1) / kSlice; }",
+            "const int nt = tiles_of(len);",
+            "w.lo = lo + kSlice * a; w.hi = lo + (int)min((long long)len, kSlice * (s_end - w.g0));",
+            "if (n <= kFlat) fan_in = n;",
+            "return (int)(((r + 1) * G - 1) / R);",
+            "lo = window > 0 ? max(p - window + 1, 0) : 0; len = max(hi - lo, 0);",
+            "const int hi = min(p + 1, T);",
+            "const Units un{pos, B * KV * n_hc, KV * n_hc, n_hc, group, T, window};",
+            "int* unit_count = scratch;",
+            "int* group_count = scratch + un.U;",
+            "float* slots = reinterpret_cast<float*>(scratch) + ((un.U + 2 * gridDim.x + 3) & ~3);",
+            "float* group_slots = slots + 2L * gridDim.x * L::SLOT;",
+            "static constexpr int SLOT = GMAX * (HD + 2);",
+            "float* slot = slots + ((long)blockIdx.x * 2 + (cw.ord == 0 ? 0 : 1)) * L::SLOT;",
+            "fan_in = 1; while (fan_in * fan_in < n) ++fan_in;",
+            "groups = (n + fan_in - 1) / fan_in;",
+            "first_which = (long long)bf * R / G < g0 ? 1 : 0;",
+            "__device__ int member_slot(int j) const { return 2 * (bf + j) + (j == 0 ? first_which "
+            ": 0); }",
+            "__device__ int slot(int gi) const { return member_slot(gi * fan_in); }",
+            "const long long rows_max = units * (window > 0 ? std::min(T_len, window) : T_len);",
+            "long long grid = (long long)sms * per_sm; grid = std::min(grid, (long long)kMaxBlocks); "
+            "grid = std::max(1LL, std::min(grid, (rows_max + kSlice - 1) / kSlice));",
+            "inline int f32_heads(int group) { return group >= 5 ? 8 : group >= 3 ? 4 : group; }",
+            "static constexpr int QBUF = kStages * STAGE;",
+            "static constexpr int PART = QBUF + (kStages - 1) * GC * HD;",
+            "static constexpr int PROB = PART + NW * GC * kSlice;",
+            "static constexpr int CORR = PROB + kSlice * GC;",
+            "static constexpr int ML = CORR + GMAX;",
+            "static constexpr int MISC = ML + 2 * GMAX;",
+            "static constexpr size_t BYTES = sizeof(float) * (MISC + 32);"):
+        assert line in flat, line
+    assert _const(src, "kFlat") == da_kernel.FLAT
+    for n in range(1, da_kernel.MAX_BLOCKS + 1):            # MergeTree's fan-in loop
+        f = 1
+        while f * f < n:
+            f += 1
+        f = n if n <= da_kernel.FLAT else f
+        assert da_kernel.merge_fan_in(n) == f <= 32 and -(-n // f) <= 32
+    for hd, per_sm in H100_BLOCKS_PER_SM.items():
+        for gc in (1, 2, 4, 8):
+            smem = _f32_smem_bytes(hd, gc)
+            assert smem <= 232_448
+            assert min(228 * 1024 // (smem + 1024), 2048 // hd) >= per_sm, (hd, gc)
+        assert 228 * 1024 // (_f32_smem_bytes(hd, 8) + 1024) == per_sm
+
+
+@pytest.mark.parametrize("b,h,kv,t,window,units,grid", [
+    (4, 8, 2, 8192, 0, 8, 528),        # kernels_bench: 4 blocks an SM, 132 SMs
+    (4, 8, 1, 2048, 0, 4, 132),        # gemma-2b f32: one block an SM
+    (4, 8, 4, 8192, 4096, 16, 132),    # gemma2-2b local f32
+    (1, 32, 1, 64, 0, 4, 8),           # 4 units of 8 heads, 64 rows each at most
+    (1, 2, 1, 5, 0, 1, 1),             # fewer rows than a slice: one block
+])
+def test_f32_grid_is_one_wave_capped_by_the_rows(b, h, kv, t, window, units, grid):
+    assert da_kernel.f32_units(b, h, kv) == units
+    per_sm = 4 if grid == 528 else 1
+    assert da_kernel.f32_grid(b, h, kv, t, window, 132, per_sm) == grid
+
+
 def test_routes_by_dtype_and_cpu_calls_count_nothing():
     """bf16 goes to the mma kernel (dtype code 1), f32 to the CUDA-core
     kernel (code 0); a CPU call computes the plain version and leaves every
@@ -321,3 +653,48 @@ def test_kernel_refuses_grad_on_card(cuda_device, dtype):
         out = decode_attention(q, k, v, pos)
     torch.cuda.synchronize()
     assert out.shape == q.shape and torch.isfinite(out.float()).all()
+
+
+F32_SHAPES = (   # chip_smoke's f32 rows: (B, H, KV, hd, T, window, softcap, pos, q scale)
+    (4, 8, 2, 64, 8192, 0, 0.0, (8191, 4096, 7, 8092), 1.0),
+    (4, 8, 1, 256, 2048, 0, 0.0, (2047, 1024, 7, 1948), 1.0),
+    (4, 8, 4, 256, 8192, 4096, 50.0, (8191, 4096, 7, 8092), 32.0),
+)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,kv,hd,t,window,cap,pos,q_scale", F32_SHAPES)
+def test_f32_route_at_full_width_on_card(cuda_device, b, h, kv, hd, t, window, cap, pos,
+                                         q_scale):
+    """The one-launch f32 route within 2e-5 of the plain version at the
+    timed shapes, each launch counted once on "simt", and two calls bit for
+    bit alike (the merge takes the partials in block order)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(cuda_device).manual_seed(3)
+    q = q_scale * torch.randn(b, h, hd, generator=gen, device=cuda_device)
+    k, v = (torch.randn(b, t, kv, hd, generator=gen, device=cuda_device) for _ in range(2))
+    p = torch.tensor(pos, device=cuda_device)
+    before, before_route = decode_attention.launches, decode_attention.launches_by_route["simt"]
+    out = decode_attention(q, k, v, p, window=window, softcap=cap)
+    again = decode_attention(q, k, v, p, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 2
+    assert decode_attention.launches_by_route["simt"] == before_route + 2
+    assert torch.equal(out, again)
+    ref = reference_decode_attention(q, k, v, p, window=window, softcap=cap)
+    np.testing.assert_allclose(_np(out.cpu()), _np(ref.cpu()), **TOL["float32"])
+
+
+@pytest.mark.gpu
+def test_f32_row_with_no_visible_key_gives_zero_on_card(cuda_device):
+    """pos = -1: that batch row's output is 0; the others match the plain
+    version."""
+    gen = torch.Generator(cuda_device).manual_seed(4)
+    q = torch.randn(3, 8, 128, generator=gen, device=cuda_device)
+    k, v = (torch.randn(3, 300, 2, 128, generator=gen, device=cuda_device) for _ in range(2))
+    p = torch.tensor([299, -1, 40], device=cuda_device)
+    out = decode_attention(q, k, v, p, window=64)
+    torch.cuda.synchronize()
+    assert torch.equal(out[1], torch.zeros_like(out[1]))
+    ref = reference_decode_attention(q, k, v, p, window=64)
+    np.testing.assert_allclose(_np(out[[0, 2]].cpu()), _np(ref[[0, 2]].cpu()), **TOL["float32"])
