@@ -12,8 +12,11 @@ Phases, each a hard failure (nonzero exit, no result line):
    spill; the f32 decode split's 12 builds also print their stack frame and
    the blocks an SM the card places, 8 warps);
 2. each kernel against its plain PyTorch version on the card, at the
-   serving path's shapes, the reference test sweep's and the full widths of
-   gemma-2b, gemma2-2b and mamba2-370m, with the tolerance stated per case;
+   serving path's shapes (flash attention at each served model's prefill
+   widths: gemma-2b, granite-3-8b with GQA group 4 and starcoder2-15b with
+   group 12, at S = 16 and every serving bucket), the reference test
+   sweep's and the full widths of gemma-2b, gemma2-2b and mamba2-370m, with
+   the tolerance stated per case;
    flash attention's bf16 cases go to its "wgmma" route and its f32 cases to
    "mma" (split TF32), decode attention's bf16 to its "mma" route and f32 to
    "simt" (one launch: every f32 case twice, bit for bit alike, and a row
@@ -21,19 +24,26 @@ Phases, each a hard failure (nonzero exit, no result line):
    its plain version in f64; and each kernel must refuse an input that
    requires grad under grad mode (they have no backward);
 3. kernel, plain version and the PyTorch library call (where one computes
-   the same function) timed with CUDA events at those shapes, beside the
+   the same function) timed with CUDA events at those shapes (flash
+   attention also at granite-3-8b's and starcoder2-15b's S=1024), beside the
    card's bound for the same work, with the achieved TFLOP/s and the share
    of the bound; decode attention's bf16 route also at every piece length
    it can pick, its split and combine apart (torch.profiler), and its f32
    route at three shapes (kernels_bench, gemma-2b and gemma2-2b local in
    f32) with its schedule (blocks, rows and tiles a block, blocks a unit)
    and one kernel a call;
-4. full-width gemma-2b (random weights from a seed, bf16) served through
-   ``Server`` + ``MetronomePolicy`` with the kernel route, with every
-   launch counter set to 0 just before and read just after (flash
-   attention 18 per prefill, all on the "wgmma" route; decode attention
-   and the SSD scan 0 on every route: no model path reaches them, in the
-   reference or in the port).
+4. four models at full width and depth (random weights from seed 0, bf16),
+   one at a time, each served through ``Server`` + ``MetronomePolicy`` with
+   the kernel route, with every launch counter set to 0 just before and
+   read just after: gemma-2b (flash attention 18 per prefill, all on the
+   "wgmma" route), granite-3-8b and starcoder2-15b (40 per prefill, after
+   the kernel route is held against the sdpa route on prefill logits), and
+   mamba2-370m (no kernel: after the reference's prefill-then-decode check,
+   chunked SSD against the recurrent step, within 5e-2); decode attention
+   and the SSD scan 0 on every route for every model: no model path
+   reaches them, in the reference or in the port.  Each model logs its
+   median TTFT, tokens/s, CPU fraction, and the device-busy share of one
+   prefill and one decode step.
 
 Then the fixed-slot sweep S1 (``slot_sweep``, the reference's
 ``runtime/batched.py`` ``lax.scan``; producer warps and a consumer warp
@@ -261,6 +271,10 @@ DECODE_SHAPES = (
      (8191, 4096, 7, 8092), 32.0),
 )
 FLUSH_BYTES = 256 << 20      # written between timed launches to empty the 50 MB L2
+# K1 at each served model's attention widths (name, H, KV, hd): gemma-2b (MQA,
+# hd 256), granite-3-8b (GQA group 4) and starcoder2-15b (GQA group 12), hd 128
+SERVED_ATTENTION = (("gemma-2b", 8, 1, 256), ("granite-3-8b", 32, 8, 128),
+                    ("starcoder2-15b", 48, 4, 128))
 
 
 def log(*args) -> None:
@@ -570,8 +584,9 @@ def ptxas_records(log_text: str) -> dict[str, tuple[int, int, int, int]]:
 
 def phase_compare() -> dict[str, float]:
     """Kernel vs plain version; returns the max abs error per route at the
-    shapes of the ``kernels`` line: gemma-2b prefill in bf16 ("wgmma") and
-    in f32 ("mma", split TF32)."""
+    served models' prefill shapes: gemma-2b, granite-3-8b and
+    starcoder2-15b in bf16 ("wgmma"), gemma-2b in f32 ("mma", split
+    TF32)."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 plain version in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -580,8 +595,8 @@ def phase_compare() -> dict[str, float]:
         "about one ulp, ~0.016 at |o| ~ 3; dropping one 64-key tile moves it by ~0.36)")
     gen = torch.Generator("cuda").manual_seed(0)
     # (name, B, S, H, KV, hd, dtype, causal, window, softcap, q scale)
-    cases = [("gemma-2b prefill", 1, s, 8, 1, 256, torch.bfloat16, True, 0, 0.0, 1.0)
-             for s in (16, *SERVE_BUCKETS)]
+    cases = [(f"{name} prefill", 1, s, h, kv, hd, torch.bfloat16, True, 0, 0.0, 1.0)
+             for name, h, kv, hd in SERVED_ATTENTION for s in (16, *SERVE_BUCKETS)]
     for dtype in (torch.float32, torch.bfloat16):
         for b, s, h, kv, hd in ((1, 128, 4, 4, 64), (2, 256, 8, 2, 64),
                                 (1, 192, 4, 1, 128), (1, 64, 2, 2, 256)):
@@ -642,7 +657,7 @@ def phase_compare() -> dict[str, float]:
             f"tol atol={tol['atol']} rtol={tol['rtol']} {'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"flash_attention disagrees with its plain version ({name}, S={s})")
-        if name.startswith("gemma-2b prefill"):
+        if " prefill" in name:
             route = "wgmma" if dtype == torch.bfloat16 else "mma"
             route_err[route] = max(route_err[route], err)
     want = {"wgmma": sum(c[6] == torch.bfloat16 for c in cases),
@@ -654,8 +669,9 @@ def phase_compare() -> dict[str, float]:
 
 
 def phase_time() -> dict[str, list[dict]]:
-    """K1 rows by route: "wgmma" holds gemma-2b's three prefill buckets and
-    a gemma2-2b softcap row, "mma" the f32 row at gemma-2b heads, whose
+    """K1 rows by route: "wgmma" holds gemma-2b's three prefill buckets, a
+    gemma2-2b softcap row and granite-3-8b's and starcoder2-15b's prefill at
+    S=1024 (hd 128), "mma" the f32 row at gemma-2b heads, whose
     ``bound_ms`` is the route's own (its three TF32 passes at the TF32
     peak), the f32 CUDA-core one beside it (``f32_bound_ms``)."""
     import torch.nn.functional as F
@@ -664,15 +680,18 @@ def phase_time() -> dict[str, list[dict]]:
     log("phase 3: flash attention, median of 20 CUDA-event timings after 3 warm-up calls, "
         "each behind a device-side spin (host dispatch not timed), inputs warm in L2")
     gen = torch.Generator("cuda").manual_seed(1)
-    # (name, route, S, H, KV, dtype, window, softcap, q scale); hd 256, causal
-    shapes = [(f"gemma-2b prefill S={s}", "wgmma", s, 8, 1, torch.bfloat16, 0, 0.0, 1.0)
+    # (name, route, S, H, KV, hd, dtype, window, softcap, q scale); causal
+    shapes = [(f"gemma-2b prefill S={s}", "wgmma", s, 8, 1, 256, torch.bfloat16, 0, 0.0, 1.0)
               for s in SERVE_BUCKETS]
     shapes += [("gemma2-2b prefill S=1024, local layer (window 4096, softcap 50, q x32)",
-                "wgmma", 1024, 8, 4, torch.bfloat16, 4096, 50.0, 32.0),
-               ("gemma-2b prefill S=1024 f32", "mma", 1024, 8, 1, torch.float32, 0, 0.0, 1.0)]
+                "wgmma", 1024, 8, 4, 256, torch.bfloat16, 4096, 50.0, 32.0),
+               ("gemma-2b prefill S=1024 f32", "mma", 1024, 8, 1, 256, torch.float32, 0, 0.0,
+                1.0)]
+    shapes += [(f"{name} prefill S=1024", "wgmma", 1024, h, kv, hd, torch.bfloat16, 0, 0.0, 1.0)
+               for name, h, kv, hd in SERVED_ATTENTION[1:]]
     rows = {"wgmma": [], "mma": []}
-    for name, route, s, h, kv, dtype, window, cap, q_scale in shapes:
-        q, k, v = attn_inputs(gen, 1, s, h, kv, 256, dtype)
+    for name, route, s, h, kv, hd, dtype, window, cap, q_scale in shapes:
+        q, k, v = attn_inputs(gen, 1, s, h, kv, hd, dtype)
         q = (q_scale * q.float()).to(dtype)
         kw = dict(causal=True, window=window, softcap=cap)
         flash_attention.launches_by_route = {"wgmma": 0, "mma": 0}
@@ -686,17 +705,18 @@ def phase_time() -> dict[str, list[dict]]:
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             lib_ms = time_ms(F.scaled_dot_product_attention, qt, kt, vt,
                              is_causal=True, enable_gqa=True)
-        bound_ms, bound_by, flops = attn_bound(1, s, h, kv, 256, dtype, causal=True,
+        bound_ms, bound_by, flops = attn_bound(1, s, h, kv, hd, dtype, causal=True,
                                                window=window)
         row = {"name": name, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-               "launches": launches, "tflops": flops / ms / 1e9}
+               "launches": launches, "tflops": flops / ms / 1e9,
+               "shape": f"B=1 S=T={s} H={h} KV={kv} hd={hd} {str(dtype)[6:]} causal"}
         f32_bound = ""
         if dtype == torch.float32:
             row.update(f32_bound_ms=bound_ms, f32_bound_by=bound_by,
                        f32_bound_share=bound_ms / ms)
             f32_bound = (f"; f32 CUDA-core bound {bound_ms * 1e3:.2f} us ({bound_by}), "
                          f"{100 * bound_ms / ms:.1f}% of it")
-            bound_ms, bound_by = attn_route_bound(1, s, h, kv, 256, flops)
+            bound_ms, bound_by = attn_route_bound(1, s, h, kv, hd, flops)
             peak = "3 TF32 passes at the TF32 peak"
         else:
             peak = f"{str(dtype)[6:]} peak"
@@ -1502,44 +1522,53 @@ def phase_decode_phases(sources: list[str]) -> list[dict]:
     return rows
 
 
-def phase_serve() -> dict:
-    from repro_torch.configs import get_config
-    from repro_torch.core import MetronomeConfig
+def set_launch_counts_to_zero() -> None:
+    """Every kernel wrapper of the serving path (K1, K2, K3) counts from 0."""
     from repro_torch.kernels import decode_attention, flash_attention, ssd_scan
-    from repro_torch.models import Model
-    from repro_torch.runtime import MetronomePolicy
-    from repro_torch.serving import EngineConfig, InferenceEngine, Request, Server
+    flash_attention.launches = 0
+    flash_attention.launches_by_route = {"wgmma": 0, "mma": 0}
+    decode_attention.launches = 0
+    decode_attention.launches_by_route = {"mma": 0, "simt": 0}
+    ssd_scan.launches = 0
 
-    cfg = get_config("gemma-2b")
-    log(f"phase 4: serve {cfg.name} at full width ({cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads} KV head, head_dim "
-        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.param_dtype}), "
-        "random weights from seed 0, attn=kernel")
-    model = Model(cfg, attn="kernel", device="cuda")
-    t0 = time.perf_counter()
-    params = model.init(torch.Generator("cuda").manual_seed(0))
-    torch.cuda.synchronize()
-    log(f"  init {time.perf_counter() - t0:.2f} s, "
-        f"{sum(x.numel() for x in _leaves(params)) / 1e9:.3f} B parameters")
 
-    # the kernel route against the plain (sdpa) route on the same weights
-    plain_model = Model(cfg, attn=None, device="cuda")
+def route_check(model, plain_model, params) -> None:
+    """The kernel route against the plain (sdpa) route on the same weights:
+    prefill logits at the smallest and largest bucket."""
+    cfg = model.cfg
     tok_gen = np.random.default_rng(0)
     with torch.no_grad():
         for s in (SERVE_BUCKETS[0], SERVE_BUCKETS[-1]):
-            toks = torch.from_numpy(tok_gen.integers(0, cfg.vocab_size, (1, s))).cuda()
+            toks = torch.from_numpy(tok_gen.integers(0, cfg.vocab_size, (1, s))).to(model.device)
             lk, _ = model.prefill(params, {"tokens": toks})
             lp, _ = plain_model.prefill(params, {"tokens": toks})
             if lk.shape != (1, s, cfg.vocab_size) or not torch.isfinite(lk).all():
-                fail(f"prefill logits at S={s}: shape {tuple(lk.shape)} or not finite")
+                fail(f"{cfg.name} prefill logits at S={s}: shape {tuple(lk.shape)} or not finite")
             rel = float((lk - lp).abs().max() / lp.abs().max())
             top1 = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
             log(f"  prefill S={s}: kernel route vs sdpa route max|diff|/max|logit| "
                 f"{rel:.3e} (limit 5e-2), top-1 agreement {top1:.4f} (limit 0.9)")
             if rel > 5e-2 or top1 < 0.9:
-                fail(f"kernel route disagrees with the sdpa route at S={s}")
-    del lk, lp
+                fail(f"{cfg.name}: kernel route disagrees with the sdpa route at S={s}")
+            del lk, lp
 
+
+def serve_requests(model, params) -> dict:
+    """The slice's main path for one model: an engine with 4 slots and the
+    serving buckets, warmed with one request a bucket, then 8 Poisson
+    requests at 20/s through ``Server`` + ``MetronomePolicy`` with every
+    launch counter set to 0 just before and read just after.  Checks that
+    every request completes inside the vocabulary and that K1 launched
+    once per attention layer per prefill, all on "wgmma", and K2 and K3 not
+    at all; logs TTFT, tokens/s, the CPU fraction, per-bucket prefill and
+    per-step decode times, and the device-busy share of a prefill and of a
+    decode step."""
+    from repro_torch.core import MetronomeConfig
+    from repro_torch.kernels import decode_attention, flash_attention, ssd_scan
+    from repro_torch.runtime import MetronomePolicy
+    from repro_torch.serving import EngineConfig, InferenceEngine, Request, Server
+
+    cfg = model.cfg
     engine = InferenceEngine(model, params, EngineConfig(
         max_slots=4, max_len=2048, prefill_buckets=SERVE_BUCKETS))
     for n in SERVE_BUCKETS:                 # warm-up: one request per bucket
@@ -1554,11 +1583,7 @@ def phase_serve() -> dict:
     reqs = [Request(prompt=[int(t) for t in rng.integers(1, cfg.vocab_size, n)],
                     max_new_tokens=MAX_NEW) for n in PROMPT_LENS]
     prefills_before = engine.prefill_tokens
-    flash_attention.launches = 0            # counts from the main path only
-    flash_attention.launches_by_route = {"wgmma": 0, "mma": 0}
-    decode_attention.launches = 0
-    decode_attention.launches_by_route = {"mma": 0, "simt": 0}
-    ssd_scan.launches = 0
+    set_launch_counts_to_zero()             # counts from the main path only
     server.start()
     t_start = time.perf_counter()
     for r in reqs:
@@ -1574,26 +1599,28 @@ def phase_serve() -> dict:
     other_launches = {"decode_attention": decode_attention.launches,
                       "ssd_scan": ssd_scan.launches}
     if not done:
-        fail("not every request completed within 120 s")
+        fail(f"{cfg.name}: not every request completed within 120 s")
     completed = sum(len(r.tokens) == MAX_NEW for r in reqs)
     if completed != len(reqs):
-        fail(f"completed {completed}/{len(reqs)}")
+        fail(f"{cfg.name}: completed {completed}/{len(reqs)}")
     if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.tokens):
-        fail("a generated token lies outside the vocabulary")
-    want = cfg.n_layers * len(reqs)
+        fail(f"{cfg.name}: a generated token lies outside the vocabulary")
+    attn_layers = sum(m.startswith("attn") for m, _ in cfg.layer_plan())
+    want = attn_layers * len(reqs)
     if launches != want:
-        fail(f"flash_attention launched {launches} times, want {want} "
-             f"({cfg.n_layers} per prefill x {len(reqs)} prefills)")
+        fail(f"{cfg.name}: flash_attention launched {launches} times, want {want} "
+             f"({attn_layers} per prefill x {len(reqs)} prefills)")
     if by_route != {"wgmma": want, "mma": 0}:
-        fail(f"flash_attention routes {by_route}: every bf16 prefill launch must be wgmma")
+        fail(f"{cfg.name}: flash_attention routes {by_route}: every bf16 prefill launch "
+             "must be wgmma")
     if any(other_launches.values()) or any(decode_by_route.values()):
-        fail(f"the serving path launched {other_launches} (decode attention by route "
-             f"{decode_by_route}); no model path reaches them")
+        fail(f"{cfg.name}: the serving path launched {other_launches} (decode attention by "
+             f"route {decode_by_route}); no model path reaches them")
     if engine.prefill_tokens - prefills_before != sum(PROMPT_LENS):
-        fail("prefill token count does not match the prompts")
+        fail(f"{cfg.name}: prefill token count does not match the prompts")
     ttft = statistics.median((r.first_token_ns - r.arrival_ns) / 1e6 for r in reqs)
     tokens = sum(len(r.tokens) for r in reqs)
-    log(f"  completed={completed}/{len(reqs)} cpu={stats.cpu_fraction:.3f} "
+    log(f"  {cfg.name}: completed={completed}/{len(reqs)} cpu={stats.cpu_fraction:.3f} "
         f"ttft_ms_median={ttft:.2f} tokens={tokens} wall_s={wall_s:.3f} "
         f"tokens_per_s={tokens / wall_s:.1f} flash_attention_launches={launches} "
         f"(by route {by_route}) "
@@ -1607,23 +1634,156 @@ def phase_serve() -> dict:
     prefill_ms = {}
     with torch.no_grad():
         for n in SERVE_BUCKETS:
-            toks = torch.ones((1, n), dtype=torch.long, device="cuda")
+            toks = torch.ones((1, n), dtype=torch.long, device=model.device)
             prefill_ms[n] = time_ms(model.prefill, params, {"tokens": toks},
                                     iters=5, warmup=1)
         cache = model.init_cache(4, 2048)
-        dtoks = torch.ones(4, dtype=torch.long, device="cuda")
-        dpos = torch.full((4,), 1000, dtype=torch.long, device="cuda")
+        dtoks = torch.ones(4, dtype=torch.long, device=model.device)
+        dpos = torch.full((4,), 1000, dtype=torch.long, device=model.device)
         decode_ms = time_ms(model.decode_step, params, dtoks, cache, dpos,
                             iters=20, warmup=2)
     log("  prefill ms per bucket (CUDA events behind the spin, median of 5): "
         + ", ".join(f"{n}: {ms:.2f}" for n, ms in prefill_ms.items())
         + f"; decode ms per step (4 slots, max_len 2048, median of 20): {decode_ms:.2f}")
     with torch.no_grad():
-        toks = torch.ones((1, SERVE_BUCKETS[-1]), dtype=torch.long, device="cuda")
-        profile(f"prefill S={SERVE_BUCKETS[-1]}", model.prefill, params, {"tokens": toks})
-        profile("decode step (4 slots)", model.decode_step, params, dtoks, cache, dpos)
+        toks = torch.ones((1, SERVE_BUCKETS[-1]), dtype=torch.long, device=model.device)
+        profile(f"{cfg.name} prefill S={SERVE_BUCKETS[-1]}", model.prefill, params,
+                {"tokens": toks})
+        profile(f"{cfg.name} decode step (4 slots)", model.decode_step, params, dtoks, cache,
+                dpos)
     return {"launches": launches, "by_route": by_route, **other_launches,
-            "decode_by_route": decode_by_route, "engine": engine}
+            "decode_by_route": decode_by_route, "engine": engine, "completed": completed,
+            "cpu_fraction": stats.cpu_fraction, "ttft_ms": ttft,
+            "tokens_per_s": tokens / wall_s}
+
+
+def init_full_width(cfg):
+    """``cfg`` on the card with the kernel route, random weights from seed 0."""
+    from repro_torch.models import Model
+    model = Model(cfg, attn="kernel", device="cuda")
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"  init {time.perf_counter() - t0:.2f} s, "
+        f"{sum(x.numel() for x in _leaves(params)) / 1e9:.3f} B parameters, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated on the card")
+    return model, params
+
+
+def phase_serve() -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    cfg = get_config("gemma-2b")
+    log(f"phase 4: serve {cfg.name} at full width ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads} KV head, head_dim "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.param_dtype}), "
+        "random weights from seed 0, attn=kernel")
+    model, params = init_full_width(cfg)
+    route_check(model, Model(cfg, attn=None, device="cuda"), params)
+    return serve_requests(model, params)
+
+
+def mamba2_consistency(model, params, *, decode_tol: dict) -> dict:
+    """The reference's prefill-then-decode check (tests/test_models_smoke.py)
+    at full width and depth: forward on 1024 tokens, prefill on the first
+    512 (both multiples of the 256-step chunk), then the next 4 tokens
+    teacher-forced through the recurrent decode step, prefill's logits
+    against forward's within 2e-2 and each step's against forward's at
+    its position within ``decode_tol`` (the reference's: 5e-2).  Returns
+    the largest error of each part, and forward's logits at the decode
+    steps' positions (``"forward"``)."""
+    cfg = model.cfg
+    s, split = 1024, 512
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (1, s))).to(
+        model.device)
+    worst = {"prefill": 0.0, "decode": 0.0, "decode_top1": 1.0}
+    dtype = cfg.compute_dtype
+    with torch.no_grad():
+        full, _ = model.forward(params, {"tokens": toks})
+        pre, cache = model.prefill(params, {"tokens": toks[:, :split]})
+        parts = [("prefill", f"prefill on {split} tokens vs forward on {s}", pre,
+                  full[:, :split], dict(atol=2e-2, rtol=2e-2))]
+        for i in range(split, split + 4):
+            logits, cache = model.decode_step(params, toks[:, i], cache,
+                                              torch.full((1,), i, device=model.device))
+            parts.append(("decode", f"decode step at position {i} vs forward", logits,
+                          full[:, i], decode_tol))
+        for part, what, out, ref, tol in parts:
+            ok, err = within(out, ref, **tol)
+            top1 = float((out.argmax(-1) == ref.argmax(-1)).float().mean())
+            worst[part] = max(worst[part], err)
+            if part == "decode":
+                worst["decode_top1"] = min(worst["decode_top1"], top1)
+            log(f"  {dtype}: {what}: max_abs_err={err:.3e} (max|logit| "
+                f"{float(ref.abs().max()):.3e}; tol atol={tol['atol']:.3e} rtol={tol['rtol']}) "
+                f"top-1 {top1:.3f} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"{cfg.name} {dtype}: {what} outside its band")
+    worst["forward"] = full[0, split:split + 4].float()
+    return worst
+
+
+def phase_serve_models() -> dict[str, dict]:
+    """Phase 4, the slice's other served models at full width, bf16, random
+    weights from seed 0, one at a time (each freed, with the allocator's
+    cache, before the next): granite-3-8b and starcoder2-15b (K1 at head
+    dim 128, GQA groups 4 and 12) after their kernel-vs-sdpa route check,
+    mamba2-370m after the reference's prefill-then-decode check.  Returns
+    each model's serving record (without its engine)."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    served = {}
+    for name in ("granite-3-8b", "starcoder2-15b", "mamba2-370m"):
+        cfg = get_config(name)
+        if cfg.family == "ssm":
+            widths = (f"d_model {cfg.d_model}, SSD {cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim}"
+                      f" heads of {cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
+                      f"{cfg.ssm_chunk}, conv {cfg.ssm_conv_width}")
+        else:
+            widths = (f"d_model {cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, "
+                      f"head_dim {cfg.resolved_head_dim}, d_ff {cfg.d_ff} {cfg.mlp_type}")
+        log(f"phase 4: serve {cfg.name} at full width and depth ({cfg.n_layers} layers, "
+            f"{widths}, vocab {cfg.vocab_size}, {cfg.param_dtype}), random weights from "
+            "seed 0, attn=kernel")
+        record = {}
+        model, params = init_full_width(cfg)
+        if cfg.family == "ssm":
+            # the reference's check runs in f32 (its reduced configs): held
+            # there at the reference's 5e-2, at full width on the served
+            # weights widened to f32.  In bf16 the two paths round apart
+            # over 48 layers, so the served model's decode steps are held
+            # within bf16's own distance from f32: forward in bf16 against
+            # forward in f32 at the decode steps' positions
+            f32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+            wide = _tree_map(lambda x: x.float(), params)
+            checked = mamba2_consistency(Model(f32, attn="kernel", device="cuda"), wide,
+                                         decode_tol=dict(atol=5e-2, rtol=5e-2))
+            del wide
+            torch.cuda.empty_cache()
+            with torch.no_grad():
+                toks = torch.from_numpy(np.random.default_rng(3).integers(
+                    0, cfg.vocab_size, (1, 1024))).to(model.device)
+                narrow = model.forward(params, {"tokens": toks})[0][0, 512:516].float()
+            _, bf16_err = within(narrow, checked.pop("forward"), atol=0.0, rtol=0.0)
+            log(f"  bfloat16 forward vs float32 forward on the same weights at positions "
+                f"512-515: max_abs_err={bf16_err:.3e} (bf16's own rounding at "
+                f"{cfg.n_layers} layers: the bf16 decode steps' band)")
+            held = mamba2_consistency(model, params, decode_tol=dict(atol=bf16_err, rtol=0.0))
+            held.pop("forward")
+            record.update(check_float32=checked, check_bfloat16=held,
+                          bf16_vs_f32_forward_max_abs_err=bf16_err)
+        else:
+            route_check(model, Model(cfg, attn=None, device="cuda"), params)
+        record.update(serve_requests(model, params))
+        del record["engine"], model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        served[name] = record
+    return served
 
 
 # -- S1: the fixed-slot sweep (runtime/batched.py's lax.scan) ----------------
@@ -4269,6 +4429,10 @@ def profile(name: str, fn, *args, kernel: tuple[str, str] = ("flash_attention", 
     return by_name
 
 
+def _tree_map(fn, tree):
+    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -4304,6 +4468,7 @@ def main() -> int:
     decode_rows = phase_time_decode()
     ssd_rows = phase_time_ssd()
     served = phase_serve()
+    served_models = phase_serve_models()
     sweep_cmp = phase_compare_sweep()
     s2_cmp = phase_compare_adaptive()
     sweep_rows = phase_time_sweep(sweep_cmp["builds"])
@@ -4319,26 +4484,31 @@ def main() -> int:
     s3b_cmp = phase_compare_fleet_adaptive()
     s3b_rows = phase_time_fleet_adaptive(s3b_cmp["builds"], s3_rows)
     s3b_main = phase_fleet_adaptive_main(s3b_cmp["builds"], s3b_rows, fleet_main)
-    # K1 has one kernel per type: bf16 ("wgmma", the serving path; its
-    # numbers at the largest prefill bucket, every row beside them) and f32
+    # K1 has one kernel per type: bf16 ("wgmma", the serving path of
+    # gemma-2b, granite-3-8b and starcoder2-15b; launches are the four
+    # served runs' sum, by model beside it; its numbers at gemma-2b's largest
+    # prefill bucket, every row beside them) and f32
     # ("mma", split TF32, on no model path: launches are its timing phase's,
     # the serving run's count, 0, beside them; its bound is its route's, as
     # K3's is, with the f32 CUDA-core one left to phase 3's log)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     main_row, f32_row = rows["wgmma"][len(SERVE_BUCKETS) - 1], rows["mma"][0]
+    served_runs = {"gemma-2b": served, **served_models}
     k1 = {"route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
           "replaces": "src/repro/kernels/flash_attention/kernel.py:81"}
     kernels = [
-        {"name": "flash_attention (wgmma, bf16)", **k1, "launches": served["by_route"]["wgmma"],
+        {"name": "flash_attention (wgmma, bf16)", **k1,
+         "launches": sum(r["by_route"]["wgmma"] for r in served_runs.values()),
+         "launches_by_model": {n: r["by_route"]["wgmma"] for n, r in served_runs.items()},
          "max_abs_err": route_err["wgmma"], **{k: main_row[k] for k in keys},
-         "shape": "B=1 S=T=1024 H=8 KV=1 hd=256 bf16 causal",
-         "rows": [{k: r[k] for k in ("name", "ms", "plain_ms", "library_ms", "bound_ms",
-                                     "bound_by", "tflops", "bound_share")}
+         "shape": main_row["shape"],
+         "rows": [{k: r[k] for k in ("name", "shape", "ms", "plain_ms", "library_ms",
+                                     "bound_ms", "bound_by", "tflops", "bound_share")}
                   for r in rows["wgmma"]]},
         {"name": "flash_attention (mma, f32)", **k1, "launches": f32_row["launches"],
          "max_abs_err": route_err["mma"], **{k: f32_row[k] for k in keys},
          "shape": "B=1 S=T=1024 H=8 KV=1 hd=256 f32 causal",
-         "serving_launches": served["by_route"]["mma"]},
+         "serving_launches": sum(r["by_route"]["mma"] for r in served_runs.values())},
     ]
     # decode attention and the SSD scan are on no model path: their launches
     # are the timing phase's, at the shape of the row (K2: bf16 "mma" at
@@ -4352,14 +4522,16 @@ def main() -> int:
     ssd_keys = ("per_launch_ms", "state_pass_bound_ms")
     for name, source, replaces, row, err, serving, extra in (
             (f"{da} (mma, bf16)", da, "src/repro/kernels/decode_attention/kernel.py:73",
-             decode_rows[0], decode_err["mma"], served["decode_by_route"]["mma"], {}),
+             decode_rows[0], decode_err["mma"],
+             sum(r["decode_by_route"]["mma"] for r in served_runs.values()), {}),
             (f"{da} (simt, f32)", da, "src/repro/kernels/decode_attention/kernel.py:73",
-             decode_rows[2], decode_err["simt"], served["decode_by_route"]["simt"],
+             decode_rows[2], decode_err["simt"],
+             sum(r["decode_by_route"]["simt"] for r in served_runs.values()),
              {"warm_ms": decode_rows[2]["warm_ms"],
               "rows": [{k: r[k] for k in ("name", "shape", "warm_ms", *keys)}
                        for r in decode_rows[3:5]]}),
             ("ssd_scan", "ssd_scan", "src/repro/kernels/ssd_scan/kernel.py:78", ssd_rows[0],
-             ssd_err, served["ssd_scan"],
+             ssd_err, sum(r["ssd_scan"] for r in served_runs.values()),
              {**{k: ssd_rows[0][k] for k in ssd_keys},
               "rows": [{k: r[k] for k in ("name", "shape", *keys, *ssd_keys)}
                        for r in ssd_rows[1:]]})):

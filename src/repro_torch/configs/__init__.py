@@ -2,9 +2,11 @@
 
 Importing this package registers every config; use
 ``repro_torch.configs.base.get_config(name)``.  The port carries the dense
-gemma family, gemma-2b (the served model) and gemma2-2b (local/global
-attention with softcaps), and mamba2-370m, whose SSD widths size the
-``ssd_scan`` kernel (its model family is not ported yet).
+family, gemma-2b, gemma2-2b (local/global attention with softcaps),
+granite-3-8b (GQA 32/8, swiglu) and starcoder2-15b (GQA 48/4, gelu,
+untied embeddings), and the Mamba2 family, mamba2-370m (attention-free
+SSD blocks, whose widths also size the ``ssd_scan`` kernel).  Every one
+of them is served.
 
 ``metronome_l3fwd`` holds the paper's own Sec 5 configuration (the l3fwd
 testbed: ``PAPER_CONFIG``, ``PAPER_SIM``).  It is not a model, so, as in
@@ -15,7 +17,9 @@ from .base import ModelConfig, ShapeConfig, SHAPES, get_config, list_configs, re
 from . import (  # noqa: F401  (registration side effects)
     gemma_2b,
     gemma2_2b,
+    granite_3_8b,
     mamba2_370m,
+    starcoder2_15b,
 )
 
 __all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "get_config",

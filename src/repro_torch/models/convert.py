@@ -41,7 +41,11 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     if set(tree["blocks"]) != want:
         raise ValueError(f"blocks hold {sorted(tree['blocks'])}, {cfg.name} wants {sorted(want)}")
     for name, layer in tree["blocks"].items():
-        lead = np.asarray(layer["mixer"]["wq"]).shape[0]
+        # any leaf of the layer carries the group axis (an ssm layer has no wq)
+        leaf = layer
+        while isinstance(leaf, dict):
+            leaf = next(iter(leaf.values()))
+        lead = np.shape(leaf)[0]
         if lead != groups:
             raise ValueError(f"{name}: {lead} stacked groups, {cfg.name} has {groups}")
     if tree["embed"].shape != (cfg.vocab_size, cfg.d_model):

@@ -29,7 +29,9 @@ def dense_init(gen: torch.Generator, shape, dtype, scale: float | None = None):
     second-to-last for stacked ``(G, in, out)`` leaves)."""
     fan_in = shape[0] if len(shape) == 2 else shape[-2]
     std = scale if scale is not None else 1.0 / np.sqrt(fan_in)
-    return (_normal(gen, shape) * std).to(dtype)
+    # scaled in place: a full-width leaf (starcoder2-15b's stacked MLP, 6e9
+    # values) then holds one f32 temporary, not two
+    return _normal(gen, shape).mul_(std).to(dtype)
 
 
 def embed_init(gen: torch.Generator, vocab, d, dtype):

@@ -1,13 +1,15 @@
 """Decoder stack, PyTorch port of ``repro.models.transformer`` for the
-dense family (``attn`` / ``attn_local`` mixers with a dense FFN): gemma-2b,
-gemma2-2b and the other dense configs.
+dense family (``attn`` / ``attn_local`` mixers with a dense FFN: gemma-2b,
+gemma2-2b, granite-3-8b, starcoder2-15b) and the Mamba2 family (``ssm``
+mixers without an FFN: mamba2-370m).
 
 Parameters are a nested dict of tensors in the reference's layout.  The
 per-layer leaves under ``blocks`` keep the reference's leading group axis
 (the layer plan's smallest repeating unit, stacked ``n_layers / unit``
 times), and the reference's ``lax.scan`` over groups becomes a Python loop
 that indexes group ``g`` of each leaf (a view, no copy).  Caches are
-stacked the same way: (G, B, T, KV, hd).
+stacked the same way: KV leaves (G, B, T, KV, hd), Mamba2 state leaves
+``conv`` (G, B, W-1, C) and ``ssm`` (G, B, nh, hd, N).
 
 Three entry points as in the reference: ``forward`` (full sequence),
 ``prefill`` (full sequence -> logits + cache), ``decode_step`` (one token,
@@ -23,6 +25,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from . import attention as attn
+from . import mamba2 as ssm
 from .layers import embed_init, mlp_apply, mlp_init, rmsnorm, rmsnorm_init, softcap
 
 __all__ = ["Model"]
@@ -40,12 +43,12 @@ def _unsupported(cfg: ModelConfig) -> str | None:
         return "encoder-decoder models (whisper) come with the model-family slice"
     if cfg.frontend:
         return "modality frontends come with the model-family slice"
-    for mixer, ffn in cfg.layer_plan():
-        if mixer == "ssm":
-            return "Mamba2 (ssm) layers come with the model-family slice"
-        if ffn == "moe":
-            return "MoE FFNs come with the model-family slice"
-    if not cfg.use_rope:
+    plan = cfg.layer_plan()
+    if any(ffn == "moe" for _, ffn in plan):
+        return "MoE FFNs come with the model-family slice"
+    # the reference adds learned positions only to a stack with attention
+    # (transformer.py: pos_embed); an attention-free stack has none
+    if not cfg.use_rope and any(m.startswith("attn") for m, _ in plan):
         return "learned absolute positions come with the model-family slice"
     return None
 
@@ -88,14 +91,17 @@ class Model:
         dev = self.device
         params = {"embed": embed_init(generator, cfg.vocab_size, cfg.d_model, dtype)}
         blocks = {}
-        for j in range(unit):
-            blocks[f"layer{j}"] = {
-                "mixer_norm": rmsnorm_init(cfg.d_model, dtype, dev, groups),
-                "mixer": attn.attn_init(generator, cfg, dtype, groups=groups),
-                "ffn_norm": rmsnorm_init(cfg.d_model, dtype, dev, groups),
-                "ffn": mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.mlp_type,
-                                dtype, groups=groups),
-            }
+        for j, (mixer, ffn) in enumerate(self._unit_plan()):
+            layer = {"mixer_norm": rmsnorm_init(cfg.d_model, dtype, dev, groups)}
+            if mixer == "ssm":
+                layer["mixer"] = ssm.ssm_init(generator, cfg, dtype, groups=groups)
+            else:
+                layer["mixer"] = attn.attn_init(generator, cfg, dtype, groups=groups)
+            if ffn == "dense":
+                layer["ffn_norm"] = rmsnorm_init(cfg.d_model, dtype, dev, groups)
+                layer["ffn"] = mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.mlp_type,
+                                        dtype, groups=groups)
+            blocks[f"layer{j}"] = layer
         params["blocks"] = blocks
         params["final_norm"] = rmsnorm_init(cfg.d_model, dtype, dev)
         if not cfg.tie_embeddings:
@@ -136,19 +142,24 @@ class Model:
         for g in range(self._n_groups()):
             gp = _group(params["blocks"], g)
             cache_out = {}
-            for j, (mixer, _ffn) in enumerate(plan):
+            for j, (mixer, ffn) in enumerate(plan):
                 sub = gp[f"layer{j}"]
                 local = mixer == "attn_local"
                 hin = rmsnorm(x, sub["mixer_norm"], cfg.norm_eps)
-                if collect_cache:
+                if mixer == "ssm":
+                    a, state = ssm.ssm_forward(sub["mixer"], cfg, hin)
+                    if collect_cache:
+                        cache_out[f"layer{j}"] = state
+                elif collect_cache:
                     a, cache_out[f"layer{j}"] = attn.attn_prefill(
                         sub["mixer"], cfg, hin, positions, local=local, impl=self.attn)
                 else:
                     a = attn.attn_apply(sub["mixer"], cfg, hin, positions,
                                         local=local, impl=self.attn)
                 x = x + a
-                x = x + mlp_apply(sub["ffn"], rmsnorm(x, sub["ffn_norm"], cfg.norm_eps),
-                                  cfg.mlp_type)
+                if ffn == "dense":
+                    x = x + mlp_apply(sub["ffn"], rmsnorm(x, sub["ffn_norm"], cfg.norm_eps),
+                                      cfg.mlp_type)
             caches.append(cache_out)
         if not collect_cache:
             return x, None
@@ -169,18 +180,22 @@ class Model:
 
     # ---- serving: prefill + decode -------------------------------------------
     def init_cache(self, batch: int, max_len: int):
-        """Zeroed cache with leaves stacked over layer groups."""
+        """Zeroed cache with leaves stacked over layer groups: KV for an
+        attention layer, the conv window and SSM state for an ssm layer."""
         cfg = self.cfg
         groups = (self._n_groups(),)
-        return {f"layer{j}": attn.init_kv_cache(
-                    cfg, batch, max_len, _dtype(cfg.compute_dtype), self.device,
-                    local=(mixer == "attn_local"), groups=groups)
+        dtype = _dtype(cfg.compute_dtype)
+        return {f"layer{j}": ssm.init_ssm_state(cfg, batch, dtype, self.device, groups=groups)
+                if mixer == "ssm" else
+                attn.init_kv_cache(cfg, batch, max_len, dtype, self.device,
+                                   local=(mixer == "attn_local"), groups=groups)
                 for j, (mixer, _) in enumerate(self._unit_plan())}
 
     def prefill(self, params, batch):
         """Returns (logits_full, cache).  Cache holds S_prefill positions,
-        stacked over groups: (G, B, S, KV, hd); the engine copies it into
-        its slot cache for decode_step."""
+        stacked over groups: (G, B, S, KV, hd), and each ssm layer's state
+        after the whole sequence; the engine copies it into its slot cache
+        for decode_step."""
         tokens = batch["tokens"]
         x = self._embed(params, tokens)
         positions = batch.get("positions")
@@ -201,12 +216,20 @@ class Model:
         for g in range(self._n_groups()):
             gp = _group(params["blocks"], g)
             gc = _group(cache, g)
-            for j, (mixer, _ffn) in enumerate(plan):
+            for j, (mixer, ffn) in enumerate(plan):
                 sub = gp[f"layer{j}"]
                 hin = rmsnorm(x, sub["mixer_norm"], cfg.norm_eps)
-                a, _ = attn.attn_decode(sub["mixer"], cfg, hin, gc[f"layer{j}"], pos,
-                                        local=(mixer == "attn_local"))
+                if mixer == "ssm":
+                    a, state = ssm.ssm_decode(sub["mixer"], cfg, hin, gc[f"layer{j}"])
+                    # gc holds views of group g: store the new state through
+                    # them, or the step would be lost
+                    for leaf, value in state.items():
+                        gc[f"layer{j}"][leaf].copy_(value)
+                else:
+                    a, _ = attn.attn_decode(sub["mixer"], cfg, hin, gc[f"layer{j}"], pos,
+                                            local=(mixer == "attn_local"))
                 x = x + a
-                x = x + mlp_apply(sub["ffn"], rmsnorm(x, sub["ffn_norm"], cfg.norm_eps),
-                                  cfg.mlp_type)
+                if ffn == "dense":
+                    x = x + mlp_apply(sub["ffn"], rmsnorm(x, sub["ffn_norm"], cfg.norm_eps),
+                                      cfg.mlp_type)
         return self._logits(params, x)[:, 0], cache

@@ -29,7 +29,7 @@ COPIES = [
     "configs/base.py", "configs/gemma_2b.py", "configs/gemma2_2b.py",
     "configs/mamba2_370m.py",
     "runtime/schedule.py", "runtime/sim.py", "core/simulator.py",
-    "configs/metronome_l3fwd.py",
+    "configs/metronome_l3fwd.py", "configs/granite_3_8b.py", "configs/starcoder2_15b.py",
 ]
 
 # module -> top-level definitions the port's own module keeps from the

@@ -1,14 +1,16 @@
-"""The port's dense model against the JAX package's, with the JAX
-parameters carried across by ``repro_torch.models.convert``.
+"""The port's dense and Mamba2 models against the JAX package's, with the
+JAX parameters carried across by ``repro_torch.models.convert``.
 
-Reduced gemma-2b and gemma2-2b (window + both softcaps) run prefill,
-forward and decode through both packages on the same numpy tokens, with
-each attention route: the reference's default sdpa, ``chunked``, and its
-``pallas`` rule (the Pallas kernel in interpret mode) against the port's
-``"kernel"`` route (the kernel's plain version on CPU tensors).  Bands are
+Reduced gemma-2b, gemma2-2b (window + both softcaps), granite-3-8b (GQA,
+swiglu, tied embeddings) and starcoder2-15b (GQA, gelu, an untied head)
+run prefill, forward and decode through both packages on the same numpy
+tokens, with each attention route: the reference's default sdpa,
+``chunked``, and its ``pallas`` rule (the Pallas kernel in interpret mode)
+against the port's ``"kernel"`` route (the kernel's plain version on CPU
+tensors).  Reduced mamba2-370m (no attention: its chunked SSD prefill and
+recurrent decode) runs on two routes, which must not change it.  Bands are
 the reference's own for kernel-vs-sdpa dispatch
-(tests/test_train_step_features.py): 2e-4 for gemma-2b, 5e-4 for
-gemma2-2b."""
+(tests/test_train_step_features.py): 2e-4, and 5e-4 for gemma2-2b."""
 
 import contextlib
 import dataclasses
@@ -24,14 +26,31 @@ from repro.configs import get_config as jax_get_config
 from repro.models import Model as JaxModel
 from repro.models import layers as jax_layers
 from repro.sharding.logical import logical_axis_rules
-from repro_torch.configs import get_config
+from repro_torch.configs import ModelConfig, get_config
 from repro_torch.models import Model
 from repro_torch.models import layers
 from repro_torch.models.convert import params_from_numpy
 
-TOL = {"gemma-2b": 2e-4, "gemma2-2b": 5e-4}
+TOL = {"gemma-2b": 2e-4, "gemma2-2b": 5e-4, "granite-3-8b": 2e-4, "starcoder2-15b": 2e-4,
+       "mamba2-370m": 2e-4}
+DENSE = ("gemma-2b", "gemma2-2b", "granite-3-8b", "starcoder2-15b")
+# (arch, route): every dense arch on every route; mamba2 has no attention,
+# so two routes show that the route leaves it alone
+PREFILL_CASES = [(a, r) for a in DENSE for r in (None, "chunked", "kernel")] + \
+    [("mamba2-370m", None), ("mamba2-370m", "kernel")]
+FORWARD_CASES = [(a, r) for a in (*DENSE, "mamba2-370m") for r in (None, "kernel")]
 # port route -> the reference's `attn` logical rule
 JAX_RULE = {None: None, "chunked": "chunked", "kernel": "pallas"}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Reduced models gain nothing from intra-op threads; one keeps a
+    parallel test run from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _rules(route):
@@ -60,8 +79,13 @@ def _close(t, j, tol):
                                rtol=tol, atol=tol)
 
 
-def _pad_jax_cache(cache, length):
+def _pad_jax_cache(cache, prefilled, length):
+    """KV leaves (G, B, S, ...) padded from ``prefilled`` to ``length``
+    positions; Mamba2 state leaves, whose axis 2 is W-1 or nh, are kept
+    (the reference's smoke test's rule)."""
     def pad(leaf):
+        if leaf.ndim < 3 or leaf.shape[2] != prefilled:
+            return leaf
         pw = [(0, 0)] * leaf.ndim
         pw[2] = (0, length - leaf.shape[2])
         return jnp.pad(leaf, pw)
@@ -85,7 +109,7 @@ def _prefill_then_decode(arch, route, *, steps=4, b=2, s=16, max_len=32, **overr
         jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks, jnp.int32)})
     tl, tc = tm.prefill(tp, {"tokens": torch.from_numpy(toks)})
     _close(tl, jl, tol)
-    jc = _pad_jax_cache(jc, max_len)
+    jc = _pad_jax_cache(jc, s, max_len)
     tc = _torch_cache(tm, tc, b, max_len)
     pos = np.full(b, s)
     for _ in range(steps):
@@ -98,14 +122,12 @@ def _prefill_then_decode(arch, route, *, steps=4, b=2, s=16, max_len=32, **overr
         pos = pos + 1
 
 
-@pytest.mark.parametrize("route", [None, "chunked", "kernel"])
-@pytest.mark.parametrize("arch", ["gemma-2b", "gemma2-2b"])
+@pytest.mark.parametrize("arch,route", PREFILL_CASES)
 def test_prefill_and_decode_logits_match_jax(arch, route):
     _prefill_then_decode(arch, route)
 
 
-@pytest.mark.parametrize("route", [None, "kernel"])
-@pytest.mark.parametrize("arch", ["gemma-2b", "gemma2-2b"])
+@pytest.mark.parametrize("arch,route", FORWARD_CASES)
 def test_forward_logits_match_jax(arch, route):
     jm, jp, tm, tp = _models(arch, route)
     toks = np.random.default_rng(2).integers(0, tm.cfg.vocab_size, (2, 16))
@@ -187,12 +209,13 @@ def test_bf16_parameters_carry_across_bit_for_bit():
     np.testing.assert_array_equal(got.view(torch.int16).numpy().view(np.uint16), ref)
 
 
-def test_port_init_is_seeded_and_shaped_like_jax():
-    cfg = get_config("gemma2-2b").reduced()
+@pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-370m"])
+def test_port_init_is_seeded_and_shaped_like_jax(arch):
+    cfg = get_config(arch).reduced()
     model = Model(cfg, device="cpu")
     a = model.init(torch.Generator().manual_seed(0))
     b = model.init(torch.Generator().manual_seed(0))
-    _, jp = _jax_pair("gemma2-2b")
+    _, jp = _jax_pair(arch)
     flat_t = jax.tree_util.tree_flatten_with_path(a)[0]
     shapes_j = {jax.tree_util.keystr(k): v.shape
                 for k, v in jax.tree_util.tree_flatten_with_path(jp)[0]}
@@ -205,6 +228,11 @@ def test_model_rejects_unported_families_and_missing_cuda():
     with pytest.raises(NotImplementedError, match="MoE"):
         Model(dataclasses.replace(cfg, family="moe", n_experts=4,
                                   experts_per_token=2), device="cpu")
+    # the hybrid (ssm + attention + MoE) and MoE configs wait for the MoE slice
+    for arch in ("jamba-1.5-large-398b", "dbrx-132b"):
+        ref = jax_get_config(arch).reduced()
+        with pytest.raises(NotImplementedError, match="MoE"):
+            Model(ModelConfig(**dataclasses.asdict(ref)), device="cpu")
     with pytest.raises(ValueError):
         Model(cfg, attn="pallas", device="cpu")
     if not torch.cuda.is_available():

@@ -20,6 +20,7 @@ from repro.kernels.ssd_scan import ssd_scan as jax_ssd_scan
 from repro.models.mamba2 import ssd_chunked
 from repro_torch.configs import get_config
 from repro_torch.kernels import reference_ssd_scan, ssd_scan
+from repro_torch.kernels.ssd_scan import ops as ssd_scan_ops
 from repro_torch.kernels.ssd_scan.ops import fold_and_scan
 from repro_torch.models import Model
 
@@ -126,13 +127,24 @@ def test_ssd_scan_on_cpu_counts_nothing_and_rejects_bad_inputs():
         ssd_scan(x, dt, a, bm, cm[:, :32], chunk=16)
 
 
-def test_mamba2_370m_config_sizes_the_scan_and_stays_unported_as_a_model():
+def test_mamba2_370m_config_sizes_the_scan_and_its_model_prefill_launches_no_scan(monkeypatch):
+    """The config sizes the scan; the model builds, and its prefill runs
+    the plain chunked SSD, never the scan (as in the reference, whose
+    ``models/mamba2.py`` imports no kernel): the scan's CPU path, which
+    every call on CPU tensors takes, is not entered."""
     cfg = get_config("mamba2-370m")
     d_in = cfg.ssm_expand * cfg.d_model
     assert (d_in, d_in // cfg.ssm_head_dim, cfg.ssm_head_dim, cfg.ssm_state,
             cfg.ssm_chunk) == (2048, 32, 64, 128, 256)
-    with pytest.raises(NotImplementedError, match="Mamba2"):
-        Model(cfg, device="cpu")
+    Model(cfg, device="cpu")
+    small = Model(cfg.reduced(), device="cpu")
+    params = small.init(torch.Generator().manual_seed(0))
+    calls = []
+    monkeypatch.setattr(ssd_scan_ops, "fold_and_scan", lambda *a, **k: calls.append(a))
+    with torch.no_grad():
+        logits, cache = small.prefill(params, {"tokens": torch.zeros((1, 16), dtype=torch.long)})
+    assert logits.shape == (1, 16, small.cfg.vocab_size) and set(cache["layer0"]) == {"conv", "ssm"}
+    assert calls == [] and ssd_scan.launches == 0
 
 
 SUB = 16   # positions per tile-local cumsum in the kernel
