@@ -13,8 +13,9 @@ Phases, each a hard failure (nonzero exit, no result line):
    the blocks an SM the card places, 8 warps);
 2. each kernel against its plain PyTorch version on the card, at the
    serving path's shapes (flash attention at each served model's prefill
-   widths: gemma-2b, granite-3-8b with GQA group 4 and starcoder2-15b with
-   group 12, at S = 16 and every serving bucket), the reference test
+   widths: gemma-2b, granite-3-8b with GQA group 4, starcoder2-15b with
+   group 12, dbrx-132b with group 6 and llama4-scout-17b-a16e with group 5,
+   at S = 16 and every serving bucket), the reference test
    sweep's and the full widths of gemma-2b, gemma2-2b and mamba2-370m, with
    the tolerance stated per case;
    flash attention's bf16 cases go to its "wgmma" route and its f32 cases to
@@ -25,25 +26,31 @@ Phases, each a hard failure (nonzero exit, no result line):
    requires grad under grad mode (they have no backward);
 3. kernel, plain version and the PyTorch library call (where one computes
    the same function) timed with CUDA events at those shapes (flash
-   attention also at granite-3-8b's and starcoder2-15b's S=1024), beside the
+   attention also at the hd-128 models' S=1024), beside the
    card's bound for the same work, with the achieved TFLOP/s and the share
    of the bound; decode attention's bf16 route also at every piece length
    it can pick, its split and combine apart (torch.profiler), and its f32
    route at three shapes (kernels_bench, gemma-2b and gemma2-2b local in
    f32) with its schedule (blocks, rows and tiles a block, blocks a unit)
    and one kernel a call;
-4. four models at full width and depth (random weights from seed 0, bf16),
-   one at a time, each served through ``Server`` + ``MetronomePolicy`` with
-   the kernel route, with every launch counter set to 0 just before and
-   read just after: gemma-2b (flash attention 18 per prefill, all on the
+4. six models at full width (random weights from seed 0, bf16), one at a
+   time, each served through ``Server`` + ``MetronomePolicy`` with the
+   kernel route, with every launch counter set to 0 just before and read
+   just after: gemma-2b (flash attention 18 per prefill, all on the
    "wgmma" route), granite-3-8b and starcoder2-15b (40 per prefill, after
-   the kernel route is held against the sdpa route on prefill logits), and
+   the kernel route is held against the sdpa route on prefill logits),
    mamba2-370m (no kernel: after the reference's prefill-then-decode check,
-   chunked SSD against the recurrent step, within 5e-2); decode attention
-   and the SSD scan 0 on every route for every model: no model path
-   reaches them, in the reference or in the port.  Each model logs its
-   median TTFT, tokens/s, CPU fraction, and the device-busy share of one
-   prefill and one decode step.
+   chunked SSD against the recurrent step, within 5e-2), all four at full
+   depth, and the MoE family cut in depth only (``SERVED_MODELS``):
+   dbrx-132b at 10 of its 40 layers and llama4-scout-17b-a16e at 15 of 48
+   (a flash-attention launch per layer per prefill), each after one
+   full-width MoE layer in f32 is held on the card against a per-token loop
+   (the kept set equal to the router's plan on the CPU, within 1e-4
+   relative) and after its route check; decode attention and the SSD scan
+   0 on every route for every model: no model path reaches them, in the
+   reference or in the port.  Each model logs its median TTFT, tokens/s,
+   CPU fraction, peak memory, and the device-busy share of one prefill and
+   one decode step.
 
 Then the fixed-slot sweep S1 (``slot_sweep``, the reference's
 ``runtime/batched.py`` ``lax.scan``; producer warps and a consumer warp
@@ -228,6 +235,7 @@ itself first: that A/A spread is the noise a comparison is read against.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -272,9 +280,18 @@ DECODE_SHAPES = (
 )
 FLUSH_BYTES = 256 << 20      # written between timed launches to empty the 50 MB L2
 # K1 at each served model's attention widths (name, H, KV, hd): gemma-2b (MQA,
-# hd 256), granite-3-8b (GQA group 4) and starcoder2-15b (GQA group 12), hd 128
+# hd 256), granite-3-8b (GQA group 4), starcoder2-15b (group 12), dbrx-132b
+# (group 6) and llama4-scout-17b-a16e (group 5), hd 128
 SERVED_ATTENTION = (("gemma-2b", 8, 1, 256), ("granite-3-8b", 32, 8, 128),
-                    ("starcoder2-15b", 48, 4, 128))
+                    ("starcoder2-15b", 48, 4, 128), ("dbrx-132b", 48, 8, 128),
+                    ("llama4-scout-17b-a16e", 40, 8, 128))
+# phase 4's models after gemma-2b, one at a time, and the layers each is
+# served with: the MoE configs at full width do not fit 80 GB at full depth
+# (dbrx-132b 3.26 B parameters a layer, llama4-scout-17b-a16e 2.20 B), so
+# they are cut in depth only
+SERVED_MODELS = (("granite-3-8b", 40), ("starcoder2-15b", 40), ("mamba2-370m", 48),
+                 ("dbrx-132b", 10), ("llama4-scout-17b-a16e", 15))
+MOE_CHECK_TOKENS = 1024
 
 
 def log(*args) -> None:
@@ -584,9 +601,8 @@ def ptxas_records(log_text: str) -> dict[str, tuple[int, int, int, int]]:
 
 def phase_compare() -> dict[str, float]:
     """Kernel vs plain version; returns the max abs error per route at the
-    served models' prefill shapes: gemma-2b, granite-3-8b and
-    starcoder2-15b in bf16 ("wgmma"), gemma-2b in f32 ("mma", split
-    TF32)."""
+    served models' prefill shapes: ``SERVED_ATTENTION`` in bf16
+    ("wgmma"), gemma-2b in f32 ("mma", split TF32)."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 plain version in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -670,8 +686,8 @@ def phase_compare() -> dict[str, float]:
 
 def phase_time() -> dict[str, list[dict]]:
     """K1 rows by route: "wgmma" holds gemma-2b's three prefill buckets, a
-    gemma2-2b softcap row and granite-3-8b's and starcoder2-15b's prefill at
-    S=1024 (hd 128), "mma" the f32 row at gemma-2b heads, whose
+    gemma2-2b softcap row and the hd-128 models' prefill at S=1024
+    (``SERVED_ATTENTION[1:]``), "mma" the f32 row at gemma-2b heads, whose
     ``bound_ms`` is the route's own (its three TF32 passes at the TF32
     peak), the f32 CUDA-core one beside it (``f32_bound_ms``)."""
     import torch.nn.functional as F
@@ -1532,22 +1548,83 @@ def set_launch_counts_to_zero() -> None:
     ssd_scan.launches = 0
 
 
+@contextlib.contextmanager
+def moe_routing(plans: list, *, replay: bool):
+    """Within the block every MoE layer's router (``models.moe._route``)
+    appends its choice of experts to ``plans``, or, with ``replay``, takes
+    the next choice recorded there, with its gates renormalised over this
+    run's own probabilities: a run that replays another's plans routes
+    every token to the same experts, and so to the same slots and drops."""
+    from repro_torch.models import moe
+    route, recorded = moe._route, iter(plans)
+
+    def recording(p, cfg, xf):
+        probs, gate, idx = route(p, cfg, xf)
+        plans.append(idx)
+        return probs, gate, idx
+
+    def replaying(p, cfg, xf):
+        probs, _, _ = route(p, cfg, xf)
+        idx = next(recorded)
+        gate = probs.gather(-1, idx)
+        return probs, gate / gate.sum(-1, keepdim=True).clamp_min(1e-9), idx
+
+    moe._route = replaying if replay else recording
+    try:
+        yield plans
+    finally:
+        moe._route = route
+
+
+def routed_apart(plans, ref_plans) -> list[int]:
+    """Tokens a layer sends to another set of experts than ``ref_plans``."""
+    return [int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+            for a, b in zip(plans, ref_plans)]
+
+
 def route_check(model, plain_model, params) -> None:
     """The kernel route against the plain (sdpa) route on the same weights:
-    prefill logits at the smallest and largest bucket."""
+    prefill logits at the smallest and largest bucket.  A MoE model's
+    kernel run replays the sdpa run's routing (``moe_routing``): top-k is
+    discontinuous, and the two attention routes, which round apart by
+    about a bf16 ulp, flip the choice of tokens whose top-k margin is
+    smaller, a flip that then reaches every later token through attention.
+    With free routing each route's distance from sdpa, the kernel's and the
+    chunked route's (plain PyTorch), is logged beside the tokens each layer
+    routes apart, with no limit."""
     cfg = model.cfg
+    moe_model = any(ffn == "moe" for _, ffn in cfg.layer_plan())
     tok_gen = np.random.default_rng(0)
     with torch.no_grad():
         for s in (SERVE_BUCKETS[0], SERVE_BUCKETS[-1]):
             toks = torch.from_numpy(tok_gen.integers(0, cfg.vocab_size, (1, s))).to(model.device)
-            lk, _ = model.prefill(params, {"tokens": toks})
-            lp, _ = plain_model.prefill(params, {"tokens": toks})
+            if moe_model:
+                with moe_routing([], replay=False) as sdpa_plans:
+                    lp, _ = plain_model.prefill(params, {"tokens": toks})
+                for name, free in (("kernel", model),
+                                   ("chunked", type(model)(cfg, attn="chunked",
+                                                           device=model.device))):
+                    with moe_routing([], replay=False) as plans:
+                        lf, _ = free.prefill(params, {"tokens": toks})
+                    rel = float((lf - lp).abs().max() / lp.abs().max())
+                    top1 = float((lf.argmax(-1) == lp.argmax(-1)).float().mean())
+                    log(f"  prefill S={s}, free routing: {name} route vs sdpa route "
+                        f"max|diff|/max|logit| {rel:.3e}, top-1 agreement {top1:.4f}; tokens "
+                        f"routed apart by layer {routed_apart(plans, sdpa_plans)} (no limit)")
+                    del lf
+                with moe_routing(sdpa_plans, replay=True):
+                    lk, _ = model.prefill(params, {"tokens": toks})
+            else:
+                lk, _ = model.prefill(params, {"tokens": toks})
+                lp, _ = plain_model.prefill(params, {"tokens": toks})
             if lk.shape != (1, s, cfg.vocab_size) or not torch.isfinite(lk).all():
                 fail(f"{cfg.name} prefill logits at S={s}: shape {tuple(lk.shape)} or not finite")
             rel = float((lk - lp).abs().max() / lp.abs().max())
             top1 = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
-            log(f"  prefill S={s}: kernel route vs sdpa route max|diff|/max|logit| "
-                f"{rel:.3e} (limit 5e-2), top-1 agreement {top1:.4f} (limit 0.9)")
+            log(f"  prefill S={s}: kernel route vs sdpa route"
+                f"{' (routing replayed from the sdpa run)' if moe_model else ''} "
+                f"max|diff|/max|logit| {rel:.3e} (limit 5e-2), top-1 agreement {top1:.4f} "
+                "(limit 0.9)")
             if rel > 5e-2 or top1 < 0.9:
                 fail(f"{cfg.name}: kernel route disagrees with the sdpa route at S={s}")
             del lk, lp
@@ -1658,16 +1735,91 @@ def serve_requests(model, params) -> dict:
 
 
 def init_full_width(cfg):
-    """``cfg`` on the card with the kernel route, random weights from seed 0."""
+    """``cfg`` on the card with the kernel route, random weights from seed 0.
+    Logs the parameter count and the allocator's peak during init."""
     from repro_torch.models import Model
     model = Model(cfg, attn="kernel", device="cuda")
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = model.init(torch.Generator("cuda").manual_seed(0))
     torch.cuda.synchronize()
     log(f"  init {time.perf_counter() - t0:.2f} s, "
         f"{sum(x.numel() for x in _leaves(params)) / 1e9:.3f} B parameters, "
-        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated on the card")
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated on the card, "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB "
+        f"(torch.cuda.max_memory_allocated) of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f} GiB")
     return model, params
+
+
+def moe_layer_check(cfg) -> dict:
+    """One MoE layer of ``cfg`` at full width in f32 (random weights from
+    seed 0, ``MOE_CHECK_TOKENS`` tokens of N(0, 1), the published capacity
+    factor) through ``moe_apply`` on the card, against a per-token loop on
+    the card: for each token, the shared expert (if any) plus, for each of
+    its kept assignments, the gate times that expert's GLU (``mlp_apply``
+    on the expert's weights, no dispatch buffer).  The plan the card
+    routes by (each assignment's expert, slot and whether it is kept) must
+    equal the one ``_route_logits`` and ``_positions`` make on the CPU from
+    the same router logits, and the output must lie within 1e-4 of the
+    loop's, relative to the loop's largest value.  Frees the layer and
+    returns the check's numbers."""
+    import gc
+
+    from repro_torch.models import moe
+    from repro_torch.models.layers import mlp_apply
+    torch.backends.cuda.matmul.allow_tf32 = False     # both sides in full f32
+    e, k, t, d = cfg.n_experts, cfg.experts_per_token, MOE_CHECK_TOKENS, cfg.d_model
+    cap = moe._capacity(cfg, t)
+    log(f"  MoE layer in f32 at full width: d_model {d}, {e} experts of d_ff {cfg.d_ff} "
+        f"{cfg.mlp_type}, top-{k}, {cfg.n_shared_experts} shared, {t} tokens, capacity "
+        f"factor {cfg.capacity_factor} (capacity {cap} an expert)")
+    t0 = time.perf_counter()
+    p = moe.moe_init(torch.Generator("cuda").manual_seed(0), cfg, torch.float32)
+    x = torch.randn((1, t, d), generator=torch.Generator("cuda").manual_seed(1),
+                    device="cuda")
+    with torch.no_grad():
+        y, aux = moe.moe_apply(p, cfg, x)
+        xf = x[0]
+        logits = xf @ p["router"]
+        plans = []
+        for on in (logits, logits.cpu()):
+            _, gate, idx = moe._route_logits(on, k)
+            _, pos = moe._positions(idx, e)
+            plans.append((gate, idx.cpu(), pos.clamp_max(cap - 1).cpu(), (pos < cap).cpu()))
+        (gate, idx, slot, keep), cpu_plan = plans
+        for what, a, b in zip(("expert", "slot", "kept"), (idx, slot, keep), cpu_plan[1:]):
+            if not torch.equal(a, b):
+                fail(f"{cfg.name}: the card's MoE plan differs from the CPU's in {what} "
+                     f"({int((a != b).sum())} of {a.numel()} assignments)")
+        keep = keep.view(t, k)
+        experts = [{n: p[n][j] for n in ("w_gate", "w_up", "w_down")} for j in range(e)]
+        rows = []
+        for i, (picks, kept) in enumerate(zip(idx.tolist(), keep.tolist())):
+            xi = xf[i:i + 1]
+            acc = (mlp_apply(p["shared"], xi, "swiglu") if cfg.n_shared_experts
+                   else torch.zeros_like(xi))
+            for j in range(k):
+                if kept[j]:
+                    acc = acc + gate[i, j] * mlp_apply(experts[picks[j]], xi, cfg.mlp_type)
+            rows.append(acc)
+        ref = torch.cat(rows)
+        torch.cuda.synchronize()
+    rel = float((y[0] - ref).abs().max() / ref.abs().max())
+    dropped = int((~keep).sum())
+    record = {"tokens": t, "capacity": cap, "dropped": dropped,
+              "tokens_all_dropped": int((~keep.any(1)).sum()), "rel_err": rel,
+              "aux": float(aux), "seconds": time.perf_counter() - t0}
+    log(f"  moe_apply vs the per-token loop: max|diff|/max|ref| {rel:.3e} (limit 1e-4); "
+        f"plan equal to the CPU's; {dropped} of {t * k} assignments dropped "
+        f"({record['tokens_all_dropped']} tokens lost every one), aux {float(aux):.4f}; "
+        f"{record['seconds']:.1f} s")
+    if not (rel <= 1e-4 and y.shape == x.shape and torch.isfinite(aux) and float(aux) >= 0):
+        fail(f"{cfg.name}: moe_apply disagrees with the per-token loop on the card")
+    del p, x, y, ref, rows, experts, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record
 
 
 def phase_serve() -> dict:
@@ -1725,11 +1877,13 @@ def mamba2_consistency(model, params, *, decode_tol: dict) -> dict:
 
 
 def phase_serve_models() -> dict[str, dict]:
-    """Phase 4, the slice's other served models at full width, bf16, random
-    weights from seed 0, one at a time (each freed, with the allocator's
-    cache, before the next): granite-3-8b and starcoder2-15b (K1 at head
-    dim 128, GQA groups 4 and 12) after their kernel-vs-sdpa route check,
-    mamba2-370m after the reference's prefill-then-decode check.  Returns
+    """Phase 4, the other served models (``SERVED_MODELS``) at full width,
+    bf16, random weights from seed 0, one at a time (each freed, with the
+    allocator's cache, before the next): granite-3-8b and starcoder2-15b
+    (K1 at head dim 128, GQA groups 4 and 12) after their kernel-vs-sdpa
+    route check, mamba2-370m after the reference's prefill-then-decode
+    check, dbrx-132b and llama4-scout-17b-a16e (groups 6 and 5) cut in
+    depth, each after ``moe_layer_check`` and its route check.  Returns
     each model's serving record (without its engine)."""
     import gc
 
@@ -1737,8 +1891,15 @@ def phase_serve_models() -> dict[str, dict]:
     from repro_torch.models import Model
 
     served = {}
-    for name in ("granite-3-8b", "starcoder2-15b", "mamba2-370m"):
+    for name, layers in SERVED_MODELS:
         cfg = get_config(name)
+        record = {"layers": layers, "published_layers": cfg.n_layers}
+        if cfg.family == "moe":
+            log(f"phase 4: {cfg.name}'s MoE layer on the card")
+            record["moe_layer_check"] = moe_layer_check(cfg)
+        depth = (" and depth" if layers == cfg.n_layers
+                 else f", {layers} of its {cfg.n_layers} layers")
+        cfg = dataclasses.replace(cfg, n_layers=layers)
         if cfg.family == "ssm":
             widths = (f"d_model {cfg.d_model}, SSD {cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim}"
                       f" heads of {cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
@@ -1746,11 +1907,14 @@ def phase_serve_models() -> dict[str, dict]:
         else:
             widths = (f"d_model {cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, "
                       f"head_dim {cfg.resolved_head_dim}, d_ff {cfg.d_ff} {cfg.mlp_type}")
-        log(f"phase 4: serve {cfg.name} at full width and depth ({cfg.n_layers} layers, "
+            if cfg.family == "moe":
+                widths += (f", {cfg.n_experts} experts top-{cfg.experts_per_token}, "
+                           f"{cfg.n_shared_experts} shared, qk_norm {cfg.qk_norm}")
+        log(f"phase 4: serve {cfg.name} at full width{depth} ({cfg.n_layers} layers served, "
             f"{widths}, vocab {cfg.vocab_size}, {cfg.param_dtype}), random weights from "
             "seed 0, attn=kernel")
-        record = {}
         model, params = init_full_width(cfg)
+        record["peak_init_gib"] = torch.cuda.max_memory_allocated() / 2**30
         if cfg.family == "ssm":
             # the reference's check runs in f32 (its reduced configs): held
             # there at the reference's 5e-2, at full width on the served
@@ -4485,8 +4649,9 @@ def main() -> int:
     s3b_rows = phase_time_fleet_adaptive(s3b_cmp["builds"], s3_rows)
     s3b_main = phase_fleet_adaptive_main(s3b_cmp["builds"], s3b_rows, fleet_main)
     # K1 has one kernel per type: bf16 ("wgmma", the serving path of
-    # gemma-2b, granite-3-8b and starcoder2-15b; launches are the four
-    # served runs' sum, by model beside it; its numbers at gemma-2b's largest
+    # gemma-2b, granite-3-8b, starcoder2-15b, dbrx-132b and
+    # llama4-scout-17b-a16e; launches are the six served runs' sum (mamba2-370m
+    # makes none), by model beside it; its numbers at gemma-2b's largest
     # prefill bucket, every row beside them) and f32
     # ("mma", split TF32, on no model path: launches are its timing phase's,
     # the serving run's count, 0, beside them; its bound is its route's, as

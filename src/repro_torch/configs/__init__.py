@@ -4,7 +4,9 @@ Importing this package registers every config; use
 ``repro_torch.configs.base.get_config(name)``.  The port carries the dense
 family, gemma-2b, gemma2-2b (local/global attention with softcaps),
 granite-3-8b (GQA 32/8, swiglu) and starcoder2-15b (GQA 48/4, gelu,
-untied embeddings), and the Mamba2 family, mamba2-370m (attention-free
+untied embeddings), the MoE family, dbrx-132b (16 experts, top-4, GQA
+48/8) and llama4-scout-17b-a16e (16 experts, top-1 plus a shared expert,
+GQA 40/8, qk-norm), and the Mamba2 family, mamba2-370m (attention-free
 SSD blocks, whose widths also size the ``ssd_scan`` kernel).  Every one
 of them is served.
 
@@ -15,9 +17,11 @@ the reference, it is imported by its module path and not registered.
 
 from .base import ModelConfig, ShapeConfig, SHAPES, get_config, list_configs, register
 from . import (  # noqa: F401  (registration side effects)
+    dbrx_132b,
     gemma_2b,
     gemma2_2b,
     granite_3_8b,
+    llama4_scout_17b_a16e,
     mamba2_370m,
     starcoder2_15b,
 )

@@ -35,7 +35,9 @@ def dense_init(gen: torch.Generator, shape, dtype, scale: float | None = None):
 
 
 def embed_init(gen: torch.Generator, vocab, d, dtype):
-    return (_normal(gen, (vocab, d)) * 0.02).to(dtype)
+    # scaled in place, as dense_init: one f32 temporary (4 GB at
+    # llama4-scout's vocabulary), not two
+    return _normal(gen, (vocab, d)).mul_(0.02).to(dtype)
 
 
 def rmsnorm_init(d, dtype, device=None, groups: tuple = ()):

@@ -1,7 +1,9 @@
 """Decoder stack, PyTorch port of ``repro.models.transformer`` for the
 dense family (``attn`` / ``attn_local`` mixers with a dense FFN: gemma-2b,
-gemma2-2b, granite-3-8b, starcoder2-15b) and the Mamba2 family (``ssm``
-mixers without an FFN: mamba2-370m).
+gemma2-2b, granite-3-8b, starcoder2-15b), the MoE family (``attn`` mixers
+with a MoE FFN, ``models/moe.py``: dbrx-132b, llama4-scout-17b-a16e) and
+the Mamba2 family (``ssm`` mixers without an FFN: mamba2-370m).  The
+hybrid (jamba), encoder-decoder and frontend families are refused.
 
 Parameters are a nested dict of tensors in the reference's layout.  The
 per-layer leaves under ``blocks`` keep the reference's leading group axis
@@ -11,9 +13,10 @@ that indexes group ``g`` of each leaf (a view, no copy).  Caches are
 stacked the same way: KV leaves (G, B, T, KV, hd), Mamba2 state leaves
 ``conv`` (G, B, W-1, C) and ``ssm`` (G, B, nh, hd, N).
 
-Three entry points as in the reference: ``forward`` (full sequence),
-``prefill`` (full sequence -> logits + cache), ``decode_step`` (one token,
-cache updated in place).
+Three entry points as in the reference: ``forward`` (full sequence; its
+``moe_aux`` sums every MoE layer's load-balancing loss), ``prefill`` (full
+sequence -> logits + cache), ``decode_step`` (one token, cache updated in
+place).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from repro_torch.configs.base import ModelConfig
 from . import attention as attn
 from . import mamba2 as ssm
 from .layers import embed_init, mlp_apply, mlp_init, rmsnorm, rmsnorm_init, softcap
+from .moe import moe_apply, moe_init
 
 __all__ = ["Model"]
 
@@ -43,9 +47,9 @@ def _unsupported(cfg: ModelConfig) -> str | None:
         return "encoder-decoder models (whisper) come with the model-family slice"
     if cfg.frontend:
         return "modality frontends come with the model-family slice"
+    if cfg.family == "hybrid":
+        return "the hybrid family (jamba) comes with its own slice"
     plan = cfg.layer_plan()
-    if any(ffn == "moe" for _, ffn in plan):
-        return "MoE FFNs come with the model-family slice"
     # the reference adds learned positions only to a stack with attention
     # (transformer.py: pos_embed); an attention-free stack has none
     if not cfg.use_rope and any(m.startswith("attn") for m, _ in plan):
@@ -101,6 +105,9 @@ class Model:
                 layer["ffn_norm"] = rmsnorm_init(cfg.d_model, dtype, dev, groups)
                 layer["ffn"] = mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.mlp_type,
                                         dtype, groups=groups)
+            elif ffn == "moe":
+                layer["ffn_norm"] = rmsnorm_init(cfg.d_model, dtype, dev, groups)
+                layer["ffn"] = moe_init(generator, cfg, dtype, groups=groups)
             blocks[f"layer{j}"] = layer
         params["blocks"] = blocks
         params["final_norm"] = rmsnorm_init(cfg.d_model, dtype, dev)
@@ -135,10 +142,24 @@ class Model:
         return self.cfg.n_layers // self.cfg.scan_unit()
 
     # ---- full-sequence decoder (forward / prefill core) ---------------------
+    def _ffn(self, sub, ffn: str, x):
+        """(x + the layer's FFN of x, its MoE aux loss or None)."""
+        cfg = self.cfg
+        if ffn == "dense":
+            return x + mlp_apply(sub["ffn"], rmsnorm(x, sub["ffn_norm"], cfg.norm_eps),
+                                 cfg.mlp_type), None
+        if ffn == "moe":
+            f, aux = moe_apply(sub["ffn"], cfg, rmsnorm(x, sub["ffn_norm"], cfg.norm_eps))
+            return x + f, aux
+        return x, None
+
     def _stack(self, params, x, positions, *, collect_cache: bool):
+        """(x, the MoE aux loss summed over layers and groups as the
+        reference's scan carry, the stacked cache or None)."""
         cfg = self.cfg
         plan = self._unit_plan()
         caches = []
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for g in range(self._n_groups()):
             gp = _group(params["blocks"], g)
             cache_out = {}
@@ -156,17 +177,16 @@ class Model:
                 else:
                     a = attn.attn_apply(sub["mixer"], cfg, hin, positions,
                                         local=local, impl=self.attn)
-                x = x + a
-                if ffn == "dense":
-                    x = x + mlp_apply(sub["ffn"], rmsnorm(x, sub["ffn_norm"], cfg.norm_eps),
-                                      cfg.mlp_type)
+                x, layer_aux = self._ffn(sub, ffn, x + a)
+                if layer_aux is not None:
+                    aux = aux + layer_aux
             caches.append(cache_out)
         if not collect_cache:
-            return x, None
+            return x, aux, None
         stacked = {name: {leaf: torch.stack([c[name][leaf] for c in caches])
                           for leaf in caches[0][name]}
                    for name in caches[0]}
-        return x, stacked
+        return x, aux, stacked
 
     def forward(self, params, batch):
         """Full-sequence logits. batch: dict(tokens, positions?)."""
@@ -175,8 +195,8 @@ class Model:
         positions = batch.get("positions")
         if positions is None:
             positions = torch.arange(x.shape[1], device=x.device)
-        x, _ = self._stack(params, x, positions, collect_cache=False)
-        return self._logits(params, x), {"moe_aux": torch.zeros((), device=x.device)}
+        x, aux, _ = self._stack(params, x, positions, collect_cache=False)
+        return self._logits(params, x), {"moe_aux": aux}
 
     # ---- serving: prefill + decode -------------------------------------------
     def init_cache(self, batch: int, max_len: int):
@@ -201,7 +221,7 @@ class Model:
         positions = batch.get("positions")
         if positions is None:
             positions = torch.arange(x.shape[1], device=x.device)
-        x, cache = self._stack(params, x, positions, collect_cache=True)
+        x, _, cache = self._stack(params, x, positions, collect_cache=True)
         return self._logits(params, x), cache
 
     def decode_step(self, params, tokens, cache, pos):
@@ -228,8 +248,5 @@ class Model:
                 else:
                     a, _ = attn.attn_decode(sub["mixer"], cfg, hin, gc[f"layer{j}"], pos,
                                             local=(mixer == "attn_local"))
-                x = x + a
-                if ffn == "dense":
-                    x = x + mlp_apply(sub["ffn"], rmsnorm(x, sub["ffn_norm"], cfg.norm_eps),
-                                      cfg.mlp_type)
+                x, _ = self._ffn(sub, ffn, x + a)
         return self._logits(params, x)[:, 0], cache

@@ -30,6 +30,7 @@ COPIES = [
     "configs/mamba2_370m.py",
     "runtime/schedule.py", "runtime/sim.py", "core/simulator.py",
     "configs/metronome_l3fwd.py", "configs/granite_3_8b.py", "configs/starcoder2_15b.py",
+    "configs/dbrx_132b.py", "configs/llama4_scout_17b_a16e.py",
 ]
 
 # module -> top-level definitions the port's own module keeps from the

@@ -8,8 +8,11 @@ tokens, with each attention route: the reference's default sdpa,
 ``chunked``, and its ``pallas`` rule (the Pallas kernel in interpret mode)
 against the port's ``"kernel"`` route (the kernel's plain version on CPU
 tensors).  Reduced mamba2-370m (no attention: its chunked SSD prefill and
-recurrent decode) runs on two routes, which must not change it.  Bands are
-the reference's own for kernel-vs-sdpa dispatch
+recurrent decode) runs on two routes, which must not change it.  Reduced
+dbrx-132b (16 -> 4 experts, top-2) and llama4-scout-17b-a16e (top-1, a
+shared expert, qk-norm) run every route too, and forward's ``moe_aux``
+(each MoE layer's load-balancing loss, summed) equals the reference's
+within 1e-5.  Bands are the reference's own for kernel-vs-sdpa dispatch
 (tests/test_train_step_features.py): 2e-4, and 5e-4 for gemma2-2b."""
 
 import contextlib
@@ -32,13 +35,16 @@ from repro_torch.models import layers
 from repro_torch.models.convert import params_from_numpy
 
 TOL = {"gemma-2b": 2e-4, "gemma2-2b": 5e-4, "granite-3-8b": 2e-4, "starcoder2-15b": 2e-4,
-       "mamba2-370m": 2e-4}
+       "mamba2-370m": 2e-4, "dbrx-132b": 2e-4, "llama4-scout-17b-a16e": 2e-4}
 DENSE = ("gemma-2b", "gemma2-2b", "granite-3-8b", "starcoder2-15b")
-# (arch, route): every dense arch on every route; mamba2 has no attention,
-# so two routes show that the route leaves it alone
-PREFILL_CASES = [(a, r) for a in DENSE for r in (None, "chunked", "kernel")] + \
-    [("mamba2-370m", None), ("mamba2-370m", "kernel")]
-FORWARD_CASES = [(a, r) for a in (*DENSE, "mamba2-370m") for r in (None, "kernel")]
+MOE = ("dbrx-132b", "llama4-scout-17b-a16e")
+ROUTES = (None, "chunked", "kernel")
+# (arch, route): every dense and MoE arch on every route; mamba2 has no
+# attention, so two routes show that the route leaves it alone
+PREFILL_CASES = [(a, r) for a in DENSE for r in ROUTES] + \
+    [("mamba2-370m", None), ("mamba2-370m", "kernel")] + [(a, r) for a in MOE for r in ROUTES]
+FORWARD_CASES = [(a, r) for a in (*DENSE, "mamba2-370m") for r in (None, "kernel")] + \
+    [(a, r) for a in MOE for r in ROUTES]
 # port route -> the reference's `attn` logical rule
 JAX_RULE = {None: None, "chunked": "chunked", "kernel": "pallas"}
 
@@ -132,9 +138,17 @@ def test_forward_logits_match_jax(arch, route):
     jm, jp, tm, tp = _models(arch, route)
     toks = np.random.default_rng(2).integers(0, tm.cfg.vocab_size, (2, 16))
     with _rules(route):
-        jl, _ = jm.forward(jp, {"tokens": jnp.asarray(toks, jnp.int32)})
-    tl, _ = tm.forward(tp, {"tokens": torch.from_numpy(toks)})
+        jl, jaux = jm.forward(jp, {"tokens": jnp.asarray(toks, jnp.int32)})
+    tl, taux = tm.forward(tp, {"tokens": torch.from_numpy(toks)})
     _close(tl, jl, TOL[arch])
+    aux = taux["moe_aux"]
+    assert aux.shape == () and aux.dtype == torch.float32
+    _close(aux, jaux["moe_aux"], 1e-5)
+    if arch in MOE:
+        # the reference's smoke check (tests/test_models_smoke.py): finite, >= 0
+        assert torch.isfinite(aux) and float(aux) >= 0.0
+    else:
+        assert float(aux) == 0.0
 
 
 def test_int8_kv_cache_decode_matches_jax():
@@ -209,7 +223,7 @@ def test_bf16_parameters_carry_across_bit_for_bit():
     np.testing.assert_array_equal(got.view(torch.int16).numpy().view(np.uint16), ref)
 
 
-@pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-370m", *MOE])
 def test_port_init_is_seeded_and_shaped_like_jax(arch):
     cfg = get_config(arch).reduced()
     model = Model(cfg, device="cpu")
@@ -225,14 +239,19 @@ def test_port_init_is_seeded_and_shaped_like_jax(arch):
 
 def test_model_rejects_unported_families_and_missing_cuda():
     cfg = get_config("gemma-2b").reduced()
-    with pytest.raises(NotImplementedError, match="MoE"):
-        Model(dataclasses.replace(cfg, family="moe", n_experts=4,
-                                  experts_per_token=2), device="cpu")
-    # the hybrid (ssm + attention + MoE) and MoE configs wait for the MoE slice
-    for arch in ("jamba-1.5-large-398b", "dbrx-132b"):
+    with pytest.raises(NotImplementedError, match="hybrid"):
+        Model(dataclasses.replace(cfg, family="hybrid"), device="cpu")
+    # the hybrid family (ssm + attention + MoE) waits for its own slice, the
+    # encoder-decoder and frontend families and learned positions for theirs
+    for arch, why in (("jamba-1.5-large-398b", "hybrid"), ("whisper-small", "encoder-decoder"),
+                      ("internvl2-76b", "frontends")):
         ref = jax_get_config(arch).reduced()
-        with pytest.raises(NotImplementedError, match="MoE"):
+        with pytest.raises(NotImplementedError, match=why):
             Model(ModelConfig(**dataclasses.asdict(ref)), device="cpu")
+    with pytest.raises(NotImplementedError, match="learned absolute positions"):
+        Model(dataclasses.replace(cfg, use_rope=False), device="cpu")
+    # a MoE config builds
+    Model(get_config("dbrx-132b").reduced(), device="cpu")
     with pytest.raises(ValueError):
         Model(cfg, attn="pallas", device="cpu")
     if not torch.cuda.is_available():

@@ -1,10 +1,11 @@
 """The port's serving stack on the CPU: its engine gives the JAX engine's
-greedy tokens for the same requests and parameters (gemma-2b, and
-mamba2-370m, whose slots hold SSM state), its ``Server`` +
-``MetronomePolicy`` completes every request while sleeping, the launcher
-CLI runs end to end, and the reference's int8-KV serving and cache tests
-(tests/test_serving_quant.py, tests/test_kv_optimizations.py's granite
-cases) hold on the port with the reference's parameters carried across."""
+greedy tokens for the same requests and parameters (gemma-2b,
+mamba2-370m, whose slots hold SSM state, and dbrx-132b, whose FFNs are
+MoE), its ``Server`` + ``MetronomePolicy`` completes every request while
+sleeping, the launcher CLI runs end to end, and the reference's int8-KV
+serving and cache tests (tests/test_serving_quant.py,
+tests/test_kv_optimizations.py's granite cases) hold on the port with
+the reference's parameters carried across."""
 
 import dataclasses
 import os
@@ -58,13 +59,14 @@ def _port_engine(params=None, attn="kernel", arch="gemma-2b"):
     return InferenceEngine(model, params, EngineConfig(**ENGINE))
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "mamba2-370m", "dbrx-132b"])
 def test_engine_greedy_tokens_match_jax_engine(arch):
     """More requests than slots, prompts in both buckets, the kernel route
     on both sides (the reference's pallas rule, live while its engine
     traces in this thread).  A Mamba2 slot's state is copied whole into
     its row, and, as in the reference, has also consumed the prompt's
-    padding up to its bucket."""
+    padding up to its bucket.  A MoE decode step routes every slot, idle
+    ones too, as the reference's does."""
     cfg = dataclasses.replace(jax_get_config(arch).reduced(), **OVERRIDES)
     jm = JaxModel(cfg)
     jp = jm.init(jax.random.PRNGKey(0), max_seq=64)
@@ -144,7 +146,8 @@ def test_server_loads_operating_table_path(tmp_path):
     assert srv.operating_table == table and policy.controller.feedforward == table
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "granite-3-8b", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "granite-3-8b", "mamba2-370m",
+                                  "llama4-scout-17b-a16e"])
 def test_launcher_smoke_on_cpu(arch):
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
