@@ -14,8 +14,10 @@ Phases, each a hard failure (nonzero exit, no result line):
 2. each kernel against its plain PyTorch version on the card, at the
    serving path's shapes (flash attention at each served model's prefill
    widths: gemma-2b, granite-3-8b with GQA group 4, starcoder2-15b with
-   group 12, dbrx-132b with group 6 and llama4-scout-17b-a16e with group 5,
-   at S = 16 and every serving bucket), the reference test
+   group 12, dbrx-132b with group 6, llama4-scout-17b-a16e with group 5 and
+   jamba-1.5-large-398b / internvl2-76b with group 8, at S = 16 and every
+   serving bucket, and whisper-small's decoder, hd 64, at S = 16, 444 and
+   448 in bf16 and f32), the reference test
    sweep's and the full widths of gemma-2b, gemma2-2b and mamba2-370m, with
    the tolerance stated per case;
    flash attention's bf16 cases go to its "wgmma" route and its f32 cases to
@@ -26,31 +28,44 @@ Phases, each a hard failure (nonzero exit, no result line):
    requires grad under grad mode (they have no backward);
 3. kernel, plain version and the PyTorch library call (where one computes
    the same function) timed with CUDA events at those shapes (flash
-   attention also at the hd-128 models' S=1024), beside the
+   attention also at the hd-128 models' S=1024 and whisper-small's
+   decoder at S=448, bf16 and f32), beside the
    card's bound for the same work, with the achieved TFLOP/s and the share
    of the bound; decode attention's bf16 route also at every piece length
    it can pick, its split and combine apart (torch.profiler), and its f32
    route at three shapes (kernels_bench, gemma-2b and gemma2-2b local in
    f32) with its schedule (blocks, rows and tiles a block, blocks a unit)
    and one kernel a call;
-4. six models at full width (random weights from seed 0, bf16), one at a
-   time, each served through ``Server`` + ``MetronomePolicy`` with the
+4. nine models at full width (random weights from seed 0, bf16), one at a
+   time; seven served through ``Server`` + ``MetronomePolicy`` with the
    kernel route, with every launch counter set to 0 just before and read
    just after: gemma-2b (flash attention 18 per prefill, all on the
    "wgmma" route), granite-3-8b and starcoder2-15b (40 per prefill, after
    the kernel route is held against the sdpa route on prefill logits),
    mamba2-370m (no kernel: after the reference's prefill-then-decode check,
    chunked SSD against the recurrent step, within 5e-2), all four at full
-   depth, and the MoE family cut in depth only (``SERVED_MODELS``):
-   dbrx-132b at 10 of its 40 layers and llama4-scout-17b-a16e at 15 of 48
-   (a flash-attention launch per layer per prefill), each after one
-   full-width MoE layer in f32 is held on the card against a per-token loop
-   (the kept set equal to the router's plan on the CPU, within 1e-4
-   relative) and after its route check; decode attention and the SSD scan
-   0 on every route for every model: no model path reaches them, in the
-   reference or in the port.  Each model logs its median TTFT, tokens/s,
-   CPU fraction, peak memory, and the device-busy share of one prefill and
-   one decode step.
+   depth, and, cut in depth only (``SERVED_MODELS``), dbrx-132b at 10 of
+   its 40 layers, llama4-scout-17b-a16e at 15 of 48 and the hybrid
+   jamba-1.5-large-398b at layers 0-4 of its 72 (one attention layer, four
+   Mamba2 layers, three MoE and two dense FFNs; a flash-attention launch
+   per attention layer per prefill), each MoE model after one full-width
+   MoE layer in f32 is held on the card against a per-token loop (the kept
+   set equal to the router's plan on the CPU, within 1e-4 relative) and
+   after its route check with the sdpa run's routing replayed; then two
+   models the engine does not serve with their inputs (its prefill passes
+   only tokens, as the reference's), run through the model's own entry
+   points: whisper-small at full depth (the reference's prefill-then-decode
+   check in f32 within 2e-2 / 5e-2 on K1's f32 route, then a bf16 prefill
+   of 444 tokens and 1,500 encoder frames and 4 greedy decode steps with
+   the counters set to 0: K1 12 times, its decoder's self-attention only,
+   and the bf16 route check at S=448) and internvl2-76b at 36 of 80 layers
+   (a prefill of a 256-position vision prefix and 768 tokens and 4 greedy
+   decode steps with the counters set to 0: K1 once a layer; the route
+   check on that prefill); decode attention and the SSD scan 0 on every
+   route for every model: no model path reaches them, in the reference or
+   in the port.  Each model logs its peak memory at init, the times and
+   the device-busy share of a prefill and a decode step, and each served
+   one its median TTFT, tokens/s and CPU fraction.
 
 Then the fixed-slot sweep S1 (``slot_sweep``, the reference's
 ``runtime/batched.py`` ``lax.scan``; producer warps and a consumer warp
@@ -281,17 +296,33 @@ DECODE_SHAPES = (
 FLUSH_BYTES = 256 << 20      # written between timed launches to empty the 50 MB L2
 # K1 at each served model's attention widths (name, H, KV, hd): gemma-2b (MQA,
 # hd 256), granite-3-8b (GQA group 4), starcoder2-15b (group 12), dbrx-132b
-# (group 6) and llama4-scout-17b-a16e (group 5), hd 128
+# (group 6), llama4-scout-17b-a16e (group 5), and jamba-1.5-large-398b and
+# internvl2-76b (one shape: group 8), hd 128
 SERVED_ATTENTION = (("gemma-2b", 8, 1, 256), ("granite-3-8b", 32, 8, 128),
                     ("starcoder2-15b", 48, 4, 128), ("dbrx-132b", 48, 8, 128),
-                    ("llama4-scout-17b-a16e", 40, 8, 128))
+                    ("llama4-scout-17b-a16e", 40, 8, 128),
+                    ("jamba-1.5-large-398b / internvl2-76b", 64, 8, 128))
+# whisper-small's decoder self-attention (MHA, hd 64), the only K1 launch of
+# its prefill, at the decoder's 448 positions and the check's 444
+WHISPER_ATTENTION = ("whisper-small decoder", 12, 12, 64)
+WHISPER_SEQ = (444, 448)
 # phase 4's models after gemma-2b, one at a time, and the layers each is
 # served with: the MoE configs at full width do not fit 80 GB at full depth
 # (dbrx-132b 3.26 B parameters a layer, llama4-scout-17b-a16e 2.20 B), so
-# they are cut in depth only
+# they are cut in depth only; jamba-1.5-large-398b (a MoE FFN alone 9.66 B)
+# keeps layers 0-4 of its plan: its attention layer, four Mamba2 layers,
+# three MoE and two dense FFNs
 SERVED_MODELS = (("granite-3-8b", 40), ("starcoder2-15b", 40), ("mamba2-370m", 48),
-                 ("dbrx-132b", 10), ("llama4-scout-17b-a16e", 15))
+                 ("dbrx-132b", 10), ("llama4-scout-17b-a16e", 15),
+                 ("jamba-1.5-large-398b", 5))
 MOE_CHECK_TOKENS = 1024
+# internvl2-76b at full width, 36 of its 80 layers (0.856 B parameters a
+# layer): its vision path, a 256-position prefix and 768 tokens
+INTERNVL2_LAYERS = 36
+VISION_TOKENS = 768
+# whisper-small at full width and depth: the encoder's 30 s window of 1500
+# frames (arXiv:2212.04356), the decoder's 448 positions
+WHISPER_FRAMES = 1500
 
 
 def log(*args) -> None:
@@ -602,7 +633,8 @@ def ptxas_records(log_text: str) -> dict[str, tuple[int, int, int, int]]:
 def phase_compare() -> dict[str, float]:
     """Kernel vs plain version; returns the max abs error per route at the
     served models' prefill shapes: ``SERVED_ATTENTION`` in bf16
-    ("wgmma"), gemma-2b in f32 ("mma", split TF32)."""
+    ("wgmma"), gemma-2b in f32 ("mma", split TF32), whisper-small's decoder
+    (``WHISPER_ATTENTION``) in both."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 plain version in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -650,6 +682,11 @@ def phase_compare() -> dict[str, float]:
               ("f32 S=800, not causal", 1, 800, 8, 8, 128, torch.float32, False, 0, 0.0, 1.0),
               ("f32 S=300, not causal, window 64", 1, 300, 4, 4, 64, torch.float32, False, 64,
                0.0, 1.0)]
+    # whisper-small's decoder (hd 64 MHA) in both types: its served prefill
+    # (bf16) and the f32 prefill-then-decode check
+    name, h, kv, hd = WHISPER_ATTENTION
+    cases += [(f"{name} prefill", 1, s, h, kv, hd, dtype, True, 0, 0.0, 1.0)
+              for dtype in (torch.bfloat16, torch.float32) for s in (16, *WHISPER_SEQ)]
     flash_attention.launches_by_route = {"wgmma": 0, "mma": 0}
     route_err = {"wgmma": 0.0, "mma": 0.0}
     for name, b, s, h, kv, hd, dtype, causal, window, cap, q_scale in cases:
@@ -686,8 +723,9 @@ def phase_compare() -> dict[str, float]:
 
 def phase_time() -> dict[str, list[dict]]:
     """K1 rows by route: "wgmma" holds gemma-2b's three prefill buckets, a
-    gemma2-2b softcap row and the hd-128 models' prefill at S=1024
-    (``SERVED_ATTENTION[1:]``), "mma" the f32 row at gemma-2b heads, whose
+    gemma2-2b softcap row, the hd-128 models' prefill at S=1024
+    (``SERVED_ATTENTION[1:]``) and whisper-small's decoder at S=448, "mma"
+    the f32 rows at gemma-2b heads and whisper-small's decoder, whose
     ``bound_ms`` is the route's own (its three TF32 passes at the TF32
     peak), the f32 CUDA-core one beside it (``f32_bound_ms``)."""
     import torch.nn.functional as F
@@ -705,6 +743,10 @@ def phase_time() -> dict[str, list[dict]]:
                 1.0)]
     shapes += [(f"{name} prefill S=1024", "wgmma", 1024, h, kv, hd, torch.bfloat16, 0, 0.0, 1.0)
                for name, h, kv, hd in SERVED_ATTENTION[1:]]
+    name, h, kv, hd = WHISPER_ATTENTION
+    s = WHISPER_SEQ[-1]
+    shapes += [(f"{name} prefill S={s}", "wgmma", s, h, kv, hd, torch.bfloat16, 0, 0.0, 1.0),
+               (f"{name} prefill S={s} f32", "mma", s, h, kv, hd, torch.float32, 0, 0.0, 1.0)]
     rows = {"wgmma": [], "mma": []}
     for name, route, s, h, kv, hd, dtype, window, cap, q_scale in shapes:
         q, k, v = attn_inputs(gen, 1, s, h, kv, hd, dtype)
@@ -1617,16 +1659,10 @@ def route_check(model, plain_model, params) -> None:
             else:
                 lk, _ = model.prefill(params, {"tokens": toks})
                 lp, _ = plain_model.prefill(params, {"tokens": toks})
-            if lk.shape != (1, s, cfg.vocab_size) or not torch.isfinite(lk).all():
-                fail(f"{cfg.name} prefill logits at S={s}: shape {tuple(lk.shape)} or not finite")
-            rel = float((lk - lp).abs().max() / lp.abs().max())
-            top1 = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
-            log(f"  prefill S={s}: kernel route vs sdpa route"
-                f"{' (routing replayed from the sdpa run)' if moe_model else ''} "
-                f"max|diff|/max|logit| {rel:.3e} (limit 5e-2), top-1 agreement {top1:.4f} "
-                "(limit 0.9)")
-            if rel > 5e-2 or top1 < 0.9:
-                fail(f"{cfg.name}: kernel route disagrees with the sdpa route at S={s}")
+            if lk.shape != (1, s, cfg.vocab_size):
+                fail(f"{cfg.name} prefill logits at S={s}: shape {tuple(lk.shape)}")
+            route_agreement(cfg, lk, lp, f"prefill S={s}" + (
+                " (routing replayed from the sdpa run)" if moe_model else ""))
             del lk, lp
 
 
@@ -1836,26 +1872,40 @@ def phase_serve() -> dict:
     return serve_requests(model, params)
 
 
-def mamba2_consistency(model, params, *, decode_tol: dict) -> dict:
+def padded_cache(model, pre: dict, length: int) -> dict:
+    """A B=1 prefill cache copied into a decode cache of ``length``
+    positions: KV leaves at [0, S), state leaves whole; an
+    encoder-decoder's cross K/V as prefill made them."""
+    encdec = model.cfg.is_encdec
+    cache = model.init_cache(1, length)
+    for name, leaves in (pre["self"] if encdec else pre).items():
+        for leaf, x in leaves.items():
+            cache[name][leaf][:, :, :x.shape[2]] = x
+    return {"self": cache, "cross": pre["cross"]} if encdec else cache
+
+
+def prefill_decode_check(model, params, batch: dict, split: int, *,
+                         decode_tol: dict) -> dict:
     """The reference's prefill-then-decode check (tests/test_models_smoke.py)
-    at full width and depth: forward on 1024 tokens, prefill on the first
-    512 (both multiples of the 256-step chunk), then the next 4 tokens
-    teacher-forced through the recurrent decode step, prefill's logits
-    against forward's within 2e-2 and each step's against forward's at
-    its position within ``decode_tol`` (the reference's: 5e-2).  Returns
-    the largest error of each part, and forward's logits at the decode
-    steps' positions (``"forward"``)."""
+    at full width: forward on the batch's S tokens, prefill on the first
+    ``split``, then the next 4 tokens teacher-forced through the decode
+    step, prefill's logits against forward's within 2e-2 and each step's
+    against forward's at its position within ``decode_tol`` (the
+    reference's: 5e-2), from the prefill cache copied into one of S
+    positions (``padded_cache``).  Returns the
+    largest error of each part, and forward's logits at the decode steps'
+    positions (``"forward"``)."""
     cfg = model.cfg
-    s, split = 1024, 512
-    toks = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (1, s))).to(
-        model.device)
+    toks = batch["tokens"]
+    s = toks.shape[1]
     worst = {"prefill": 0.0, "decode": 0.0, "decode_top1": 1.0}
     dtype = cfg.compute_dtype
     with torch.no_grad():
-        full, _ = model.forward(params, {"tokens": toks})
-        pre, cache = model.prefill(params, {"tokens": toks[:, :split]})
+        full, _ = model.forward(params, batch)
+        pre, pre_cache = model.prefill(params, {**batch, "tokens": toks[:, :split]})
         parts = [("prefill", f"prefill on {split} tokens vs forward on {s}", pre,
                   full[:, :split], dict(atol=2e-2, rtol=2e-2))]
+        cache = padded_cache(model, pre_cache, s)
         for i in range(split, split + 4):
             logits, cache = model.decode_step(params, toks[:, i], cache,
                                               torch.full((1,), i, device=model.device))
@@ -1876,14 +1926,226 @@ def mamba2_consistency(model, params, *, decode_tol: dict) -> dict:
     return worst
 
 
+def mamba2_consistency(model, params, *, decode_tol: dict) -> dict:
+    """``prefill_decode_check`` on 1024 tokens, prefill on the first 512
+    (both multiples of the 256-step chunk)."""
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, model.cfg.vocab_size, (1, 1024))).to(model.device)
+    return prefill_decode_check(model, params, {"tokens": toks}, 512, decode_tol=decode_tol)
+
+
+def launch_counts() -> dict:
+    """The serving path's launch counters (K1 and K2 by route, K3)."""
+    from repro_torch.kernels import decode_attention, flash_attention, ssd_scan
+    return {"flash_attention": dict(flash_attention.launches_by_route),
+            "decode_attention": dict(decode_attention.launches_by_route),
+            "ssd_scan": ssd_scan.launches}
+
+
+def check_launches(what: str, counts: dict, *, wgmma: int, mma: int) -> None:
+    """K1 launched exactly ``wgmma`` / ``mma`` times, K2 and K3 not at all."""
+    if (counts["flash_attention"] != {"wgmma": wgmma, "mma": mma}
+            or any(counts["decode_attention"].values()) or counts["ssd_scan"]):
+        fail(f"{what}: launches {counts}, want flash_attention "
+             f"{{'wgmma': {wgmma}, 'mma': {mma}}} and no decode_attention or ssd_scan")
+    log(f"  {what}: launches {counts} (counters set to 0 just before)")
+
+
+def route_agreement(cfg, lk, lp, what: str) -> dict:
+    """The kernel route's logits ``lk`` against the sdpa route's ``lp``:
+    max|diff|/max|logit| within 5e-2 and top-1 agreement at least 0.9."""
+    if lk.shape != lp.shape or not torch.isfinite(lk).all():
+        fail(f"{cfg.name} {what}: shape {tuple(lk.shape)} or not finite")
+    rel = float((lk - lp).abs().max() / lp.abs().max())
+    top1 = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+    log(f"  {what}: kernel route vs sdpa route max|diff|/max|logit| {rel:.3e} (limit 5e-2), "
+        f"top-1 agreement {top1:.4f} (limit 0.9)")
+    if rel > 5e-2 or top1 < 0.9:
+        fail(f"{cfg.name}: kernel route disagrees with the sdpa route ({what})")
+    return {"rel": rel, "top1": top1}
+
+
+def model_times(name: str, model, params, batch: dict, cache, pos) -> dict:
+    """A prefill of ``batch`` and a decode step (one token a row of
+    ``cache`` at ``pos``) timed with CUDA events behind the spin, then each
+    profiled for its device-busy share."""
+    rows = pos.shape[0]
+    toks = torch.ones(rows, dtype=torch.long, device=model.device)
+    with torch.no_grad():
+        prefill_ms = time_ms(model.prefill, params, batch, iters=5, warmup=1)
+        decode_ms = time_ms(model.decode_step, params, toks, cache, pos, iters=20, warmup=2)
+        s = batch["tokens"].shape[1] + (batch["prefix_embeds"].shape[1]
+                                        if "prefix_embeds" in batch else 0)
+        log(f"  prefill S={s} {prefill_ms:.2f} ms (CUDA events behind the spin, median of 5); "
+            f"decode step ({rows} row) {decode_ms:.2f} ms (median of 20)")
+        prof_p = profile(f"{name} prefill S={s}", model.prefill, params, batch)
+        prof_d = profile(f"{name} decode step ({rows} row)", model.decode_step, params, toks,
+                         cache, pos)
+    return {"prefill_ms": prefill_ms, "decode_ms": decode_ms,
+            "prefill_busy_ms": sum(prof_p.values()), "decode_busy_ms": sum(prof_d.values())}
+
+
+def phase_whisper() -> dict:
+    """Phase 4, whisper-small at full width and depth (12 encoder and 12
+    decoder layers), bf16, random weights from seed 0, and the encoder's
+    ``WHISPER_FRAMES`` input frames from a numpy seed (N(0, 1) x 0.02, the
+    stub frontend's scale).  The engine serves no encoder-decoder model
+    (its prefill passes only tokens, as the reference's), so the model's
+    own entry points are its path:
+
+    - the reference's prefill-then-decode check in f32 (the served weights
+      widened) at its bands: forward on 448 decoder tokens, prefill on the
+      first 444 within 2e-2, 4 teacher-forced decode steps within 5e-2; K1
+      on its f32 route ("mma"), one launch a decoder layer a call;
+    - bf16, with every launch counter set to 0 just before: prefill on 444
+      tokens, then 4 greedy decode steps: K1 12 times, all "wgmma" (the
+      decoder's self-attention: the encoder and the cross-attention run
+      the plain sdpa), K2 and K3 none;
+    - the kernel route against the sdpa route on prefill logits at S=448
+      (5e-2 relative, top-1 0.9), and the times of a prefill and a decode
+      step with their device-busy share.
+
+    Returns the record (its launches by route under ``"by_route"`` and
+    ``"f32_by_route"``)."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    cfg = get_config("whisper-small")
+    s, split = WHISPER_SEQ[-1], WHISPER_SEQ[0]
+    log(f"phase 4: whisper-small at full width and depth ({cfg.n_encoder_layers} encoder and "
+        f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, {cfg.n_heads} heads, "
+        f"{cfg.n_kv_heads} KV heads, head_dim {cfg.resolved_head_dim}, d_ff {cfg.d_ff} "
+        f"{cfg.mlp_type}, learned positions, vocab {cfg.vocab_size}, {cfg.param_dtype}), random "
+        f"weights from seed 0, attn=kernel, {WHISPER_FRAMES} encoder frames; run through the "
+        "model's own entry points: the engine serves no encoder-decoder model")
+    model, params = init_full_width(cfg)
+    record = {"peak_init_gib": torch.cuda.max_memory_allocated() / 2**30}
+    rng = np.random.default_rng(11)
+    frames = torch.from_numpy((rng.standard_normal((1, WHISPER_FRAMES, cfg.d_model)) * 0.02)
+                              .astype(np.float32)).to(model.device)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, s))).to(model.device)
+    batch = {"tokens": toks, "enc_frames": frames}
+
+    f32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    wide = _tree_map(lambda x: x.float(), params)
+    set_launch_counts_to_zero()
+    checked = prefill_decode_check(Model(f32, attn="kernel", device="cuda"), wide, batch, split,
+                                   decode_tol=dict(atol=5e-2, rtol=5e-2))
+    checked.pop("forward")
+    counts = launch_counts()
+    check_launches("float32 check", counts, wgmma=0, mma=2 * cfg.n_layers)
+    record.update(check_float32=checked, f32_by_route=counts["flash_attention"])
+    del wide
+    torch.cuda.empty_cache()
+
+    set_launch_counts_to_zero()             # counts from the main path only
+    with torch.no_grad():
+        logits, pre = model.prefill(params, {"tokens": toks[:, :split], "enc_frames": frames})
+        cache = padded_cache(model, pre, s)
+        tok, made = logits[:, -1].argmax(-1), []
+        for i in range(split, s):
+            dl, cache = model.decode_step(params, tok, cache,
+                                          torch.full((1,), i, device=model.device))
+            if dl.shape != (1, cfg.vocab_size) or not torch.isfinite(dl).all():
+                fail(f"{cfg.name}: decode step at position {i} gave non-finite logits")
+            tok = dl.argmax(-1)
+            made.append(int(tok))
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    check_launches(f"bf16 prefill on {split} tokens and 4 greedy decode steps (tokens {made})",
+                   counts, wgmma=cfg.n_layers, mma=0)
+    record.update(by_route=counts["flash_attention"], decode_by_route=counts["decode_attention"],
+                  ssd_scan=counts["ssd_scan"])
+    with torch.no_grad():
+        lk, _ = model.prefill(params, batch)
+        lp, _ = Model(cfg, attn=None, device="cuda").prefill(params, batch)
+    record["route_check"] = route_agreement(cfg, lk, lp, f"bf16 prefill S={s}")
+    del lk, lp
+    record.update(model_times(cfg.name, model, params, batch, cache,
+                              torch.full((1,), split, device=model.device)))
+    del model, params, cache, pre
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record
+
+
+def phase_internvl2() -> dict:
+    """Phase 4, internvl2-76b at full width, cut in depth to
+    ``INTERNVL2_LAYERS`` of its 80 layers (it does not fit 80 GB whole),
+    bf16, random weights from seed 0, on its vision path: a prefill of a
+    256-position ``prefix_embeds`` (numpy seed, the stub's 0.02 scale) and
+    ``VISION_TOKENS`` tokens, S=1024, then 4 greedy decode steps at the
+    positions after it, with every launch counter set to 0 just before (K1
+    once a layer, all "wgmma"; K2 and K3 none; finite logits); then the
+    kernel route against the sdpa route on the same prefill (5e-2
+    relative, top-1 0.9), and the times of a prefill and a decode step
+    with their device-busy share.  The engine serves this model text only
+    (its prefill passes only tokens, as the reference's), so its vision
+    path runs through the model's own entry points."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    full = get_config("internvl2-76b")
+    cfg = dataclasses.replace(full, n_layers=INTERNVL2_LAYERS)
+    s = cfg.frontend_len + VISION_TOKENS
+    log(f"phase 4: internvl2-76b at full width, {cfg.n_layers} of its {full.n_layers} layers "
+        f"(d_model {cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, head_dim "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff} {cfg.mlp_type}, vocab {cfg.vocab_size}, "
+        f"{cfg.param_dtype}), random weights from seed 0, attn=kernel; vision path: "
+        f"{cfg.frontend_len} prefix positions + {VISION_TOKENS} tokens")
+    model, params = init_full_width(cfg)
+    record = {"layers": cfg.n_layers, "published_layers": full.n_layers,
+              "peak_init_gib": torch.cuda.max_memory_allocated() / 2**30}
+    rng = np.random.default_rng(13)
+    prefix = torch.from_numpy((rng.standard_normal((1, cfg.frontend_len, cfg.d_model)) * 0.02)
+                              .astype(np.float32)).to(model.device, torch.bfloat16)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, VISION_TOKENS))).to(model.device)
+    batch = {"tokens": toks, "prefix_embeds": prefix}
+
+    set_launch_counts_to_zero()             # counts from the main path only
+    with torch.no_grad():
+        lk, pre = model.prefill(params, batch)
+        cache = padded_cache(model, pre, s + 8)
+        tok, made = lk[:, -1].argmax(-1), []
+        for i in range(s, s + 4):
+            dl, cache = model.decode_step(params, tok, cache,
+                                          torch.full((1,), i, device=model.device))
+            if dl.shape != (1, cfg.vocab_size) or not torch.isfinite(dl).all():
+                fail(f"{cfg.name}: decode step at position {i} gave non-finite logits")
+            tok = dl.argmax(-1)
+            made.append(int(tok))
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    check_launches(f"bf16 prefill of {s} positions and 4 greedy decode steps at positions "
+                   f"{s}-{s + 3} (tokens {made})", counts, wgmma=cfg.n_layers, mma=0)
+    record.update(by_route=counts["flash_attention"], decode_by_route=counts["decode_attention"],
+                  ssd_scan=counts["ssd_scan"])
+    del pre
+    with torch.no_grad():
+        lp, _ = Model(cfg, attn=None, device="cuda").prefill(params, batch)
+    record["route_check"] = route_agreement(cfg, lk, lp, f"bf16 prefill S={s} with the prefix")
+    del lk, lp
+    record.update(model_times(cfg.name, model, params, batch, cache,
+                              torch.full((1,), s, device=model.device)))
+    del model, params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record
+
+
 def phase_serve_models() -> dict[str, dict]:
     """Phase 4, the other served models (``SERVED_MODELS``) at full width,
     bf16, random weights from seed 0, one at a time (each freed, with the
     allocator's cache, before the next): granite-3-8b and starcoder2-15b
     (K1 at head dim 128, GQA groups 4 and 12) after their kernel-vs-sdpa
     route check, mamba2-370m after the reference's prefill-then-decode
-    check, dbrx-132b and llama4-scout-17b-a16e (groups 6 and 5) cut in
-    depth, each after ``moe_layer_check`` and its route check.  Returns
+    check, dbrx-132b, llama4-scout-17b-a16e and jamba-1.5-large-398b
+    (groups 6, 5 and 8; jamba's Mamba2 layers meet dense and MoE FFNs) cut
+    in depth, each after ``moe_layer_check`` and its route check.  Returns
     each model's serving record (without its engine)."""
     import gc
 
@@ -1894,7 +2156,7 @@ def phase_serve_models() -> dict[str, dict]:
     for name, layers in SERVED_MODELS:
         cfg = get_config(name)
         record = {"layers": layers, "published_layers": cfg.n_layers}
-        if cfg.family == "moe":
+        if cfg.n_experts:
             log(f"phase 4: {cfg.name}'s MoE layer on the card")
             record["moe_layer_check"] = moe_layer_check(cfg)
         depth = (" and depth" if layers == cfg.n_layers
@@ -1907,9 +2169,14 @@ def phase_serve_models() -> dict[str, dict]:
         else:
             widths = (f"d_model {cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, "
                       f"head_dim {cfg.resolved_head_dim}, d_ff {cfg.d_ff} {cfg.mlp_type}")
-            if cfg.family == "moe":
+            if cfg.n_experts:
                 widths += (f", {cfg.n_experts} experts top-{cfg.experts_per_token}, "
                            f"{cfg.n_shared_experts} shared, qk_norm {cfg.qk_norm}")
+            if cfg.family == "hybrid":
+                plan = cfg.layer_plan()
+                widths += (f"; plan {' '.join(f'{m}+{f}' for m, f in plan)}; Mamba2 "
+                           f"{cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim} heads of "
+                           f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk {cfg.ssm_chunk}")
         log(f"phase 4: serve {cfg.name} at full width{depth} ({cfg.n_layers} layers served, "
             f"{widths}, vocab {cfg.vocab_size}, {cfg.param_dtype}), random weights from "
             "seed 0, attn=kernel")
@@ -4623,6 +4890,7 @@ def main() -> int:
         key = sys.argv[1][2:].replace("-", "_")
         print(json.dumps({key: ab[sys.argv[1]](sys.argv[2:])}), flush=True)
         return 0
+    t_start = time.perf_counter()
     phase_card()
     route_err = phase_compare()
     decode_err = phase_compare_decode()
@@ -4633,6 +4901,9 @@ def main() -> int:
     ssd_rows = phase_time_ssd()
     served = phase_serve()
     served_models = phase_serve_models()
+    whisper = phase_whisper()
+    internvl2 = phase_internvl2()
+    log(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
     sweep_cmp = phase_compare_sweep()
     s2_cmp = phase_compare_adaptive()
     sweep_rows = phase_time_sweep(sweep_cmp["builds"])
@@ -4649,16 +4920,22 @@ def main() -> int:
     s3b_rows = phase_time_fleet_adaptive(s3b_cmp["builds"], s3_rows)
     s3b_main = phase_fleet_adaptive_main(s3b_cmp["builds"], s3b_rows, fleet_main)
     # K1 has one kernel per type: bf16 ("wgmma", the serving path of
-    # gemma-2b, granite-3-8b, starcoder2-15b, dbrx-132b and
-    # llama4-scout-17b-a16e; launches are the six served runs' sum (mamba2-370m
-    # makes none), by model beside it; its numbers at gemma-2b's largest
-    # prefill bucket, every row beside them) and f32
-    # ("mma", split TF32, on no model path: launches are its timing phase's,
-    # the serving run's count, 0, beside them; its bound is its route's, as
-    # K3's is, with the f32 CUDA-core one left to phase 3's log)
+    # gemma-2b, granite-3-8b, starcoder2-15b, dbrx-132b,
+    # llama4-scout-17b-a16e and jamba-1.5-large-398b, and the model paths of
+    # whisper-small and internvl2-76b; launches are the nine runs' sum
+    # (mamba2-370m makes none), by model beside it; its numbers at
+    # gemma-2b's largest prefill bucket, every row beside them) and f32
+    # ("mma", split TF32, on one model path: whisper-small's f32
+    # prefill-then-decode check, whose launches it reports, the timing
+    # phase's and the serving runs' (0) beside them; its numbers at gemma-2b
+    # heads, whisper's row beside them; its bound is its route's, as K3's
+    # is, with the f32 CUDA-core one left to phase 3's log)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     main_row, f32_row = rows["wgmma"][len(SERVE_BUCKETS) - 1], rows["mma"][0]
-    served_runs = {"gemma-2b": served, **served_models}
+    served_runs = {"gemma-2b": served, **served_models, "whisper-small": whisper,
+                   "internvl2-76b": internvl2}
+    row_keys = ("name", "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "tflops", "bound_share")
     k1 = {"route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
           "replaces": "src/repro/kernels/flash_attention/kernel.py:81"}
     kernels = [
@@ -4667,13 +4944,13 @@ def main() -> int:
          "launches_by_model": {n: r["by_route"]["wgmma"] for n, r in served_runs.items()},
          "max_abs_err": route_err["wgmma"], **{k: main_row[k] for k in keys},
          "shape": main_row["shape"],
-         "rows": [{k: r[k] for k in ("name", "shape", "ms", "plain_ms", "library_ms",
-                                     "bound_ms", "bound_by", "tflops", "bound_share")}
-                  for r in rows["wgmma"]]},
-        {"name": "flash_attention (mma, f32)", **k1, "launches": f32_row["launches"],
+         "rows": [{k: r[k] for k in row_keys} for r in rows["wgmma"]]},
+        {"name": "flash_attention (mma, f32)", **k1,
+         "launches": whisper["f32_by_route"]["mma"], "timing_launches": f32_row["launches"],
          "max_abs_err": route_err["mma"], **{k: f32_row[k] for k in keys},
          "shape": "B=1 S=T=1024 H=8 KV=1 hd=256 f32 causal",
-         "serving_launches": sum(r["by_route"]["mma"] for r in served_runs.values())},
+         "serving_launches": sum(r["by_route"]["mma"] for r in served_runs.values()),
+         "rows": [{k: r[k] for k in row_keys} for r in rows["mma"][1:]]},
     ]
     # decode attention and the SSD scan are on no model path: their launches
     # are the timing phase's, at the shape of the row (K2: bf16 "mma" at

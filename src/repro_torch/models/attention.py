@@ -30,9 +30,12 @@ NEG_INF = -2.3819763e38  # bf16-safe large negative
 ATTN_IMPLS = (None, "chunked", "kernel")
 
 
-def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype, *, groups: tuple = ()):
+def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype, *, cross: bool = False,
+              groups: tuple = ()):
+    """A cross-attention block (``cross``) gives K and V ``n_heads`` heads,
+    as the reference's does, whatever ``n_kv_heads`` is."""
     hd = cfg.resolved_head_dim
-    h, kv = cfg.n_heads, cfg.n_kv_heads
+    h, kv = cfg.n_heads, (cfg.n_heads if cross else cfg.n_kv_heads)
     p = {
         "wq": dense_init(gen, (*groups, cfg.d_model, h * hd), dtype),
         "wk": dense_init(gen, (*groups, cfg.d_model, kv * hd), dtype),
@@ -153,17 +156,23 @@ def _causal_mask(s: int, t: int, q_offset, local_window: int, device=None):
 
 
 def attn_apply(p, cfg: ModelConfig, x, positions, *, local: bool = False,
-               impl: str | None = None):
-    """Full-sequence causal self-attention (train / forward).  The
-    reference's bidirectional and cross-attention uses belong to the
-    encoder-decoder family, which the port does not carry yet."""
-    q, k, v = _project_qkv(p, cfg, x, x)
-    if cfg.use_rope:
+               causal: bool = True, xkv=None, impl: str | None = None):
+    """Full-sequence attention (train / encoder / cross).  ``causal=False``
+    attends every position (the encoder; no mask); ``xkv`` is the memory
+    that keys and values come from (cross-attention; RoPE only when the
+    keys come from ``x`` itself).  As in the reference, only a causal call
+    takes ``impl``'s route: the encoder and cross-attention always run the
+    plain sdpa."""
+    xkv = x if xkv is None else xkv
+    q, k, v = _project_qkv(p, cfg, x, xkv)
+    if cfg.use_rope and xkv is x:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    mask = None
     window = cfg.local_window if local else 0
-    mask = _causal_mask(x.shape[1], x.shape[1], 0, window, x.device)[None, None, None]
-    out = _attention(cfg, q, k, v, mask, causal=True, window=window, impl=impl)
+    if causal:
+        mask = _causal_mask(x.shape[1], xkv.shape[1], 0, window, x.device)[None, None, None]
+    out = _attention(cfg, q, k, v, mask, causal=causal, window=window, impl=impl)
     return out.reshape(*x.shape[:-1], -1) @ p["wo"]
 
 

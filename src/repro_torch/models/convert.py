@@ -4,9 +4,11 @@
 nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)``) and
 returns the port's parameters: the same nested dict, each leaf a tensor of
 the same shape and type.  The layouts already agree (``(in, out)``
-matrices, per-layer leaves stacked over layer groups), so no leaf is
-transposed or unstacked.  bfloat16 arrays (numpy's ``ml_dtypes`` type) are
-carried bit for bit through their 16-bit pattern.
+matrices, per-layer leaves stacked over layer groups, the encoder's over
+its layers; ``pos_embed`` and the decoder's ``cross`` leaves as they
+are), so no leaf is transposed or unstacked.  bfloat16 arrays (numpy's
+``ml_dtypes`` type) are carried bit for bit through their 16-bit
+pattern.
 """
 
 from __future__ import annotations
@@ -48,6 +50,16 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
         lead = np.shape(leaf)[0]
         if lead != groups:
             raise ValueError(f"{name}: {lead} stacked groups, {cfg.name} has {groups}")
+    if cfg.is_encdec:
+        enc = tree.get("encoder", {}).get("blocks", {})
+        if set(enc) != {"layer0"}:
+            raise ValueError(f"encoder blocks hold {sorted(enc)}, {cfg.name} wants ['layer0']")
+        lead = np.shape(enc["layer0"]["mixer"]["wq"])[0]
+        if lead != cfg.n_encoder_layers:
+            raise ValueError(f"encoder: {lead} stacked layers, {cfg.name} has "
+                             f"{cfg.n_encoder_layers}")
+    elif "encoder" in tree:
+        raise ValueError(f"{cfg.name} has no encoder, the tree holds one")
     if tree["embed"].shape != (cfg.vocab_size, cfg.d_model):
         raise ValueError(f"embed {tree['embed'].shape} != {(cfg.vocab_size, cfg.d_model)}")
     return _convert(tree, resolve_device(device))

@@ -29,9 +29,16 @@ def dense_init(gen: torch.Generator, shape, dtype, scale: float | None = None):
     second-to-last for stacked ``(G, in, out)`` leaves)."""
     fan_in = shape[0] if len(shape) == 2 else shape[-2]
     std = scale if scale is not None else 1.0 / np.sqrt(fan_in)
-    # scaled in place: a full-width leaf (starcoder2-15b's stacked MLP, 6e9
-    # values) then holds one f32 temporary, not two
-    return _normal(gen, shape).mul_(std).to(dtype)
+    if len(shape) <= 2:
+        # scaled in place: one f32 temporary, not two
+        return _normal(gen, shape).mul_(std).to(dtype)
+    # a stacked leaf, drawn one group at a time into the result: a
+    # full-width leaf (internvl2-76b's MLP at 36 layers, 8.5e9 values) then
+    # holds one group's f32 temporary, not the whole leaf's
+    leaf = torch.empty(tuple(shape), dtype=dtype, device=gen.device)
+    for g in range(shape[0]):
+        leaf[g] = _normal(gen, shape[1:]).mul_(std)
+    return leaf
 
 
 def embed_init(gen: torch.Generator, vocab, d, dtype):

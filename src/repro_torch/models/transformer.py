@@ -1,17 +1,31 @@
-"""Decoder stack, PyTorch port of ``repro.models.transformer`` for the
-dense family (``attn`` / ``attn_local`` mixers with a dense FFN: gemma-2b,
-gemma2-2b, granite-3-8b, starcoder2-15b), the MoE family (``attn`` mixers
-with a MoE FFN, ``models/moe.py``: dbrx-132b, llama4-scout-17b-a16e) and
-the Mamba2 family (``ssm`` mixers without an FFN: mamba2-370m).  The
-hybrid (jamba), encoder-decoder and frontend families are refused.
+"""Decoder and encoder-decoder stack, PyTorch port of
+``repro.models.transformer``, covering the reference's ten architectures:
+
+  dense        (attn, dense): gemma-2b, granite-3-8b, starcoder2-15b, and
+               internvl2-76b behind its vision prefix
+  gemma2       (attn_local, dense), (attn, dense): gemma2-2b
+  moe          (attn, moe): dbrx-132b, llama4-scout-17b-a16e
+  ssm          (ssm, none): mamba2-370m
+  hybrid       a unit of 8 layers, (attn, moe), (ssm, dense), (ssm, moe),
+               ...: an ssm mixer meets a dense or a MoE FFN (jamba)
+  encdec       a bidirectional encoder stack, and decoder layers with
+               cross-attention to its output (whisper-small)
+
+Learned absolute positions (``pos_embed``) replace RoPE where
+``use_rope`` is off and the stack has attention.  As in the reference, the
+modality frontends are stubs (``models/frontends.py``): a batch brings
+``prefix_embeds`` (vision patches, put before the tokens) or
+``enc_frames`` (the encoder's input frames) precomputed.
 
 Parameters are a nested dict of tensors in the reference's layout.  The
 per-layer leaves under ``blocks`` keep the reference's leading group axis
 (the layer plan's smallest repeating unit, stacked ``n_layers / unit``
-times), and the reference's ``lax.scan`` over groups becomes a Python loop
-that indexes group ``g`` of each leaf (a view, no copy).  Caches are
-stacked the same way: KV leaves (G, B, T, KV, hd), Mamba2 state leaves
-``conv`` (G, B, W-1, C) and ``ssm`` (G, B, nh, hd, N).
+times; the encoder's ``blocks`` one layer a group), and the reference's
+``lax.scan`` over groups becomes a Python loop that indexes group ``g`` of
+each leaf (a view, no copy).  Caches are stacked the same way: KV leaves
+(G, B, T, KV, hd), Mamba2 state leaves ``conv`` (G, B, W-1, C) and
+``ssm`` (G, B, nh, hd, N); an encoder-decoder's prefill cache is
+``{"self": ..., "cross": ...}``, the cross K/V (G, B, T_enc, H, hd).
 
 Three entry points as in the reference: ``forward`` (full sequence; its
 ``moe_aux`` sums every MoE layer's load-balancing loss), ``prefill`` (full
@@ -41,22 +55,6 @@ def _dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
-def _unsupported(cfg: ModelConfig) -> str | None:
-    """Why the port cannot run ``cfg`` yet, or None."""
-    if cfg.is_encdec:
-        return "encoder-decoder models (whisper) come with the model-family slice"
-    if cfg.frontend:
-        return "modality frontends come with the model-family slice"
-    if cfg.family == "hybrid":
-        return "the hybrid family (jamba) comes with its own slice"
-    plan = cfg.layer_plan()
-    # the reference adds learned positions only to a stack with attention
-    # (transformer.py: pos_embed); an attention-free stack has none
-    if not cfg.use_rope and any(m.startswith("attn") for m, _ in plan):
-        return "learned absolute positions come with the model-family slice"
-    return None
-
-
 def _group(tree, g: int):
     """Group ``g`` of every leaf of a group-stacked tree (views)."""
     return {k: _group(v, g) if isinstance(v, dict) else v[g] for k, v in tree.items()}
@@ -75,46 +73,61 @@ class Model:
     device: str | torch.device = "cuda"
 
     def __post_init__(self):
-        why = _unsupported(self.cfg)
-        if why is not None:
-            raise NotImplementedError(f"{self.cfg.name}: {why} (ROADMAP Queue 1)")
         if self.attn not in attn.ATTN_IMPLS:
             raise ValueError(f"attn must be one of {attn.ATTN_IMPLS}, got {self.attn!r}")
         object.__setattr__(self, "device", resolve_device(self.device))
 
     # ---- construction -----------------------------------------------------
-    def init(self, generator: torch.Generator):
+    def init(self, generator: torch.Generator, *, max_seq: int = 4096):
         """Random parameters drawn from ``generator``, which must live on
-        ``self.device``."""
+        ``self.device``.  ``max_seq`` sizes the learned position tables,
+        as the reference's does."""
         cfg = self.cfg
         if torch.device(generator.device).type != self.device.type:
             raise ValueError(f"generator on {generator.device}, model on {self.device}")
         dtype = _dtype(cfg.param_dtype)
-        unit = cfg.scan_unit()
-        groups = (cfg.n_layers // unit,)
-        dev = self.device
+        groups = (self._n_groups(),)
         params = {"embed": embed_init(generator, cfg.vocab_size, cfg.d_model, dtype)}
-        blocks = {}
-        for j, (mixer, ffn) in enumerate(self._unit_plan()):
-            layer = {"mixer_norm": rmsnorm_init(cfg.d_model, dtype, dev, groups)}
-            if mixer == "ssm":
-                layer["mixer"] = ssm.ssm_init(generator, cfg, dtype, groups=groups)
-            else:
-                layer["mixer"] = attn.attn_init(generator, cfg, dtype, groups=groups)
-            if ffn == "dense":
-                layer["ffn_norm"] = rmsnorm_init(cfg.d_model, dtype, dev, groups)
-                layer["ffn"] = mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.mlp_type,
-                                        dtype, groups=groups)
-            elif ffn == "moe":
-                layer["ffn_norm"] = rmsnorm_init(cfg.d_model, dtype, dev, groups)
-                layer["ffn"] = moe_init(generator, cfg, dtype, groups=groups)
-            blocks[f"layer{j}"] = layer
-        params["blocks"] = blocks
-        params["final_norm"] = rmsnorm_init(cfg.d_model, dtype, dev)
+        params["blocks"] = {
+            f"layer{j}": self._init_layer(generator, mixer, ffn, dtype, groups,
+                                          with_cross=cfg.is_encdec)
+            for j, (mixer, ffn) in enumerate(self._unit_plan())}
+        params["final_norm"] = rmsnorm_init(cfg.d_model, dtype, self.device)
         if not cfg.tie_embeddings:
             params["lm_head"] = embed_init(generator, cfg.vocab_size, cfg.d_model,
                                            dtype).T.contiguous()
+        if not cfg.use_rope and any(m.startswith("attn") for m, _ in cfg.layer_plan()):
+            # learned absolute positions (whisper); attention-free stacks
+            # (mamba2) need no positional encoding at all
+            params["pos_embed"] = embed_init(generator, max_seq, cfg.d_model, dtype)
+        if cfg.is_encdec:
+            params["encoder"] = {
+                "pos_embed": embed_init(generator, max_seq, cfg.d_model, dtype),
+                "blocks": {"layer0": self._init_layer(generator, "attn", "dense", dtype,
+                                                      (cfg.n_encoder_layers,),
+                                                      with_cross=False)},
+                "final_norm": rmsnorm_init(cfg.d_model, dtype, self.device)}
         return params
+
+    def _init_layer(self, gen, mixer: str, ffn: str, dtype, groups: tuple, *,
+                    with_cross: bool):
+        cfg, dev = self.cfg, self.device
+        layer = {"mixer_norm": rmsnorm_init(cfg.d_model, dtype, dev, groups)}
+        if mixer == "ssm":
+            layer["mixer"] = ssm.ssm_init(gen, cfg, dtype, groups=groups)
+        else:
+            layer["mixer"] = attn.attn_init(gen, cfg, dtype, groups=groups)
+        if with_cross:
+            layer["cross_norm"] = rmsnorm_init(cfg.d_model, dtype, dev, groups)
+            layer["cross"] = attn.attn_init(gen, cfg, dtype, cross=True, groups=groups)
+        if ffn == "dense":
+            layer["ffn_norm"] = rmsnorm_init(cfg.d_model, dtype, dev, groups)
+            layer["ffn"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype,
+                                    groups=groups)
+        elif ffn == "moe":
+            layer["ffn_norm"] = rmsnorm_init(cfg.d_model, dtype, dev, groups)
+            layer["ffn"] = moe_init(gen, cfg, dtype, groups=groups)
+        return layer
 
     # ---- shared pieces -----------------------------------------------------
     def _embed(self, params, tokens):
@@ -141,6 +154,26 @@ class Model:
     def _n_groups(self) -> int:
         return self.cfg.n_layers // self.cfg.scan_unit()
 
+    # ---- encoder (whisper) --------------------------------------------------
+    def encode(self, params, enc_frames):
+        """enc_frames: (B, T, D) precomputed stub frontend embeddings.
+        Bidirectional attention (the plain sdpa on every route, as in the
+        reference) and a dense MLP a layer, then the final norm."""
+        cfg = self.cfg
+        enc = params["encoder"]
+        t = enc_frames.shape[1]
+        x = enc_frames.to(_dtype(cfg.compute_dtype))
+        x = x + enc["pos_embed"][:t].to(x.dtype)
+        positions = torch.arange(t, device=x.device)
+        for g in range(cfg.n_encoder_layers):
+            sub = _group(enc["blocks"], g)["layer0"]
+            x = x + attn.attn_apply(sub["mixer"], cfg,
+                                    rmsnorm(x, sub["mixer_norm"], cfg.norm_eps),
+                                    positions, causal=False)
+            x = x + mlp_apply(sub["ffn"], rmsnorm(x, sub["ffn_norm"], cfg.norm_eps),
+                              cfg.mlp_type)
+        return rmsnorm(x, enc["final_norm"], cfg.norm_eps)
+
     # ---- full-sequence decoder (forward / prefill core) ---------------------
     def _ffn(self, sub, ffn: str, x):
         """(x + the layer's FFN of x, its MoE aux loss or None)."""
@@ -153,9 +186,10 @@ class Model:
             return x + f, aux
         return x, None
 
-    def _stack(self, params, x, positions, *, collect_cache: bool):
+    def _stack(self, params, x, positions, memory, *, collect_cache: bool):
         """(x, the MoE aux loss summed over layers and groups as the
-        reference's scan carry, the stacked cache or None)."""
+        reference's scan carry, the stacked cache or None).  ``memory`` is
+        the encoder's output (cross-attention after each mixer) or None."""
         cfg = self.cfg
         plan = self._unit_plan()
         caches = []
@@ -177,7 +211,12 @@ class Model:
                 else:
                     a = attn.attn_apply(sub["mixer"], cfg, hin, positions,
                                         local=local, impl=self.attn)
-                x, layer_aux = self._ffn(sub, ffn, x + a)
+                x = x + a
+                if memory is not None:
+                    x = x + attn.attn_apply(sub["cross"], cfg,
+                                            rmsnorm(x, sub["cross_norm"], cfg.norm_eps),
+                                            positions, causal=False, xkv=memory)
+                x, layer_aux = self._ffn(sub, ffn, x)
                 if layer_aux is not None:
                     aux = aux + layer_aux
             caches.append(cache_out)
@@ -188,20 +227,43 @@ class Model:
                    for name in caches[0]}
         return x, aux, stacked
 
-    def forward(self, params, batch):
-        """Full-sequence logits. batch: dict(tokens, positions?)."""
-        tokens = batch["tokens"]
-        x = self._embed(params, tokens)
+    def _inputs(self, params, batch):
+        """(the stack's input x, its positions, the encoder's output or
+        None) for a full-sequence call: token embeddings after the vision
+        prefix where the config has a frontend and the batch holds one,
+        learned positions added where the model has them."""
+        cfg = self.cfg
+        x = self._embed(params, batch["tokens"])
+        if cfg.frontend and "prefix_embeds" in batch:
+            x = torch.cat([batch["prefix_embeds"].to(x.dtype), x], dim=1)
+        s = x.shape[1]
         positions = batch.get("positions")
         if positions is None:
-            positions = torch.arange(x.shape[1], device=x.device)
-        x, aux, _ = self._stack(params, x, positions, collect_cache=False)
+            positions = torch.arange(s, device=x.device)
+        if "pos_embed" in params:
+            x = x + params["pos_embed"][:s].to(x.dtype)
+        memory = None
+        if cfg.is_encdec:
+            if "enc_frames" not in batch:
+                raise ValueError(
+                    f"{cfg.name} is an encoder-decoder model: a full-sequence call needs "
+                    "batch['enc_frames'], the encoder's input frames")
+            memory = self.encode(params, batch["enc_frames"])
+        return x, positions, memory
+
+    def forward(self, params, batch):
+        """Full-sequence logits. batch: dict(tokens, positions?,
+        prefix_embeds?, enc_frames?)."""
+        x, positions, memory = self._inputs(params, batch)
+        x, aux, _ = self._stack(params, x, positions, memory, collect_cache=False)
         return self._logits(params, x), {"moe_aux": aux}
 
     # ---- serving: prefill + decode -------------------------------------------
     def init_cache(self, batch: int, max_len: int):
         """Zeroed cache with leaves stacked over layer groups: KV for an
-        attention layer, the conv window and SSM state for an ssm layer."""
+        attention layer, the conv window and SSM state for an ssm layer.
+        An encoder-decoder's cross K/V come only from ``prefill``, as in
+        the reference: this is its self cache."""
         cfg = self.cfg
         groups = (self._n_groups(),)
         dtype = _dtype(cfg.compute_dtype)
@@ -212,30 +274,43 @@ class Model:
                 for j, (mixer, _) in enumerate(self._unit_plan())}
 
     def prefill(self, params, batch):
-        """Returns (logits_full, cache).  Cache holds S_prefill positions,
-        stacked over groups: (G, B, S, KV, hd), and each ssm layer's state
-        after the whole sequence; the engine copies it into its slot cache
-        for decode_step."""
-        tokens = batch["tokens"]
-        x = self._embed(params, tokens)
-        positions = batch.get("positions")
-        if positions is None:
-            positions = torch.arange(x.shape[1], device=x.device)
-        x, _, cache = self._stack(params, x, positions, collect_cache=True)
+        """Returns (logits_full, cache).  Cache holds S_prefill positions
+        (prefix included), stacked over groups: (G, B, S, KV, hd), and each
+        ssm layer's state after the whole sequence; the engine copies it
+        into its slot cache for decode_step.  An encoder-decoder's cache is
+        ``{"self": ..., "cross": ...}``."""
+        x, positions, memory = self._inputs(params, batch)
+        x, _, cache = self._stack(params, x, positions, memory, collect_cache=True)
+        if memory is not None:
+            cache = {"self": cache, "cross": self._cross_cache(params, memory)}
         return self._logits(params, x), cache
+
+    def _cross_cache(self, params, memory):
+        """Each decoder layer's cross-attention K and V of the encoder's
+        output: ``memory @ wk`` and ``memory @ wv`` (no norm), n_heads
+        heads, stacked over groups."""
+        hd = self.cfg.resolved_head_dim
+        cross = params["blocks"]["layer0"]["cross"]
+        return {name: torch.stack([(memory @ w[g]).reshape(*memory.shape[:-1], -1, hd)
+                                   for g in range(self._n_groups())])
+                for name, w in (("k", cross["wk"]), ("v", cross["wv"]))}
 
     def decode_step(self, params, tokens, cache, pos):
         """tokens: (B,) int; pos: (B,) int current positions.
 
         Returns (logits: (B, vocab), cache); ``cache`` is updated in place
-        and returned."""
+        and returned (an encoder-decoder's cross K/V unchanged)."""
         cfg = self.cfg
         plan = self._unit_plan()
         pos = pos.long()
         x = self._embed(params, tokens[:, None])
+        if "pos_embed" in params:
+            x = x + params["pos_embed"][pos][:, None].to(x.dtype)
+        self_cache = cache["self"] if cfg.is_encdec else cache
+        b, hd = x.shape[0], cfg.resolved_head_dim
         for g in range(self._n_groups()):
             gp = _group(params["blocks"], g)
-            gc = _group(cache, g)
+            gc = _group(self_cache, g)
             for j, (mixer, ffn) in enumerate(plan):
                 sub = gp[f"layer{j}"]
                 hin = rmsnorm(x, sub["mixer_norm"], cfg.norm_eps)
@@ -248,5 +323,13 @@ class Model:
                 else:
                     a, _ = attn.attn_decode(sub["mixer"], cfg, hin, gc[f"layer{j}"], pos,
                                             local=(mixer == "attn_local"))
-                x, _ = self._ffn(sub, ffn, x + a)
+                x = x + a
+                if cfg.is_encdec:
+                    # the plain sdpa over the whole encoder output, no mask
+                    hin = rmsnorm(x, sub["cross_norm"], cfg.norm_eps)
+                    q = (hin @ sub["cross"]["wq"]).reshape(b, 1, cfg.n_heads, hd)
+                    o = attn._sdpa(cfg, q, cache["cross"]["k"][g], cache["cross"]["v"][g],
+                                   None)
+                    x = x + o.reshape(b, 1, -1) @ sub["cross"]["wo"]
+                x, _ = self._ffn(sub, ffn, x)
         return self._logits(params, x)[:, 0], cache

@@ -11,6 +11,11 @@ scheduler-agnostic.
 Where the reference donates the cache to a jitted update, the port writes
 into the slot's row of its cache in place, and decode writes each new
 token's KV in place.
+
+A prefill passes only a request's tokens, as the reference's does.  So a
+model with a vision frontend (internvl2-76b) is served text only, without
+a prefix, and an encoder-decoder model (whisper-small), whose prefill
+needs the encoder's frames, is refused when the engine is built.
 """
 
 from __future__ import annotations
@@ -76,6 +81,11 @@ class InferenceEngine:
     (paper Sec 3.2) — exactly one thread pumps at a time."""
 
     def __init__(self, model: Model, params, cfg: EngineConfig):
+        if model.cfg.is_encdec:
+            raise NotImplementedError(
+                f"{model.cfg.name} is an encoder-decoder model: the engine's prefill "
+                "passes only tokens, and the encoder needs its input frames "
+                "(enc_frames); run it through Model.prefill and Model.decode_step")
         self.model = model
         self.params = params
         self.cfg = cfg

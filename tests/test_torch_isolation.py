@@ -31,6 +31,7 @@ COPIES = [
     "runtime/schedule.py", "runtime/sim.py", "core/simulator.py",
     "configs/metronome_l3fwd.py", "configs/granite_3_8b.py", "configs/starcoder2_15b.py",
     "configs/dbrx_132b.py", "configs/llama4_scout_17b_a16e.py",
+    "configs/jamba_1_5_large_398b.py", "configs/whisper_small.py", "configs/internvl2_76b.py",
 ]
 
 # module -> top-level definitions the port's own module keeps from the

@@ -223,12 +223,15 @@ def test_bf16_parameters_carry_across_bit_for_bit():
     np.testing.assert_array_equal(got.view(torch.int16).numpy().view(np.uint16), ref)
 
 
-@pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-370m", *MOE])
+@pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-370m", *MOE, "jamba-1.5-large-398b",
+                                  "whisper-small", "internvl2-76b"])
 def test_port_init_is_seeded_and_shaped_like_jax(arch):
+    """Every leaf's path and shape at the reference's ``max_seq`` (the
+    learned position tables': whisper's decoder and encoder)."""
     cfg = get_config(arch).reduced()
     model = Model(cfg, device="cpu")
-    a = model.init(torch.Generator().manual_seed(0))
-    b = model.init(torch.Generator().manual_seed(0))
+    a = model.init(torch.Generator().manual_seed(0), max_seq=64)
+    b = model.init(torch.Generator().manual_seed(0), max_seq=64)
     _, jp = _jax_pair(arch)
     flat_t = jax.tree_util.tree_flatten_with_path(a)[0]
     shapes_j = {jax.tree_util.keystr(k): v.shape
@@ -238,20 +241,17 @@ def test_port_init_is_seeded_and_shaped_like_jax(arch):
 
 
 def test_model_rejects_unported_families_and_missing_cuda():
+    """No family is left unported: every config of the reference builds,
+    the hybrid (jamba), encoder-decoder (whisper) and frontend (internvl2)
+    ones too, and a dense stack with learned positions.  An unknown
+    attention route and a missing CUDA device are still refused."""
     cfg = get_config("gemma-2b").reduced()
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        Model(dataclasses.replace(cfg, family="hybrid"), device="cpu")
-    # the hybrid family (ssm + attention + MoE) waits for its own slice, the
-    # encoder-decoder and frontend families and learned positions for theirs
-    for arch, why in (("jamba-1.5-large-398b", "hybrid"), ("whisper-small", "encoder-decoder"),
-                      ("internvl2-76b", "frontends")):
+    for arch in ("jamba-1.5-large-398b", "whisper-small", "internvl2-76b", "dbrx-132b"):
         ref = jax_get_config(arch).reduced()
-        with pytest.raises(NotImplementedError, match=why):
-            Model(ModelConfig(**dataclasses.asdict(ref)), device="cpu")
-    with pytest.raises(NotImplementedError, match="learned absolute positions"):
-        Model(dataclasses.replace(cfg, use_rope=False), device="cpu")
-    # a MoE config builds
-    Model(get_config("dbrx-132b").reduced(), device="cpu")
+        Model(ModelConfig(**dataclasses.asdict(ref)), device="cpu")
+    learned = Model(dataclasses.replace(cfg, use_rope=False), device="cpu")
+    assert learned.init(torch.Generator().manual_seed(0), max_seq=32)["pos_embed"].shape == \
+        (32, cfg.d_model)
     with pytest.raises(ValueError):
         Model(cfg, attn="pallas", device="cpu")
     if not torch.cuda.is_available():

@@ -1,9 +1,10 @@
 """The port's serving stack on the CPU: its engine gives the JAX engine's
 greedy tokens for the same requests and parameters (gemma-2b,
-mamba2-370m, whose slots hold SSM state, and dbrx-132b, whose FFNs are
-MoE), its ``Server`` + ``MetronomePolicy`` completes every request while
-sleeping, the launcher CLI runs end to end, and the reference's int8-KV
-serving and cache tests (tests/test_serving_quant.py,
+mamba2-370m, whose slots hold SSM state, dbrx-132b, whose FFNs are MoE,
+and jamba-1.5-large-398b, the hybrid of both with attention), its
+``Server`` + ``MetronomePolicy`` completes every request while sleeping,
+the launcher CLI runs end to end, and the reference's int8-KV serving
+and cache tests (tests/test_serving_quant.py,
 tests/test_kv_optimizations.py's granite cases) hold on the port with
 the reference's parameters carried across."""
 
@@ -59,14 +60,16 @@ def _port_engine(params=None, attn="kernel", arch="gemma-2b"):
     return InferenceEngine(model, params, EngineConfig(**ENGINE))
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "mamba2-370m", "dbrx-132b"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "mamba2-370m", "dbrx-132b",
+                                  "jamba-1.5-large-398b"])
 def test_engine_greedy_tokens_match_jax_engine(arch):
     """More requests than slots, prompts in both buckets, the kernel route
     on both sides (the reference's pallas rule, live while its engine
     traces in this thread).  A Mamba2 slot's state is copied whole into
     its row, and, as in the reference, has also consumed the prompt's
     padding up to its bucket.  A MoE decode step routes every slot, idle
-    ones too, as the reference's does."""
+    ones too, as the reference's does.  jamba's slots hold KV leaves and
+    SSM state side by side."""
     cfg = dataclasses.replace(jax_get_config(arch).reduced(), **OVERRIDES)
     jm = JaxModel(cfg)
     jp = jm.init(jax.random.PRNGKey(0), max_seq=64)
