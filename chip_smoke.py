@@ -67,6 +67,32 @@ Phases, each a hard failure (nonzero exit, no result line):
    the device-busy share of a prefill and a decode step, and each served
    one its median TTFT, tokens/s and CPU fraction.
 
+Then training (``repro_torch.train``), on the reference's training route
+(``attn=None``: no Pallas kernel of the repo has a backward):
+
+- ``phase_train``: gemma-2b at full width and depth (bf16, f32 moments),
+  four ``make_train_step`` steps of 2 x 1,024 ``TokenDataset`` tokens at lr
+  1e-3 with every launch counter set to 0 just before (K1, K2 and K3
+  none), each step's loss, grad norm, CUDA-event time, tokens/s, peak
+  memory and share of the bf16 peak, one more step under torch.profiler
+  (busy share, kernels a step, the heaviest kernels); finite losses and a
+  lower fourth loss than the first; the first step again with remat from
+  a snapshot of the same state (loss and parameters within 2e-2, a lower
+  peak); a train step on the kernel route raises and launches nothing;
+- ``phase_train_loop``: ``train_loop`` end to end in a subprocess
+  (``--train-loop``, with ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` and
+  deterministic algorithms), mamba2-370m at full width, 8 of its 48
+  layers: six steps saved every two, then a run crashed at step 3 and
+  rerun, which resumes from step 2 with losses equal bit for bit, its
+  final checkpoint (restored on the CPU) equal to the uninterrupted run's
+  (restored on the card); the prefetcher thread's CPU seconds beside the
+  loop's wall time;
+- ``phase_train_entry``: ``repro_torch.launch.train --arch gemma-2b
+  --smoke --steps 4`` on the card: exit 0 and a falling loss.
+
+Their numbers are on a ``{"training": ..., "training_loop": ...}`` line
+before the kernels line, where K1-K3 carry ``training_launches`` (0).
+
 Then the fixed-slot sweep S1 (``slot_sweep``, the reference's
 ``runtime/batched.py`` ``lax.scan``; producer warps and a consumer warp
 over a ring of stages in shared memory), built in phase 1 with the others
@@ -254,6 +280,7 @@ import contextlib
 import ctypes
 import dataclasses
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -2135,6 +2162,319 @@ def phase_internvl2() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return record
+
+
+# gemma-2b trained at full width and depth (phase_train): a global batch of
+# TRAIN_BATCH sequences of TRAIN_SEQ tokens, TRAIN_STEPS steps at
+# launch/train.py's default learning rate
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 1024, 4, 1e-3
+TRAIN_RTOL = 2e-2
+# the loop end to end (phase_train_loop): mamba2-370m at full width cut to
+# LOOP_LAYERS of its 48 layers, LOOP_STEPS steps saved every
+# LOOP_SAVE_EVERY, a crash injected at step LOOP_CRASH
+LOOP_LAYERS, LOOP_STEPS, LOOP_SAVE_EVERY, LOOP_CRASH = 8, 6, 2, 3
+
+
+def _device_batch(batch: dict) -> dict:
+    return {k: torch.from_numpy(v).to("cuda") for k, v in batch.items()}
+
+
+def profile_once(fn, *args) -> dict:
+    """One call of ``fn(*args)`` under torch.profiler (``profiled_runs``):
+    its wall time, the sum of its CUDA kernels' times, their count and the
+    heaviest kernels by name (zeros where the profiler recorded none)."""
+    wall_ms, runs = profiled_runs(fn, *args)
+    by_name = {n: sum(ts) for n, ts in runs.items()}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"wall_ms": wall_ms, "busy_ms": sum(by_name.values()),
+            "kernels": sum(map(len, runs.values())), "top_ms": {n[:80]: ms for n, ms in top}}
+
+
+def train_flops(cfg, n_params: int, tokens: int) -> tuple[float, float]:
+    """(6 N tokens, the attention term) of one training step: 12 L H hd S
+    FLOPs a token for QK^T and PV forward and backward (PaLM's count, the
+    whole S x S square, as the plain sdpa route computes it)."""
+    attn = 12.0 * cfg.n_layers * cfg.n_heads * cfg.resolved_head_dim * TRAIN_SEQ * tokens
+    return 6.0 * n_params * tokens, attn
+
+
+def phase_train() -> dict:
+    """gemma-2b trained at full width and depth (18 layers, 2.51 B
+    parameters) in bf16 with f32 moments on the plain sdpa route
+    (``attn=None``, the reference's training route), random weights from
+    seed 0, ``TokenDataset`` batches: ``TRAIN_STEPS`` steps of
+    ``make_train_step`` at a global batch of ``TRAIN_BATCH`` x
+    ``TRAIN_SEQ`` tokens, with every launch counter set to 0 just before
+    and read just after (K1, K2 and K3 none: training runs no kernel of
+    the repo).  Each step's loss, grad norm, time (CUDA events), tokens/s,
+    peak memory (``torch.cuda.max_memory_allocated``; the step's own above
+    what it started with) and share of the bf16 peak; one more step under
+    torch.profiler for the device's busy share and the kernels a step.
+    Checks: finite losses and grad norms, the last loss below the first;
+    the first step again with remat from the same state (parameters
+    snapshotted on the card, zero moments) within ``TRAIN_RTOL`` in loss
+    and parameters, at a lower peak; a train step on the kernel route
+    raises for want of a backward and launches nothing."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.train import OptConfig, TokenDataset, init_opt, make_train_step
+    from repro_torch.train.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    cfg = get_config("gemma-2b")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"phase train: gemma-2b at full width and depth ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads} KV head, head_dim "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff} {cfg.mlp_type}, vocab {cfg.vocab_size}, "
+        f"{cfg.param_dtype}, moments {cfg.moment_dtype}), random weights from seed 0, attn=None "
+        f"(sdpa); {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens, lr {TRAIN_LR}")
+    model = Model(cfg, attn=None, device="cuda")
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    opt = OptConfig(lr=TRAIN_LR, moment_dtype=cfg.moment_dtype)
+    state = init_opt(params, opt)
+    ds = TokenDataset(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    batches = [_device_batch(ds.batch(i)) for i in range(TRAIN_STEPS)]
+    flops_dense, flops_attn = train_flops(cfg, n_params, tokens)
+    log(f"  {n_params / 1e9:.3f} B parameters, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"with the moments; a step {flops_dense / 1e12:.2f} TFLOP (6 N tokens) + "
+        f"{flops_attn / 1e12:.3f} TFLOP attention (12 L H hd S a token)")
+    p0 = _tree_map(torch.clone, params)
+    step = make_train_step(model, opt, remat=False)
+
+    def timed(fn, batch):
+        nonlocal params, state
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        params, state, metrics = fn(params, state, batch)
+        e1.record()
+        torch.cuda.synchronize()
+        ms = e0.elapsed_time(e1)
+        peak = torch.cuda.max_memory_allocated()
+        row = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+               "ms": ms, "tokens_per_s": tokens / ms * 1e3, "peak_gib": peak / 2**30,
+               "step_peak_gib": (peak - base) / 2**30,
+               "peak_share": (flops_dense + flops_attn) / (PEAK_FLOPS[torch.bfloat16] * ms / 1e3)}
+        return row
+
+    set_launch_counts_to_zero()
+    rows, p1 = [], None
+    for i, batch in enumerate(batches):
+        row = timed(step, batch)
+        rows.append(row)
+        log(f"  step {i}: loss {row['loss']:.5f}, grad norm {row['grad_norm']:.4f}, "
+            f"{row['ms']:.2f} ms (CUDA events), {row['tokens_per_s']:.0f} tokens/s, peak "
+            f"{row['peak_gib']:.2f} GiB (torch.cuda.max_memory_allocated; the step's own "
+            f"{row['step_peak_gib']:.2f} above what it started with), "
+            f"{100 * row['peak_share']:.1f}% of the bf16 peak (989 TFLOP/s)")
+        if i == 0:
+            p1 = _tree_map(torch.clone, params)
+    counts = launch_counts()
+    if any(counts["flash_attention"].values()) or any(counts["decode_attention"].values()) \
+            or counts["ssd_scan"]:
+        fail(f"gemma-2b training launched a kernel of the repo: {counts}")
+    log(f"  launches over the {TRAIN_STEPS} steps: {counts} (counters set to 0 just before)")
+    losses = [r["loss"] for r in rows]
+    if not all(np.isfinite([r["loss"] for r in rows] + [r["grad_norm"] for r in rows])):
+        fail(f"gemma-2b training: a loss or grad norm is not finite: {rows}")
+    if not losses[-1] < losses[0]:
+        fail(f"gemma-2b training: the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    prof = profile_once(step, params, state, batches[0])
+    log(f"  profile one more step: wall {prof['wall_ms']:.2f} ms, device busy "
+        f"{prof['busy_ms']:.2f} ms ({100 * prof['busy_ms'] / prof['wall_ms']:.1f}%), "
+        f"{prof['kernels']} kernels a step; top: "
+        + "; ".join(f"{n} {ms:.2f} ms" for n, ms in prof["top_ms"].items()))
+
+    # the first step again with remat, from the same state
+    for a, b in zip(tree_leaves(params), tree_leaves(p0)):
+        a.copy_(b)
+    del state, p0
+    state = init_opt(params, opt)
+    remat = timed(make_train_step(model, opt, remat=True), batches[0])
+    diff = max(float(((a.float() - b.float()).abs() - TRAIN_RTOL * b.float().abs()).max())
+               for a, b in zip(tree_leaves(params), tree_leaves(p1)))
+    loss_rel = abs(remat["loss"] - rows[0]["loss"]) / abs(rows[0]["loss"])
+    log(f"  remat: first step again from the same state: loss {remat['loss']:.5f} (rel "
+        f"{loss_rel:.2e}), parameters' largest |diff| - {TRAIN_RTOL} |ref| {diff:.2e} "
+        f"(limit {TRAIN_RTOL}), {remat['ms']:.2f} ms; the step's own peak "
+        f"{remat['step_peak_gib']:.2f} GiB with remat, {rows[0]['step_peak_gib']:.2f} without")
+    if loss_rel > TRAIN_RTOL or diff > TRAIN_RTOL:
+        fail("gemma-2b: the remat step differs from the step without remat")
+    if not remat["step_peak_gib"] < rows[0]["step_peak_gib"]:
+        fail("gemma-2b: remat did not lower the step's peak memory")
+    del p1
+
+    # the kernel route has no backward: its train step raises, launching nothing
+    set_launch_counts_to_zero()
+    kstep = make_train_step(Model(cfg, attn="kernel", device="cuda"), opt, remat=False)
+    try:
+        kstep(params, state, batches[0])
+    except RuntimeError as err:
+        if "no backward" not in str(err):
+            fail(f"the kernel route's train step raised {err!r}")
+        log(f"  attn=kernel train step raised: {err}")
+    else:
+        fail("a train step on the kernel route returned")
+    kcounts = launch_counts()
+    if any(kcounts["flash_attention"].values()):
+        fail(f"the kernel route's refused train step launched {kcounts}")
+    record = {"params": n_params, "steps": rows, "remat": remat, "profile": prof,
+              "tflop_dense": flops_dense / 1e12, "tflop_attention": flops_attn / 1e12,
+              "launches": counts, "kernel_route_launches": kcounts["flash_attention"]}
+    del params, state, batches, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["seconds"] = time.perf_counter() - t_phase
+    log(f"phase train: {record['seconds']:.1f} s")
+    return record
+
+
+def train_loop_child(args: list[str]) -> dict:
+    """``--train-loop``: run in a process of its own by
+    ``phase_train_loop``, with ``CUBLAS_WORKSPACE_CONFIG`` set before CUDA
+    starts.  Deterministic algorithms on (warn only: a refused op is named,
+    not fatal); mamba2-370m at full width, ``LOOP_LAYERS`` layers:
+    ``train_loop`` for ``LOOP_STEPS`` steps uninterrupted, then again in a
+    second directory with a crash injected at step ``LOOP_CRASH`` and a
+    rerun, which resumes from the last save.  Returns both runs' losses,
+    the rerun's resume step, wall seconds and prefetcher CPU seconds, the
+    ops torch warned have no deterministic implementation, and whether the
+    two final checkpoints (one restored on the card, one on the CPU) are
+    equal leaf for leaf."""
+    import shutil
+    import tempfile
+    import warnings
+
+    from repro_torch.configs import get_config
+    from repro_torch.train import OptConfig, init_opt, restore_checkpoint, train_loop
+    from repro_torch.train.loop import meta_params
+    from repro_torch.train.tree import tree_leaves
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    cfg = dataclasses.replace(get_config("mamba2-370m"), n_layers=LOOP_LAYERS)
+    kw = dict(steps=LOOP_STEPS, save_every=LOOP_SAVE_EVERY, global_batch=TRAIN_BATCH,
+              seq_len=TRAIN_SEQ, device="cuda")
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+
+    class Preempted(RuntimeError):
+        pass
+
+    def crash(step):
+        if step == LOOP_CRASH and not os.path.exists(os.path.join(root, "crashed")):
+            open(os.path.join(root, "crashed"), "w").close()
+            raise Preempted("injected preemption")
+
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            ref = train_loop(cfg, ckpt_dir=os.path.join(root, "ref"), **kw)
+            try:
+                train_loop(cfg, ckpt_dir=os.path.join(root, "ft"), failure_injector=crash, **kw)
+            except Preempted:
+                pass
+            else:
+                raise RuntimeError("the injected crash did not stop the loop")
+            res = train_loop(cfg, ckpt_dir=os.path.join(root, "ft"), failure_injector=crash,
+                             **kw)
+        like_p = meta_params(cfg, max_seq=TRAIN_SEQ * 2)
+        like = {"params": like_p, "opt": init_opt(like_p, OptConfig(
+            moment_dtype=cfg.moment_dtype))}
+        t0 = time.perf_counter()
+        on_card, _ = restore_checkpoint(os.path.join(root, "ref"), LOOP_STEPS, like,
+                                        device="cuda")
+        on_cpu, _ = restore_checkpoint(os.path.join(root, "ft"), LOOP_STEPS, like,
+                                       device="cpu")
+        restore_s = time.perf_counter() - t0
+        equal = all(a.dtype == b.dtype and torch.equal(a.cpu(), b)
+                    for a, b in zip(tree_leaves(on_card), tree_leaves(on_cpu)))
+        last = os.path.join(root, "ref", f"step_{LOOP_STEPS:09d}")
+        ckpt_bytes = sum(os.path.getsize(os.path.join(last, f)) for f in os.listdir(last))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    nondet = sorted({str(w.message).split("\n")[0][:160] for w in caught
+                     if "deterministic" in str(w.message)})
+    return {"layers": LOOP_LAYERS, "params": sum(x.numel() for x in tree_leaves(like_p)),
+            "ref_losses": ref["losses"], "losses": res["losses"],
+            "resumed_from": res["resumed_from"], "ref_wall_s": ref["wall_s"],
+            "ref_prefetch_cpu_s": ref["prefetch_cpu_s"], "wall_s": res["wall_s"],
+            "prefetch_cpu_s": res["prefetch_cpu_s"], "final_checkpoints_equal": equal,
+            "checkpoint_bytes": ckpt_bytes, "restore_s": restore_s, "nondeterministic": nondet}
+
+
+def phase_train_loop() -> dict:
+    """The training loop end to end on the card, through
+    ``train_loop_child`` in a subprocess (deterministic algorithms there
+    leave the other phases' timings alone).  Checks: the rerun resumes from
+    step ``LOOP_CRASH - 1`` rounded down to a save, its losses equal the
+    uninterrupted run's from there bit for bit (the loop's contract), and
+    the two final checkpoints, restored on the card and on the CPU, are
+    equal leaf for leaf.  Logs the loop's wall seconds beside the input
+    prefetcher thread's CPU seconds (the paper's metric, on the input
+    path)."""
+    t_phase = time.perf_counter()
+    resume = (LOOP_CRASH // LOOP_SAVE_EVERY) * LOOP_SAVE_EVERY
+    log(f"phase train loop: mamba2-370m at full width, {LOOP_LAYERS} of its 48 layers, "
+        f"{LOOP_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens saved every "
+        f"{LOOP_SAVE_EVERY}, a crash at step {LOOP_CRASH}, the rerun resuming from {resume}; "
+        "in a subprocess with CUBLAS_WORKSPACE_CONFIG=:4096:8 and deterministic algorithms")
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--train-loop"],
+                          capture_output=True, text=True, timeout=600,
+                          env={**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
+    if proc.returncode != 0:
+        fail(f"the training loop's subprocess exited {proc.returncode}: "
+             f"{(proc.stdout + proc.stderr)[-3000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])["train_loop"]
+    log(f"  {rec['params'] / 1e6:.1f} M parameters; a checkpoint {rec['checkpoint_bytes'] / 1e9:.3f} "
+        f"GB (f32 leaves); uninterrupted losses {rec['ref_losses']}")
+    log(f"  rerun after the crash resumed from step {rec['resumed_from']}: losses {rec['losses']}")
+    log(f"  wall {rec['ref_wall_s']:.2f} s uninterrupted, {rec['wall_s']:.2f} s the rerun; the "
+        f"prefetcher thread's CPU {rec['ref_prefetch_cpu_s']} s / {rec['prefetch_cpu_s']} s "
+        "(/proc/self/task/<tid>/stat)")
+    log(f"  ops torch has no deterministic implementation of: {rec['nondeterministic'] or 'none'}")
+    if rec["resumed_from"] != resume or rec["losses"] != rec["ref_losses"][resume:]:
+        fail("the resumed run's losses differ from the uninterrupted run's")
+    if not rec["final_checkpoints_equal"]:
+        fail("the two runs' final checkpoints differ")
+    log(f"  final checkpoints, one restored on the card and one on the CPU, equal leaf for leaf "
+        f"({rec['restore_s']:.2f} s)")
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"phase train loop: {rec['seconds']:.1f} s")
+    return rec
+
+
+def phase_train_entry() -> dict:
+    """The launcher, ``repro_torch.launch.train.main`` with ``--arch
+    gemma-2b --smoke --steps 4`` on the card (its default device): exit 0
+    and a falling loss."""
+    import io
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train as launch_train
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_launch_")
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = launch_train.main(["--arch", "gemma-2b", "--smoke", "--steps", "4",
+                                    "--ckpt", root])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    line = out.getvalue().strip().splitlines()[-1]
+    first, last = (float(x) for x in line.split("loss ")[1].split(" -> "))
+    log(f"phase train entry: repro_torch.launch.train --arch gemma-2b --smoke --steps 4: rc {rc}, "
+        f"{line}")
+    if rc != 0 or not last < first:
+        fail("the training launcher failed or its loss did not fall")
+    seconds = time.perf_counter() - t_phase
+    log(f"phase train entry: {seconds:.1f} s")
+    return {"rc": rc, "first": first, "last": last, "seconds": seconds}
 
 
 def phase_serve_models() -> dict[str, dict]:
@@ -4817,20 +5157,14 @@ def phase_fleet_adaptive_main(compared: set, timed: list[dict], s3_main: dict) -
                             "eight_seeds": eight}}
 
 
-def profile(name: str, fn, *args, kernel: tuple[str, str] = ("flash_attention", "flash_fwd"),
-            calls: int = 1, **kwargs) -> dict[str, float]:
-    """Device busy share of a call of ``fn(*args, **kwargs)``: the sum of
-    its CUDA kernels' times (torch.profiler) over its wall time (host clock
-    around synchronised calls), the time of the kernels whose names
-    contain ``kernel[1]`` (reported as ``kernel[0]``), and the kernels that
-    take the most of it, after one warm-up call.  Returns ms a call by
-    kernel name, the median over ``calls`` calls (empty where the profiler
-    recorded no CUDA kernel)."""
+def profiled_runs(fn, *args, calls: int = 1, **kwargs) -> tuple[float, dict[str, list[float]]]:
+    """``calls`` calls of ``fn(*args, **kwargs)`` under torch.profiler: the
+    wall ms a call (host clock around the synchronised calls) and each
+    CUDA kernel's times in ms by name, in time order."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    fn(*args, **kwargs)
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -4842,6 +5176,20 @@ def profile(name: str, fn, *args, kernel: tuple[str, str] = ("flash_attention", 
     for e in sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
                     key=lambda e: e.time_range.start):
         runs.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
+    return wall_ms, runs
+
+
+def profile(name: str, fn, *args, kernel: tuple[str, str] = ("flash_attention", "flash_fwd"),
+            calls: int = 1, **kwargs) -> dict[str, float]:
+    """Device busy share of a call of ``fn(*args, **kwargs)``: the sum of
+    its CUDA kernels' times (torch.profiler) over its wall time (host clock
+    around synchronised calls), the time of the kernels whose names
+    contain ``kernel[1]`` (reported as ``kernel[0]``), and the kernels that
+    take the most of it, after one warm-up call.  Returns ms a call by
+    kernel name, the median over ``calls`` calls (empty where the profiler
+    recorded no CUDA kernel)."""
+    fn(*args, **kwargs)
+    wall_ms, runs = profiled_runs(fn, *args, calls=calls, **kwargs)
     # each call launches the same kernels, so a name's runs, in time order,
     # split evenly into the calls
     by_name = {n: statistics.median(sum(ts[i * len(ts) // calls:(i + 1) * len(ts) // calls])
@@ -4882,7 +5230,8 @@ def main() -> int:
           "--adaptive-ab": phase_adaptive_source_ab,
           "--fleet-adaptive-ab": phase_fleet_adaptive_source_ab,
           "--ssd-ab": phase_ssd_source_ab, "--attention-ab": phase_attention_source_ab,
-          "--decode-ab": phase_decode_source_ab, "--decode-phases": phase_decode_phases}
+          "--decode-ab": phase_decode_source_ab, "--decode-phases": phase_decode_phases,
+          "--train-loop": train_loop_child}
     if sys.argv[1:2] and sys.argv[1] in ab:
         log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                             "--format=csv,noheader"], capture_output=True, text=True,
@@ -4904,6 +5253,9 @@ def main() -> int:
     whisper = phase_whisper()
     internvl2 = phase_internvl2()
     log(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
+    training = phase_train()
+    training_loop = phase_train_loop()
+    phase_train_entry()
     sweep_cmp = phase_compare_sweep()
     s2_cmp = phase_compare_adaptive()
     sweep_rows = phase_time_sweep(sweep_cmp["builds"])
@@ -5064,6 +5416,20 @@ def main() -> int:
         "launches": s3b_main["by_route"]["cluster"],
         "max_abs_err": s3b_cmp["max_abs_err"], **{k: row[k] for k in keys},
         "shape": f"{row['name']}: {row['shape']}", **{k: row[k] for k in extra}})
+    # the training path (phase_train's steps, counters set to 0 just
+    # before) launches none of K1-K3: the reference trains on its plain
+    # attention route and no Pallas kernel of the repo has a backward
+    trained = training["launches"]
+    training_launches = {
+        "flash_attention (wgmma, bf16)": trained["flash_attention"]["wgmma"],
+        "flash_attention (mma, f32)": trained["flash_attention"]["mma"],
+        f"{da} (mma, bf16)": trained["decode_attention"]["mma"],
+        f"{da} (simt, f32)": trained["decode_attention"]["simt"],
+        "ssd_scan": trained["ssd_scan"]}
+    for k in kernels:
+        if k["name"] in training_launches:
+            k["training_launches"] = training_launches[k["name"]]
+    print(json.dumps({"training": training, "training_loop": training_loop}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,10 @@ its layers; ``pos_embed`` and the decoder's ``cross`` leaves as they
 are), so no leaf is transposed or unstacked.  bfloat16 arrays (numpy's
 ``ml_dtypes`` type) are carried bit for bit through their 16-bit
 pattern.
+
+``opt_from_numpy(state, cfg)`` carries the reference's AdamW state
+(``{"m", "v", "count"}``, ``repro.train.init_opt``'s layout) across the
+same way, so a run the reference started can go on in the port.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 
-__all__ = ["params_from_numpy"]
+__all__ = ["params_from_numpy", "opt_from_numpy"]
 
 
 def _leaf(a, device) -> torch.Tensor:
@@ -63,3 +67,12 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     if tree["embed"].shape != (cfg.vocab_size, cfg.d_model):
         raise ValueError(f"embed {tree['embed'].shape} != {(cfg.vocab_size, cfg.d_model)}")
     return _convert(tree, resolve_device(device))
+
+
+def opt_from_numpy(state: dict, cfg: ModelConfig, device="cuda") -> dict:
+    """Reference optimizer state (nested dicts of numpy arrays) -> the
+    port's: moments shaped as the parameters, checked as they are, and the
+    int32 step count."""
+    return {"m": params_from_numpy(state["m"], cfg, device),
+            "v": params_from_numpy(state["v"], cfg, device),
+            "count": _leaf(np.asarray(state["count"], np.int32), resolve_device(device))}

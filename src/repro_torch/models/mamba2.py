@@ -119,10 +119,18 @@ def _conv_tail(x, width):
 
 
 def _segsum_exp(cum):
-    """exp(cum_i - cum_j) masked to i >= j. cum: (..., Q). -> (..., Q, Q)."""
+    """exp(cum_i - cum_j) masked to i >= j. cum: (..., Q). -> (..., Q, Q).
+
+    The masked entries' exponent is set to 0 before the exp, so their
+    exp cannot overflow: the values are the reference's bit for bit, but
+    the gradient stays finite.  The reference takes exp of every entry
+    (``jnp.where(mask, jnp.exp(seg), 0)``); above the diagonal
+    cum_i - cum_j is the decay of the positions between, which overflows
+    once a chunk is long (mamba2-370m's 256), and the masked zero then
+    meets exp's inf in the backward: 0 * inf, a NaN gradient."""
     q = cum.shape[-1]
-    seg = cum[..., :, None] - cum[..., None, :]
     mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=cum.device))
+    seg = torch.where(mask, cum[..., :, None] - cum[..., None, :], 0.0)
     return torch.where(mask, torch.exp(seg), 0.0)
 
 

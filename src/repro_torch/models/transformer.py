@@ -21,14 +21,15 @@ Parameters are a nested dict of tensors in the reference's layout.  The
 per-layer leaves under ``blocks`` keep the reference's leading group axis
 (the layer plan's smallest repeating unit, stacked ``n_layers / unit``
 times; the encoder's ``blocks`` one layer a group), and the reference's
-``lax.scan`` over groups becomes a Python loop that indexes group ``g`` of
-each leaf (a view, no copy).  Caches are stacked the same way: KV leaves
+``lax.scan`` over groups becomes a Python loop over each leaf's groups,
+unbound into views once a call (``_groups``, no copy).  Caches are stacked the same way: KV leaves
 (G, B, T, KV, hd), Mamba2 state leaves ``conv`` (G, B, W-1, C) and
 ``ssm`` (G, B, nh, hd, N); an encoder-decoder's prefill cache is
 ``{"self": ..., "cross": ...}``, the cross K/V (G, B, T_enc, H, hd).
 
 Three entry points as in the reference: ``forward`` (full sequence; its
-``moe_aux`` sums every MoE layer's load-balancing loss), ``prefill`` (full
+``moe_aux`` sums every MoE layer's load-balancing loss; ``remat``
+recomputes each group in the backward), ``prefill`` (full
 sequence -> logits + cache), ``decode_step`` (one token, cache updated in
 place).
 """
@@ -38,6 +39,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -55,9 +57,15 @@ def _dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
-def _group(tree, g: int):
-    """Group ``g`` of every leaf of a group-stacked tree (views)."""
-    return {k: _group(v, g) if isinstance(v, dict) else v[g] for k, v in tree.items()}
+def _groups(tree) -> list[dict]:
+    """Every group of a group-stacked tree, as views (a write through one
+    lands in the tree): one ``unbind`` a leaf, whose backward stacks the
+    groups' gradients into one leaf-sized tensor (indexing each group
+    instead makes a leaf-sized gradient per group, zero-filled and then
+    summed)."""
+    parts = {k: _groups(v) if isinstance(v, dict) else v.unbind(0) for k, v in tree.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: part[g] for k, part in parts.items()} for g in range(n)]
 
 
 @dataclass(frozen=True)
@@ -165,8 +173,8 @@ class Model:
         x = enc_frames.to(_dtype(cfg.compute_dtype))
         x = x + enc["pos_embed"][:t].to(x.dtype)
         positions = torch.arange(t, device=x.device)
-        for g in range(cfg.n_encoder_layers):
-            sub = _group(enc["blocks"], g)["layer0"]
+        for gp in _groups(enc["blocks"]):
+            sub = gp["layer0"]
             x = x + attn.attn_apply(sub["mixer"], cfg,
                                     rmsnorm(x, sub["mixer_norm"], cfg.norm_eps),
                                     positions, causal=False)
@@ -186,39 +194,24 @@ class Model:
             return x + f, aux
         return x, None
 
-    def _stack(self, params, x, positions, memory, *, collect_cache: bool):
+    def _stack(self, params, x, positions, memory, *, collect_cache: bool,
+               remat: bool = False):
         """(x, the MoE aux loss summed over layers and groups as the
         reference's scan carry, the stacked cache or None).  ``memory`` is
-        the encoder's output (cross-attention after each mixer) or None."""
-        cfg = self.cfg
-        plan = self._unit_plan()
+        the encoder's output (cross-attention after each mixer) or None.
+        With ``remat`` each group's layers run under
+        ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` with
+        ``nothing_saveable`` around its scan body): the backward keeps each
+        group's input and recomputes the rest."""
         caches = []
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for g in range(self._n_groups()):
-            gp = _group(params["blocks"], g)
-            cache_out = {}
-            for j, (mixer, ffn) in enumerate(plan):
-                sub = gp[f"layer{j}"]
-                local = mixer == "attn_local"
-                hin = rmsnorm(x, sub["mixer_norm"], cfg.norm_eps)
-                if mixer == "ssm":
-                    a, state = ssm.ssm_forward(sub["mixer"], cfg, hin)
-                    if collect_cache:
-                        cache_out[f"layer{j}"] = state
-                elif collect_cache:
-                    a, cache_out[f"layer{j}"] = attn.attn_prefill(
-                        sub["mixer"], cfg, hin, positions, local=local, impl=self.attn)
-                else:
-                    a = attn.attn_apply(sub["mixer"], cfg, hin, positions,
-                                        local=local, impl=self.attn)
-                x = x + a
-                if memory is not None:
-                    x = x + attn.attn_apply(sub["cross"], cfg,
-                                            rmsnorm(x, sub["cross_norm"], cfg.norm_eps),
-                                            positions, causal=False, xkv=memory)
-                x, layer_aux = self._ffn(sub, ffn, x)
-                if layer_aux is not None:
-                    aux = aux + layer_aux
+        for gp in _groups(params["blocks"]):
+            if remat and not collect_cache:
+                x, aux, _ = checkpoint(self._group_body, gp, x, aux, positions, memory,
+                                       use_reentrant=False, preserve_rng_state=False)
+                continue
+            x, aux, cache_out = self._group_body(gp, x, aux, positions, memory,
+                                                 collect_cache=collect_cache)
             caches.append(cache_out)
         if not collect_cache:
             return x, aux, None
@@ -226,6 +219,35 @@ class Model:
                           for leaf in caches[0][name]}
                    for name in caches[0]}
         return x, aux, stacked
+
+    def _group_body(self, gp, x, aux, positions, memory, *, collect_cache: bool = False):
+        """One layer group (the unit plan) on ``x``: (x, aux, the group's
+        cache entries, empty without ``collect_cache``)."""
+        cfg = self.cfg
+        cache_out = {}
+        for j, (mixer, ffn) in enumerate(self._unit_plan()):
+            sub = gp[f"layer{j}"]
+            local = mixer == "attn_local"
+            hin = rmsnorm(x, sub["mixer_norm"], cfg.norm_eps)
+            if mixer == "ssm":
+                a, state = ssm.ssm_forward(sub["mixer"], cfg, hin)
+                if collect_cache:
+                    cache_out[f"layer{j}"] = state
+            elif collect_cache:
+                a, cache_out[f"layer{j}"] = attn.attn_prefill(
+                    sub["mixer"], cfg, hin, positions, local=local, impl=self.attn)
+            else:
+                a = attn.attn_apply(sub["mixer"], cfg, hin, positions,
+                                    local=local, impl=self.attn)
+            x = x + a
+            if memory is not None:
+                x = x + attn.attn_apply(sub["cross"], cfg,
+                                        rmsnorm(x, sub["cross_norm"], cfg.norm_eps),
+                                        positions, causal=False, xkv=memory)
+            x, layer_aux = self._ffn(sub, ffn, x)
+            if layer_aux is not None:
+                aux = aux + layer_aux
+        return x, aux, cache_out
 
     def _inputs(self, params, batch):
         """(the stack's input x, its positions, the encoder's output or
@@ -251,11 +273,14 @@ class Model:
             memory = self.encode(params, batch["enc_frames"])
         return x, positions, memory
 
-    def forward(self, params, batch):
+    def forward(self, params, batch, *, remat: bool = False):
         """Full-sequence logits. batch: dict(tokens, positions?,
-        prefix_embeds?, enc_frames?)."""
+        prefix_embeds?, enc_frames?).  ``remat`` recomputes each decoder
+        group in the backward (the encoder keeps its activations, as the
+        reference's)."""
         x, positions, memory = self._inputs(params, batch)
-        x, aux, _ = self._stack(params, x, positions, memory, collect_cache=False)
+        x, aux, _ = self._stack(params, x, positions, memory, collect_cache=False,
+                                remat=remat)
         return self._logits(params, x), {"moe_aux": aux}
 
     # ---- serving: prefill + decode -------------------------------------------
@@ -308,9 +333,7 @@ class Model:
             x = x + params["pos_embed"][pos][:, None].to(x.dtype)
         self_cache = cache["self"] if cfg.is_encdec else cache
         b, hd = x.shape[0], cfg.resolved_head_dim
-        for g in range(self._n_groups()):
-            gp = _group(params["blocks"], g)
-            gc = _group(self_cache, g)
+        for g, (gp, gc) in enumerate(zip(_groups(params["blocks"]), _groups(self_cache))):
             for j, (mixer, ffn) in enumerate(plan):
                 sub = gp[f"layer{j}"]
                 hin = rmsnorm(x, sub["mixer_norm"], cfg.norm_eps)

@@ -5,7 +5,15 @@ reference's, and the definitions its own ``runtime/apps.py``,
 ``runtime/batched.py``, ``runtime/batched_adaptive.py``,
 ``runtime/calibrate.py`` and ``runtime/fleet.py`` keep from the reference
 are the reference's text (imports of the reference package read as the
-port's)."""
+port's).
+
+Of the reference's ``test_elastic_reshard_and_compression_subprocess``,
+the restore-onto-a-device half is ported
+(``tests/test_torch_train.py``: ``restore_checkpoint(..., device=)``,
+checkpoints moved between the CPU and the card in ``chip_smoke.py``); its
+int8-on-the-wire half (``compressed_psum_int8`` / ``make_dp_grad_fn``, an
+all-gather over a data axis in ``shard_map``) is not: the port has no
+mesh yet."""
 
 import ast
 import os
@@ -32,6 +40,7 @@ COPIES = [
     "configs/metronome_l3fwd.py", "configs/granite_3_8b.py", "configs/starcoder2_15b.py",
     "configs/dbrx_132b.py", "configs/llama4_scout_17b_a16e.py",
     "configs/jamba_1_5_large_398b.py", "configs/whisper_small.py", "configs/internvl2_76b.py",
+    "train/data.py",
 ]
 
 # module -> top-level definitions the port's own module keeps from the
@@ -50,6 +59,8 @@ PINNED = {
                              "OperatingTable", "analytic_guard_mask", "_event_sim_point",
                              "schedule_spot_check"),
     "runtime/fleet.py": ("__all__", "_LB_CODE", "FleetGrid", "FleetStats"),
+    "train/optimizer.py": ("OptConfig",),
+    "train/checkpoint.py": ("latest_step", "save_checkpoint"),
 }
 
 # an import statement naming jax or the reference package (not repro_torch)
@@ -67,7 +78,8 @@ def test_import_loads_no_jax_and_no_reference_module():
             "repro_torch.runtime.sim", "repro_torch.core.simulator",
             "repro_torch.kernels.adaptive_sweep.ops", "repro_torch.runtime.batched_adaptive",
             "repro_torch.runtime.calibrate", "repro_torch.kernels.fleet_sweep.ops",
-            "repro_torch.runtime.fleet"} <= set(names)
+            "repro_torch.runtime.fleet", "repro_torch.train", "repro_torch.train.loop",
+            "repro_torch.launch.train"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
@@ -121,6 +133,24 @@ def test_fleet_import_loads_no_jax_and_builds_no_kernel():
     code = (
         "import sys\n"
         "from repro_torch.runtime import FleetGrid, FleetStats, simulate_fleet\n"
+        "from repro_torch.kernels import _build\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "print(bad, _build.BUILD_INFO, _build._libs)\n"
+        "sys.exit(1 if bad or _build.BUILD_INFO or _build._libs else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_train_import_loads_no_jax_and_builds_no_kernel():
+    """``repro_torch.train`` and ``repro_torch.launch.train`` load neither
+    jax nor a module of the reference, and build and load no kernel."""
+    code = (
+        "import sys\n"
+        "import repro_torch.train, repro_torch.launch.train\n"
+        "from repro_torch.train import train_loop, make_train_step, AsyncCheckpointer\n"
         "from repro_torch.kernels import _build\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
