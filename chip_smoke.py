@@ -2477,6 +2477,340 @@ def phase_train_entry() -> dict:
     return {"rc": rc, "first": first, "last": last, "seconds": seconds}
 
 
+# the multi-device layer on the card (phase_mesh): gemma-2b at full width and
+# depth through build_cell's steps on a one-rank NCCL mesh, against the plain
+# steps; a prefill of MESH_BATCH x TRAIN_SEQ tokens, MESH_DECODE greedy steps
+MESH_BATCH, MESH_DECODE = 2, 4
+MESH_LOGIT_TOL = 2e-4        # tests/test_torch_model.py
+MESH_LOSS_RTOL, MESH_PARAM_TOL = 2e-4, 2e-3    # tests/test_torch_train.py
+DRYRUN_CELLS = (("mamba2-370m", "long_500k"), ("gemma-2b", "train_4k"))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _full(x):
+    """A DTensor's whole value (a plain tensor as it is)."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def _max_rel(a, b) -> float:
+    """max |a - b| over max |b|, in f32."""
+    a, b = _full(a).float(), _full(b).float()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def mesh_serve(mesh, cfg, params) -> dict:
+    """gemma-2b's prefill and ``MESH_DECODE`` greedy serve steps through
+    ``build_cell``'s prefill_32k and decode_32k steps on parameters, tokens
+    and caches placed by the cells' specs, against the plain steps on the
+    same tensors: the same next tokens, logits within ``MESH_LOGIT_TOL``."""
+    from repro_torch.launch.inputs import build_cell, place_like
+    from repro_torch.models import Model
+    from repro_torch.train import make_prefill_step, make_serve_step
+    from repro_torch.train.tree import tree_items
+
+    model = Model(cfg, attn=None, device="cuda")
+    cell_p = build_cell("gemma-2b", "prefill_32k", mesh)
+    cell_d = build_cell("gemma-2b", "decode_32k", mesh)
+    gen = torch.Generator("cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (MESH_BATCH, TRAIN_SEQ), device="cuda",
+                           generator=gen)
+    make_prefill_step(model)(params, {"tokens": tokens})      # warm-up, untimed
+    out = {}
+    for name, run_p, run_d in (
+            ("plain", lambda p, b: make_prefill_step(model)(p, b),
+             lambda *a: make_serve_step(model)(*a)),
+            ("mesh", lambda p, b: cell_p.run(place_like(p, cell_p.args[0]),
+                                              place_like(b, cell_p.args[1])),
+             lambda p, t, c, q: cell_d.run(place_like(p, cell_d.args[0]),
+                                           place_like(t, cell_d.args[1]),
+                                           place_like(c, cell_d.args[2]),
+                                           place_like(q, cell_d.args[3])))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        next_tok, logits, pre = run_p(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        cache = model.init_cache(MESH_BATCH, TRAIN_SEQ + MESH_DECODE)
+        for (path, leaf), (_, value) in zip(tree_items(cache), tree_items(pre)):
+            leaf[:, :, :TRAIN_SEQ] = _full(value)
+        toks, tok = [_full(next_tok).clone()], _full(next_tok)
+        pos = torch.full((MESH_BATCH,), TRAIN_SEQ, device="cuda", dtype=torch.int32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(MESH_DECODE - 1):
+            tok, cache = run_d(params, tok.int(), cache, pos + i)
+            tok = _full(tok)
+            toks.append(tok.clone())
+        torch.cuda.synchronize()
+        out[name] = {"logits": _full(logits)[:, -1].float(), "tokens": torch.stack(toks, 1),
+                     "prefill_ms": prefill_ms,
+                     "decode_ms": (time.perf_counter() - t0) * 1e3 / (MESH_DECODE - 1)}
+        del logits, pre, cache
+    plain, mesh_run = out["plain"], out["mesh"]
+    rec = {"tokens_equal": bool(torch.equal(plain["tokens"], mesh_run["tokens"])),
+           "logits_max_rel": _max_rel(mesh_run["logits"], plain["logits"]),
+           "logits_bit_equal": bool(torch.equal(mesh_run["logits"], plain["logits"])),
+           **{f"{k}_{n}": out[n][k] for n in out for k in ("prefill_ms", "decode_ms")}}
+    log(f"  serve: prefill of {MESH_BATCH} x {TRAIN_SEQ} then {MESH_DECODE - 1} greedy steps "
+        f"through build_cell's prefill_32k / decode_32k steps: tokens equal "
+        f"{rec['tokens_equal']}, last-position logits max rel {rec['logits_max_rel']:.2e} "
+        f"(limit {MESH_LOGIT_TOL}), bit-equal {rec['logits_bit_equal']}; prefill "
+        f"{rec['prefill_ms_plain']:.1f} ms plain / {rec['prefill_ms_mesh']:.1f} ms mesh, a "
+        f"step {rec['decode_ms_plain']:.1f} / {rec['decode_ms_mesh']:.1f} ms (host clock, after an "
+        "untimed plain prefill)")
+    if not rec["tokens_equal"] or rec["logits_max_rel"] > MESH_LOGIT_TOL:
+        fail(f"the mesh prefill and serve steps differ from the plain ones: {rec}")
+    return rec
+
+
+def mesh_train(mesh, cfg, params) -> dict:
+    """One train step of ``MESH_BATCH`` x ``TRAIN_SEQ`` ``TokenDataset``
+    tokens through ``build_cell``'s train_4k step on parameters, moments and
+    a batch placed by the cell's specs, against the plain step from the same
+    state (``params`` snapshotted, zero moments): the loss within
+    ``MESH_LOSS_RTOL``, every updated parameter within ``MESH_PARAM_TOL`` of
+    its leaf's largest magnitude."""
+    import gc
+
+    from repro_torch.launch.inputs import build_cell, place_like
+    from repro_torch.models import Model
+    from repro_torch.train import TokenDataset, init_opt, make_train_step
+    from repro_torch.train.tree import tree_leaves
+
+    cell = build_cell("gemma-2b", "train_4k", mesh, remat=False)
+    opt = cell.meta["opt"]
+    batch = _device_batch(TokenDataset(cfg.vocab_size, TRAIN_SEQ, MESH_BATCH, seed=0).batch(0))
+    p0 = _tree_map(torch.clone, params)
+    step = make_train_step(Model(cfg, attn=None, device="cuda"), opt, remat=False)
+    step(params, init_opt(params, opt), batch)                # warm-up, untimed
+    for a, b in zip(tree_leaves(params), tree_leaves(p0)):
+        a.copy_(b)
+    times, metrics = {}, {}
+    for name in ("plain", "mesh"):
+        state = init_opt(params, opt)
+        args = (params, state, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "plain":
+            _, _, m = step(*args)
+        else:
+            out, _, m = cell.run(*place_like(args, cell.args))
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        metrics[name] = {k: float(_full(v)) for k, v in m.items()}
+        del state, args
+        if name == "plain":
+            p1 = _tree_map(torch.clone, params)
+            for a, b in zip(tree_leaves(params), tree_leaves(p0)):
+                a.copy_(b)
+            del p0, m
+            gc.collect()
+            torch.cuda.empty_cache()
+    got = [_full(x) for x in tree_leaves(out)]
+    worst = max(_max_rel(a, b) for a, b in zip(got, tree_leaves(p1)))
+    bit = all(torch.equal(a, b) for a, b in zip(got, tree_leaves(p1)))
+    loss_rel = abs(metrics["mesh"]["loss"] - metrics["plain"]["loss"]) / abs(
+        metrics["plain"]["loss"])
+    rec = {"metrics": metrics, "loss_rel": loss_rel, "params_max_rel": worst,
+           "params_bit_equal": bit,
+           "loss_bit_equal": metrics["mesh"]["loss"] == metrics["plain"]["loss"],
+           **{f"ms_{k}": v for k, v in times.items()}}
+    log(f"  train: one step of {MESH_BATCH} x {TRAIN_SEQ} tokens through build_cell's train_4k "
+        f"step: loss {metrics['mesh']['loss']:.6f} against {metrics['plain']['loss']:.6f} plain "
+        f"(rel {loss_rel:.2e}, limit {MESH_LOSS_RTOL}; bit-equal {rec['loss_bit_equal']}), "
+        f"grad norm {metrics['mesh']['grad_norm']:.4f} / {metrics['plain']['grad_norm']:.4f}, "
+        f"updated parameters' largest |diff| / leaf max {worst:.2e} (limit {MESH_PARAM_TOL}; "
+        f"bit-equal {bit}); {times['plain']:.1f} ms plain / {times['mesh']:.1f} ms mesh "
+        "(host clock, after an untimed plain step)")
+    del p1, got, out
+    if loss_rel > MESH_LOSS_RTOL or worst > MESH_PARAM_TOL:
+        fail(f"the mesh train step differs from the plain one: {rec}")
+    return rec
+
+
+def mesh_collectives(mesh) -> dict:
+    """``compressed_psum_int8`` and ``make_dp_grad_fn`` over the NCCL data
+    axis (int8 on the wire, recorded by ``CostTrace``; compressed against
+    exact under 0.02 relative), ``gpipe`` with one stage against the
+    sequential layers (1e-5; gradients 2e-4), and ``restore_checkpoint(
+    shardings=)`` of a checkpoint written on the host onto the mesh, equal
+    leaf for leaf."""
+    import shutil
+    import tempfile
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.roofline.analysis import CostTrace
+    from repro_torch.sharding.pipeline import gpipe
+    from repro_torch.sharding.policy import NamedSharding, to_placements
+    from repro_torch.train import (compressed_psum_int8, make_dp_grad_fn, restore_checkpoint,
+                                   save_checkpoint)
+
+    rec, t0 = {}, time.perf_counter()
+    gen = torch.Generator("cuda").manual_seed(2)
+    # the reference test's data-parallel gradient, and one gemma-2b-sized MLP leaf
+    params = {"w": torch.randn(6, 1, device="cuda", generator=gen)}
+    batch = torch.randn(32, 6, device="cuda", generator=gen)
+
+    def loss(p, bt):
+        return torch.mean((bt @ p["w"]) ** 2)
+
+    with CostTrace() as trace:
+        gc = make_dp_grad_fn(loss, mesh, compress=True)(params, batch)["w"]
+        big = {"w_up": torch.randn(2048, 16384, device="cuda", generator=gen).bfloat16()}
+        summed = compressed_psum_int8(big, mesh.get_group("data"))["w_up"]
+    ge = make_dp_grad_fn(loss, mesh, compress=False)(params, batch)["w"]
+    wire = sorted({(k, str(d)) for k, _, d in trace.collectives})
+    rec["dp_rel"] = float((gc - ge).norm() / ge.norm())
+    rec["psum_rel"] = float((summed.float() - big["w_up"].float()).norm()
+                            / big["w_up"].float().norm())
+    rec["wire"] = wire
+    rec["collectives_s"] = time.perf_counter() - t0
+    log(f"  compression over NCCL: make_dp_grad_fn compressed against exact rel "
+        f"{rec['dp_rel']:.2e}, compressed_psum_int8 of a 2048 x 16384 bf16 leaf rel "
+        f"{rec['psum_rel']:.2e} (limit 0.02); on the wire {wire}; {rec['collectives_s']:.2f} s")
+    if rec["dp_rel"] > 0.02 or rec["psum_rel"] > 0.02 or ("all-gather", "torch.int8") not in wire:
+        fail(f"the compressed reduction over NCCL: {rec}")
+
+    t0 = time.perf_counter()
+    pipe = init_device_mesh("cuda", (1,), mesh_dim_names=("pipe",))
+    w = torch.randn(8, 12, 12, device="cuda", generator=gen) * 0.3
+    b = torch.randn(8, 12, device="cuda", generator=gen) * 0.1
+    x = torch.randn(16, 12, device="cuda", generator=gen)
+
+    def block(p, h):
+        return torch.tanh(h @ p["w"] + p["b"])
+
+    wp, ws = w.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    y = gpipe(block, {"w": wp, "b": b}, x, pipe, n_microbatches=4)
+    h = x
+    for layer in range(8):
+        h = block({"w": ws[layer], "b": b[layer]}, h)
+    (gp,) = torch.autograd.grad((y ** 2).sum(), wp)
+    (gs,) = torch.autograd.grad((h ** 2).sum(), ws)
+    rec["gpipe_err"] = float((y - h).abs().max())
+    rec["gpipe_grad_err"] = float((gp - gs).abs().max())
+    rec["gpipe_s"] = time.perf_counter() - t0
+    log(f"  gpipe, one stage of 8 layers, 4 microbatches: output |diff| {rec['gpipe_err']:.2e} "
+        f"(limit 1e-5), grad |diff| {rec['gpipe_grad_err']:.2e} (limit 2e-4); "
+        f"{rec['gpipe_s']:.2f} s")
+    if rec["gpipe_err"] > 1e-5 or rec["gpipe_grad_err"] > 2e-4:
+        fail(f"gpipe differs from the sequential layers: {rec}")
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_reshard_")
+    try:
+        tree = {"a": np.arange(48, dtype=np.float32).reshape(8, 6),
+                "b": {"c": np.random.default_rng(0).standard_normal((1024, 256)).astype(
+                    np.float32)}}
+        save_checkpoint(root, 3, tree)
+        like = {"a": torch.empty((8, 6), device="meta"),
+                "b": {"c": torch.empty((1024, 256), dtype=torch.bfloat16, device="meta")}}
+        shd = {"a": NamedSharding(mesh, to_placements(("data", "model"), mesh)),
+               "b": {"c": NamedSharding(mesh, to_placements(("data", None), mesh))}}
+        got, meta = restore_checkpoint(root, 3, like, shardings=shd)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    ok = (meta["step"] == 3 and got["a"].device.type == "cuda"
+          and np.array_equal(got["a"].full_tensor().cpu().numpy(), tree["a"])
+          and torch.equal(got["b"]["c"].full_tensor().cpu(),
+                          torch.from_numpy(tree["b"]["c"]).bfloat16()))
+    rec["reshard_ok"], rec["reshard_s"] = bool(ok), time.perf_counter() - t0
+    log(f"  restore_checkpoint(shardings=) onto the cuda mesh: equal {ok}, placements "
+        f"{got['a'].placements}; {rec['reshard_s']:.2f} s")
+    if not ok:
+        fail("the checkpoint restored onto the mesh differs from the one written")
+    return rec
+
+
+def mesh_dryruns() -> dict:
+    """``python -m repro_torch.launch.dryrun`` on ``DRYRUN_CELLS`` as
+    subprocesses (their fake process groups are theirs): exit 0, one cell
+    OK, their roofline lines."""
+    rec = {}
+    for arch, shape in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape],
+            capture_output=True, text=True, timeout=300, cwd=ROOT,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        lines = [ln.strip() for ln in proc.stdout.splitlines()
+                 if ln.strip().startswith(("roofline:", "cost:", "memory", "== "))]
+        rec[f"{arch} x {shape}"] = {"rc": proc.returncode, "lines": lines,
+                                    "seconds": time.perf_counter() - t0}
+        log(f"  dryrun {arch} x {shape} @ 16x16 (a fake group of 256 ranks in the subprocess): "
+            f"rc {proc.returncode}, {rec[f'{arch} x {shape}']['seconds']:.1f} s")
+        for ln in lines:
+            log(f"    {ln}")
+        if proc.returncode != 0 or "1 cells compiled OK, 0 failed" not in proc.stdout:
+            fail(f"the dry run of {arch} x {shape} failed: "
+                 f"{(proc.stdout + proc.stderr)[-3000:]}")
+    return rec
+
+
+def phase_mesh() -> dict:
+    """The multi-device layer on the card (``launch.mesh``,
+    ``launch.inputs``, ``sharding``, ``train.compression``'s collectives,
+    reshard-on-restore, the dry run), on a one-rank NCCL process group
+    (not the dry run's fake one) and ``make_host_mesh(1, 1)`` on "cuda":
+    gemma-2b at full width and depth (bf16, random weights from seed 0,
+    ``attn=None``, the cells' route) through ``build_cell``'s prefill,
+    serve and train steps against the plain steps (``mesh_serve``,
+    ``mesh_train``), with every launch counter set to 0 just before (the
+    cells reach no kernel of the repo); then ``mesh_collectives`` and
+    ``mesh_dryruns``.  Each part logs its wall time; any failure fails the
+    script."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import Model
+
+    t_phase = time.perf_counter()
+    log("phase mesh: " + subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1, device_type="cuda")
+        log(f"  a one-rank NCCL group ({dist.get_backend()}), mesh {mesh}")
+        cfg = get_config("gemma-2b")
+        params = Model(cfg, attn=None, device="cuda").init(torch.Generator("cuda").manual_seed(0))
+        set_launch_counts_to_zero()
+        t0 = time.perf_counter()
+        rec = {"serve": mesh_serve(mesh, cfg, params)}
+        rec["serve"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rec["train"] = mesh_train(mesh, cfg, params)
+        rec["train"]["seconds"] = time.perf_counter() - t0
+        rec["launches"] = launch_counts()
+        if any(rec["launches"]["flash_attention"].values()) or any(
+                rec["launches"]["decode_attention"].values()) or rec["launches"]["ssd_scan"]:
+            fail(f"the mesh phase launched a kernel of the repo: {rec['launches']}")
+        log(f"  serve {rec['serve']['seconds']:.1f} s, train {rec['train']['seconds']:.1f} s; "
+            f"launches {rec['launches']} (counters set to 0 just before)")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["collectives"] = mesh_collectives(mesh)
+    finally:
+        dist.destroy_process_group()
+    rec["dryrun"] = mesh_dryruns()
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"phase mesh: {rec['seconds']:.1f} s")
+    return rec
+
+
 def phase_serve_models() -> dict[str, dict]:
     """Phase 4, the other served models (``SERVED_MODELS``) at full width,
     bf16, random weights from seed 0, one at a time (each freed, with the
@@ -5231,7 +5565,7 @@ def main() -> int:
           "--fleet-adaptive-ab": phase_fleet_adaptive_source_ab,
           "--ssd-ab": phase_ssd_source_ab, "--attention-ab": phase_attention_source_ab,
           "--decode-ab": phase_decode_source_ab, "--decode-phases": phase_decode_phases,
-          "--train-loop": train_loop_child}
+          "--train-loop": train_loop_child, "--mesh": lambda _: phase_mesh()}
     if sys.argv[1:2] and sys.argv[1] in ab:
         log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                             "--format=csv,noheader"], capture_output=True, text=True,
@@ -5256,6 +5590,7 @@ def main() -> int:
     training = phase_train()
     training_loop = phase_train_loop()
     phase_train_entry()
+    mesh = phase_mesh()
     sweep_cmp = phase_compare_sweep()
     s2_cmp = phase_compare_adaptive()
     sweep_rows = phase_time_sweep(sweep_cmp["builds"])
@@ -5429,7 +5764,20 @@ def main() -> int:
     for k in kernels:
         if k["name"] in training_launches:
             k["training_launches"] = training_launches[k["name"]]
-    print(json.dumps({"training": training, "training_loop": training_loop}), flush=True)
+    # nor does the mesh phase (the dry run's cells run the plain attention
+    # route, as the reference's)
+    meshed = mesh["launches"]
+    mesh_launches = {
+        "flash_attention (wgmma, bf16)": meshed["flash_attention"]["wgmma"],
+        "flash_attention (mma, f32)": meshed["flash_attention"]["mma"],
+        f"{da} (mma, bf16)": meshed["decode_attention"]["mma"],
+        f"{da} (simt, f32)": meshed["decode_attention"]["simt"],
+        "ssd_scan": meshed["ssd_scan"]}
+    for k in kernels:
+        if k["name"] in mesh_launches:
+            k["mesh_launches"] = mesh_launches[k["name"]]
+    print(json.dumps({"training": training, "training_loop": training_loop, "mesh": mesh}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

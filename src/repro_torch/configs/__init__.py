@@ -26,7 +26,7 @@ testbed: ``PAPER_CONFIG``, ``PAPER_SIM``).  It is not a model, so, as in
 the reference, it is imported by its module path and not registered.
 """
 
-from .base import ModelConfig, ShapeConfig, SHAPES, get_config, list_configs, register
+from .base import ModelConfig, ShapeConfig, SHAPES, cells, get_config, list_configs, register
 from . import (  # noqa: F401  (registration side effects)
     dbrx_132b,
     gemma_2b,
@@ -40,5 +40,5 @@ from . import (  # noqa: F401  (registration side effects)
     whisper_small,
 )
 
-__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "get_config",
+__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "cells", "get_config",
            "list_configs", "register"]

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.sharding.logical import merge_last, splittable
 from .layers import apply_rope, dense_init, rmsnorm, rmsnorm_init, softcap
 
 __all__ = ["ATTN_IMPLS", "attn_init", "attn_apply", "attn_prefill", "attn_decode",
@@ -50,9 +51,9 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype, *, cross: bool = Fa
 
 def _project_qkv(p, cfg: ModelConfig, xq, xkv):
     hd = cfg.resolved_head_dim
-    q = (xq @ p["wq"]).reshape(*xq.shape[:-1], -1, hd)
-    k = (xkv @ p["wk"]).reshape(*xkv.shape[:-1], -1, hd)
-    v = (xkv @ p["wv"]).reshape(*xkv.shape[:-1], -1, hd)
+    q = splittable(xq @ p["wq"], hd).reshape(*xq.shape[:-1], -1, hd)
+    k = splittable(xkv @ p["wk"], hd).reshape(*xkv.shape[:-1], -1, hd)
+    v = splittable(xkv @ p["wv"], hd).reshape(*xkv.shape[:-1], -1, hd)
     if "q_norm" in p:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
@@ -69,7 +70,7 @@ def _sdpa(cfg: ModelConfig, q, k, v, mask, *, k_scale=None, v_scale=None):
     b, s, h, hd = q.shape
     t, kv = k.shape[1], k.shape[2]
     groups = h // kv
-    qg = q.reshape(b, s, kv, groups, hd)
+    qg = splittable(q, groups, 2).reshape(b, s, kv, groups, hd)
     logits = torch.einsum("bskgd,btkd->bkgst", qg, k.to(q.dtype)).float()
     if k_scale is not None:
         logits = logits * k_scale.permute(0, 2, 1)[:, :, None, None, :]
@@ -98,7 +99,7 @@ def _sdpa_chunked(cfg: ModelConfig, q, k, v, *, causal: bool, window: int,
     if t % ck:
         return None
     f32 = torch.float32
-    qg = q.reshape(b, s, kvh, g, hd).float() * hd ** -0.5
+    qg = splittable(q, g, 2).reshape(b, s, kvh, g, hd).float() * hd ** -0.5
     qpos = torch.arange(s, device=q.device)
     m = torch.full((b, kvh, g, s), NEG_INF, dtype=f32, device=q.device)
     l = torch.zeros((b, kvh, g, s), dtype=f32, device=q.device)
@@ -173,7 +174,7 @@ def attn_apply(p, cfg: ModelConfig, x, positions, *, local: bool = False,
     if causal:
         mask = _causal_mask(x.shape[1], xkv.shape[1], 0, window, x.device)[None, None, None]
     out = _attention(cfg, q, k, v, mask, causal=causal, window=window, impl=impl)
-    return out.reshape(*x.shape[:-1], -1) @ p["wo"]
+    return merge_last(out) @ p["wo"]
 
 
 # ---------------------------------------------------------------------------
@@ -214,12 +215,41 @@ def attn_prefill(p, cfg: ModelConfig, x, positions, *, local: bool = False,
     window = cfg.local_window if local else 0
     mask = _causal_mask(x.shape[1], x.shape[1], 0, window, x.device)[None, None, None]
     out = _attention(cfg, q, k, v, mask, causal=True, window=window, impl=impl)
-    y = out.reshape(*x.shape[:-1], -1) @ p["wo"]
+    y = merge_last(out) @ p["wo"]
     if cfg.kv_quant:
         k8, ks = _quantize_kv(k)
         v8, vs = _quantize_kv(v)
         return y, {"k": k8, "v": v8, "k_scale": ks, "v_scale": vs}
     return y, {"k": k, "v": v}
+
+
+def _write_rows(cache, bi, pos, value):
+    """``cache[bi, pos] = value`` in place, ``bi`` = arange(B): one row a
+    sequence.  On a DTensor cache (DTensor has no rule for ``index_put_``)
+    each rank writes into its own block: its batch rows, each at its
+    position where that lies in the rank's part of the sequence, the
+    others rewritten with what they hold."""
+    if type(cache) is torch.Tensor:
+        cache[bi, pos] = value
+        return
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh = cache.device_mesh
+    shape, offset = compute_local_shape_and_global_offset(cache.shape, mesh, cache.placements)
+
+    def rows(x):
+        """x's rows of this rank's batch block, replicated first."""
+        if isinstance(x, DTensor):
+            x = x.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+        return x[offset[0]:offset[0] + shape[0]]
+
+    local = cache.to_local()
+    t = rows(pos) - offset[1]
+    inside = (t >= 0) & (t < shape[1])
+    b, t = torch.arange(shape[0], device=local.device), t.clamp(0, shape[1] - 1)
+    inside = inside.view(-1, *([1] * (local.dim() - 2)))
+    local[b, t] = torch.where(inside, rows(value), local[b, t])
 
 
 def attn_decode(p, cfg: ModelConfig, x, cache, pos, *, local: bool = False):
@@ -244,14 +274,14 @@ def attn_decode(p, cfg: ModelConfig, x, cache, pos, *, local: bool = False):
     if cfg.kv_quant:
         k8, ks = _quantize_kv(k[:, 0])
         v8, vs = _quantize_kv(v[:, 0])
-        cache["k"][bi, wpos] = k8
-        cache["v"][bi, wpos] = v8
-        cache["k_scale"][bi, wpos] = ks
-        cache["v_scale"][bi, wpos] = vs
+        _write_rows(cache["k"], bi, wpos, k8)
+        _write_rows(cache["v"], bi, wpos, v8)
+        _write_rows(cache["k_scale"], bi, wpos, ks)
+        _write_rows(cache["v_scale"], bi, wpos, vs)
         scales = {"k_scale": cache["k_scale"], "v_scale": cache["v_scale"]}
     else:
-        cache["k"][bi, wpos] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][bi, wpos] = v[:, 0].to(cache["v"].dtype)
+        _write_rows(cache["k"], bi, wpos, k[:, 0].to(cache["k"].dtype))
+        _write_rows(cache["v"], bi, wpos, v[:, 0].to(cache["v"].dtype))
     kpos = torch.arange(t, device=x.device)[None, :]      # (1,T)
     if ring:
         # every slot holds the latest position congruent to it (<= pos);

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding.logical import splittable
 from .layers import dense_init, rmsnorm, rmsnorm_init
 
 __all__ = ["ssm_init", "ssm_dims", "ssm_forward", "ssm_decode", "init_ssm_state",
@@ -195,7 +196,7 @@ def ssm_forward(p, cfg: ModelConfig, x):
     xs, bmat, cmat = torch.split(conv_out, [d_in, ds, ds], dim=-1)
     dt = F.softplus((x @ p["wdt"]).float() + p["dt_bias"][None, None, :])
     a = -torch.exp(p["A_log"])
-    xh = xs.reshape(*xs.shape[:-1], nh, hd)
+    xh = splittable(xs, hd).reshape(*xs.shape[:-1], nh, hd)
     y, h_final = ssd_chunked(xh.float(), dt, a, bmat, cmat,
                              min(cfg.ssm_chunk, x.shape[1]))
     y = y + xh.float() * p["D"][None, None, :, None]
@@ -230,7 +231,7 @@ def ssm_decode(p, cfg: ModelConfig, x, state):
     dt = F.softplus((x @ p["wdt"]).float() +
                     p["dt_bias"][None, None, :])[:, 0]      # (B,nh)
     a = -torch.exp(p["A_log"])
-    xh = xs[:, 0].reshape(b, nh, hd).float()
+    xh = splittable(xs[:, 0], hd).reshape(b, nh, hd).float()
     decay = torch.exp(dt * a[None, :])                      # (B,nh)
     h = state["ssm"] * decay[..., None, None] + torch.einsum(
         "bh,bn,bhd->bhdn", dt, bmat[:, 0].float(), xh)

@@ -13,9 +13,11 @@ zeros, so no step waits on the host for a count.
 The expert products are ``torch.bmm`` over the buffer, as the reference's
 ``jnp.einsum`` outside any kernel: ``moe.py`` has no Pallas kernel.
 
-Not ported: the reference's multi-device path (``_moe_shard_map``,
-``_moe_sharding_ok``: expert parallelism by ``shard_map`` with all-to-all
-exchanges).  The port runs on one device.
+On DTensors (the dry run, a mesh) the buffers carry the reference's
+``shard(..., ("expert", "expert_capacity", None))`` annotations and the
+scatter runs replicated (``_dispatch``).  Not ported: the reference's
+expert-parallel path (``_moe_shard_map``, ``_moe_sharding_ok``: ``shard_map``
+with all-to-all exchanges behind the ``moe=shard_map`` rule).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding.logical import shard
 from .layers import dense_init, mlp_apply, mlp_init
 
 __all__ = ["moe_init", "moe_apply"]
@@ -104,6 +107,25 @@ def _expert_mlp(cfg: ModelConfig, p, buf):
     return torch.bmm(h, p["w_down"])
 
 
+def _dispatch(e: int, cap: int, eid, slot, contrib):
+    """The (E, C, D) buffer with each row of ``contrib`` added at (eid, slot).
+    DTensor has no sharding rule for ``index_put_(accumulate=True)``: on
+    DTensors the operands come to Replicate (the all-gathers that costs are
+    issued, as the reference's GSPMD lowers this scatter to full-buffer
+    collectives), the local op runs, and the buffer is wrapped back,
+    replicated."""
+    if type(contrib) is not torch.Tensor:
+        from torch.distributed.tensor import DTensor, Replicate
+
+        mesh = contrib.device_mesh
+        rep = [Replicate()] * mesh.ndim
+        local = _dispatch(e, cap, *(t.redistribute(mesh, rep).to_local()
+                                    for t in (eid, slot, contrib)))
+        return DTensor.from_local(local, mesh, rep, run_check=False)
+    buf = torch.zeros((e, cap, contrib.shape[-1]), dtype=contrib.dtype, device=contrib.device)
+    return buf.index_put_((eid, slot), contrib, accumulate=True)
+
+
 def moe_apply(p, cfg: ModelConfig, x):
     """x: (B, S, D) -> (y, aux_loss).  Top-k routing, renormalized weights."""
     b, s, d = x.shape
@@ -126,10 +148,9 @@ def moe_apply(p, cfg: ModelConfig, x):
     slot = pos.clamp_max(cap - 1)
     xk = xf[:, None, :].expand(t, k, d).reshape(t * k, d)
     contrib = torch.where(keep[:, None], xk, 0).to(x.dtype)
-    buf = torch.zeros((e, cap, d), dtype=x.dtype, device=x.device)
-    buf.index_put_((eid, slot), contrib, accumulate=True)
+    buf = shard(_dispatch(e, cap, eid, slot, contrib), ("expert", "expert_capacity", None))
 
-    out_buf = _expert_mlp(cfg, p, buf)
+    out_buf = shard(_expert_mlp(cfg, p, buf), ("expert", "expert_capacity", None))
 
     # --- combine ----------------------------------------------------------
     gathered = out_buf[eid, slot]                                  # (T*k, D)

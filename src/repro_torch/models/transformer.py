@@ -27,6 +27,11 @@ unbound into views once a call (``_groups``, no copy).  Caches are stacked the s
 ``ssm`` (G, B, nh, hd, N); an encoder-decoder's prefill cache is
 ``{"self": ..., "cross": ...}``, the cross K/V (G, B, T_enc, H, hd).
 
+Activations carry the reference's logical-axis annotations
+(``sharding.logical.shard``: the residual stream between layers, the
+logits), which redistribute DTensors inside ``logical_axis_rules`` and are
+the identity anywhere else.
+
 Three entry points as in the reference: ``forward`` (full sequence; its
 ``moe_aux`` sums every MoE layer's load-balancing loss; ``remat``
 recomputes each group in the backward), ``prefill`` (full
@@ -43,6 +48,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding.logical import shard, splittable, take_rows
 from . import attention as attn
 from . import mamba2 as ssm
 from .layers import embed_init, mlp_apply, mlp_init, rmsnorm, rmsnorm_init, softcap
@@ -140,7 +146,7 @@ class Model:
     # ---- shared pieces -----------------------------------------------------
     def _embed(self, params, tokens):
         cfg = self.cfg
-        x = params["embed"][tokens.long()].to(_dtype(cfg.compute_dtype))
+        x = take_rows(params["embed"], tokens.long()).to(_dtype(cfg.compute_dtype))
         if cfg.scale_embeddings:
             # sqrt(d_model) rounded to the compute dtype first, as the reference
             x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
@@ -153,7 +159,7 @@ class Model:
             logits = x @ params["embed"].to(x.dtype).T
         else:
             logits = x @ params["lm_head"].to(x.dtype)
-        return softcap(logits.float(), cfg.logit_softcap)
+        return shard(softcap(logits.float(), cfg.logit_softcap), ("batch", None, "model"))
 
     def _unit_plan(self):
         unit = self.cfg.scan_unit()
@@ -180,6 +186,7 @@ class Model:
                                     positions, causal=False)
             x = x + mlp_apply(sub["ffn"], rmsnorm(x, sub["ffn_norm"], cfg.norm_eps),
                               cfg.mlp_type)
+            x = shard(x, ("batch", "seq", None))
         return rmsnorm(x, enc["final_norm"], cfg.norm_eps)
 
     # ---- full-sequence decoder (forward / prefill core) ---------------------
@@ -247,6 +254,7 @@ class Model:
             x, layer_aux = self._ffn(sub, ffn, x)
             if layer_aux is not None:
                 aux = aux + layer_aux
+            x = shard(x, ("batch", "seq", None))
         return x, aux, cache_out
 
     def _inputs(self, params, batch):
@@ -271,7 +279,7 @@ class Model:
                     f"{cfg.name} is an encoder-decoder model: a full-sequence call needs "
                     "batch['enc_frames'], the encoder's input frames")
             memory = self.encode(params, batch["enc_frames"])
-        return x, positions, memory
+        return shard(x, ("batch", "seq", None)), positions, memory
 
     def forward(self, params, batch, *, remat: bool = False):
         """Full-sequence logits. batch: dict(tokens, positions?,
@@ -316,7 +324,8 @@ class Model:
         heads, stacked over groups."""
         hd = self.cfg.resolved_head_dim
         cross = params["blocks"]["layer0"]["cross"]
-        return {name: torch.stack([(memory @ w[g]).reshape(*memory.shape[:-1], -1, hd)
+        return {name: torch.stack([splittable(memory @ w[g], hd).reshape(
+                                       *memory.shape[:-1], -1, hd)
                                    for g in range(self._n_groups())])
                 for name, w in (("k", cross["wk"]), ("v", cross["wv"]))}
 
@@ -330,7 +339,7 @@ class Model:
         pos = pos.long()
         x = self._embed(params, tokens[:, None])
         if "pos_embed" in params:
-            x = x + params["pos_embed"][pos][:, None].to(x.dtype)
+            x = x + take_rows(params["pos_embed"], pos)[:, None].to(x.dtype)
         self_cache = cache["self"] if cfg.is_encdec else cache
         b, hd = x.shape[0], cfg.resolved_head_dim
         for g, (gp, gc) in enumerate(zip(_groups(params["blocks"]), _groups(self_cache))):
@@ -350,7 +359,7 @@ class Model:
                 if cfg.is_encdec:
                     # the plain sdpa over the whole encoder output, no mask
                     hin = rmsnorm(x, sub["cross_norm"], cfg.norm_eps)
-                    q = (hin @ sub["cross"]["wq"]).reshape(b, 1, cfg.n_heads, hd)
+                    q = splittable(hin @ sub["cross"]["wq"], hd).reshape(b, 1, cfg.n_heads, hd)
                     o = attn._sdpa(cfg, q, cache["cross"]["k"][g], cache["cross"]["v"][g],
                                    None)
                     x = x + o.reshape(b, 1, -1) @ sub["cross"]["wo"]

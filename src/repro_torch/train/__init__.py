@@ -1,8 +1,8 @@
-"""Training, PyTorch port of ``repro.train`` on one device: AdamW, the
-loss and train step (remat, gradient accumulation), the deterministic
-data pipeline, checkpoints, the fault-tolerant loop and int8
-quantization.  The reference's multi-device ``compressed_psum_int8`` and
-``make_dp_grad_fn`` are not part of the port."""
+"""Training, PyTorch port of ``repro.train``: AdamW, the loss and train
+step (remat, gradient accumulation), the deterministic data pipeline,
+checkpoints (restored onto a device or resharded onto a mesh), the
+fault-tolerant loop, int8 quantization and the int8-compressed
+data-parallel gradient (``compressed_psum_int8``, ``make_dp_grad_fn``)."""
 
 from .checkpoint import (  # noqa: F401
     AsyncCheckpointer,
@@ -10,7 +10,12 @@ from .checkpoint import (  # noqa: F401
     restore_checkpoint,
     save_checkpoint,
 )
-from .compression import dequantize_int8, quantize_int8  # noqa: F401
+from .compression import (  # noqa: F401
+    compressed_psum_int8,
+    dequantize_int8,
+    make_dp_grad_fn,
+    quantize_int8,
+)
 from .data import HostPrefetcher, TokenDataset  # noqa: F401
 from .loop import train_loop  # noqa: F401
 from .optimizer import OptConfig, apply_updates, global_norm, init_opt  # noqa: F401

@@ -9,8 +9,10 @@ Layout:  <dir>/step_<N>/{leaves.npz, meta.json}
   - meta.json records step, leaf count and ``extra``.
 
 Trees are nested dicts of tensors (or numpy arrays).  Restore takes
-``device``, the one-device meaning of the reference's ``shardings``: a
-checkpoint written from the CPU restores onto the card and the reverse.
+``device`` (a checkpoint written from the CPU restores onto the card and
+the reverse) or, as the reference, ``shardings``: each leaf becomes a
+DTensor on the given mesh and placements (elastic reshard-on-restore;
+every rank reads the file and keeps its own shard, no collective).
 AsyncCheckpointer copies the tree to host memory (one blocking
 device-to-host copy: training then updates its tensors in place) and
 writes from a background thread; ``keep`` bounds disk usage.
@@ -27,7 +29,7 @@ import threading
 import numpy as np
 import torch
 
-from .tree import tree_items, tree_map, tree_unflatten
+from .tree import tree_items, tree_leaves, tree_map, tree_unflatten
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step", "AsyncCheckpointer"]
 
@@ -83,11 +85,13 @@ def latest_step(ckpt_dir: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(ckpt_dir: str, step: int, like, *, device=None):
+def restore_checkpoint(ckpt_dir: str, step: int, like, *, device=None, shardings=None):
     """Restore into the structure of ``like``: a tree of tensors whose
     shapes and dtypes the leaves take (on the ``meta`` device, it holds no
     storage).  Each leaf lands on ``device``, or on its ``like`` leaf's
-    device where ``device`` is None."""
+    device where ``device`` is None; or, given ``shardings`` (a matching
+    tree of ``sharding.policy.NamedSharding``: a mesh and placements),
+    becomes a DTensor placed so on that mesh's device."""
     path = os.path.join(ckpt_dir, f"step_{step:09d}")
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
@@ -96,12 +100,21 @@ def restore_checkpoint(ckpt_dir: str, step: int, like, *, device=None):
     if set(keys) != set(data.files):
         missing = set(keys) ^ set(data.files)
         raise ValueError(f"checkpoint/model tree mismatch: {sorted(missing)[:5]}")
+    shard_leaves = (tree_leaves(shardings) if shardings is not None
+                    else [None] * len(keys))
     restored = []
-    for key, (path, ref) in zip(keys, tree_items(like)):
+    for key, (path, ref), shd in zip(keys, tree_items(like), shard_leaves):
         arr = data[key]
         if tuple(arr.shape) != tuple(ref.shape):
             raise ValueError(f"shape mismatch for {key}: "
                              f"{arr.shape} vs {tuple(ref.shape)}")
+        if shd is not None:
+            from torch.distributed.tensor import distribute_tensor
+
+            leaf = torch.from_numpy(np.array(arr)).to(shd.mesh.device_type).to(ref.dtype)
+            restored.append((path, distribute_tensor(leaf, shd.mesh, shd.placements,
+                                                     src_data_rank=None)))
+            continue
         target = torch.device(device) if device is not None else ref.device
         if target.type == "meta":
             raise ValueError(f"{key}: the like leaf is on the meta device; pass device=")

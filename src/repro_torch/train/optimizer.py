@@ -18,6 +18,7 @@ does not depend on the slicing.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -56,12 +57,15 @@ def init_opt(params, cfg: OptConfig):
 def _slices(*leaves):
     """Views of ``leaves`` (one shape) a slice of the leading axis at a
     time, each of at most ``_SLICE_ELEMENTS`` elements (one row at least);
-    a 0-d leaf whole."""
-    if leaves[0].dim() == 0:
+    a 0-d leaf whole, and a DTensor sharded on its leading axis whole
+    (slicing that axis would gather it; its local shard is the slice)."""
+    lead = leaves[0]
+    if lead.dim() == 0 or (type(lead) is not torch.Tensor
+                           and any(p.is_shard(0) for p in lead.placements)):
         yield leaves
         return
-    n = leaves[0].shape[0]
-    step = max(1, _SLICE_ELEMENTS // max(leaves[0][0].numel(), 1))
+    n = lead.shape[0]
+    step = max(1, _SLICE_ELEMENTS // max(math.prod(lead.shape[1:]), 1))
     for lo in range(0, n, step):
         yield tuple(t[lo:lo + step] for t in leaves)
 

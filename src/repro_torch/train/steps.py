@@ -34,12 +34,37 @@ def make_loss_fn(model: Model, *, remat: bool = True):
         # (B, S, V) f32 one-hot.
         logits32 = logits.float()
         lse = torch.logsumexp(logits32, dim=-1)
-        gold = torch.gather(logits32, -1, labels.long()[..., None])[..., 0]
+        gold = _gold(logits32, labels.long())
         ce = (lse - gold).mean()
         loss = ce + cfg.router_aux_coef * aux["moe_aux"]
         return loss, {"ce": ce, "moe_aux": aux["moe_aux"]}
 
     return loss_fn
+
+
+def _gold(logits, labels):
+    """``logits[..., labels]``, a gather along the vocab axis.  On a DTensor
+    each rank gathers the labels that fall in its own block of the vocab
+    (0 elsewhere) and the gold logit is their sum over the vocab shards: the
+    masked partial DTensor's own gather rule builds, whose reduction fails
+    on this shape."""
+    if type(logits) is torch.Tensor:
+        return torch.gather(logits, -1, labels[..., None])[..., 0]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    on_vocab = [isinstance(p, Shard) and p.dim == last for p in logits.placements]
+    labels = labels.redistribute(mesh, [Replicate() if hit else p
+                                        for p, hit in zip(logits.placements, on_vocab)])
+    shape, offset = compute_local_shape_and_global_offset(logits.shape, mesh, logits.placements)
+    lab = labels.to_local() - offset[-1]
+    inside = (lab >= 0) & (lab < shape[-1])
+    gold = torch.gather(logits.to_local(), -1, lab.clamp(0, shape[-1] - 1)[..., None])[..., 0]
+    gold = torch.where(inside, gold, torch.zeros_like(gold))
+    return DTensor.from_local(gold, mesh, [Partial() if hit else p
+                                           for p, hit in zip(labels.placements, on_vocab)],
+                              run_check=False, shape=labels.shape, stride=labels.stride())
 
 
 def _value_and_grad(loss_fn, params, batch):
@@ -93,10 +118,24 @@ def make_train_step(model: Model, opt_cfg: OptConfig, *, remat: bool = True,
     return train_step
 
 
+def _argmax(logits):
+    """argmax over the vocab axis (the last).  A DTensor's vocab shards are
+    all-gathered first: DTensor's own argmax over a sharded dim fails where
+    the rows are replicated over another mesh axis (a batch of one)."""
+    if type(logits) is not torch.Tensor:
+        from torch.distributed.tensor import Replicate, Shard
+
+        last = logits.ndim - 1
+        logits = logits.redistribute(logits.device_mesh, [
+            Replicate() if isinstance(p, Shard) and p.dim == last else p
+            for p in logits.placements])
+    return torch.argmax(logits, dim=-1)
+
+
 def make_prefill_step(model: Model):
     def prefill_step(params, batch):
         logits, cache = model.prefill(params, batch)
-        next_tok = torch.argmax(logits[:, -1].float(), dim=-1)
+        next_tok = _argmax(logits[:, -1].float())
         return next_tok, logits, cache
 
     return prefill_step
@@ -107,7 +146,7 @@ def make_serve_step(model: Model):
 
     def serve_step(params, tokens, cache, pos):
         logits, cache = model.decode_step(params, tokens, cache, pos)
-        next_tok = torch.argmax(logits.float(), dim=-1)
+        next_tok = _argmax(logits.float())
         return next_tok, cache
 
     return serve_step

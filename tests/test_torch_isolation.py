@@ -7,13 +7,12 @@ reference's, and the definitions its own ``runtime/apps.py``,
 are the reference's text (imports of the reference package read as the
 port's).
 
-Of the reference's ``test_elastic_reshard_and_compression_subprocess``,
-the restore-onto-a-device half is ported
-(``tests/test_torch_train.py``: ``restore_checkpoint(..., device=)``,
-checkpoints moved between the CPU and the card in ``chip_smoke.py``); its
-int8-on-the-wire half (``compressed_psum_int8`` / ``make_dp_grad_fn``, an
-all-gather over a data axis in ``shard_map``) is not: the port has no
-mesh yet."""
+The multi-device layer (``launch/{mesh,inputs,dryrun}``,
+``sharding/{logical,policy,pipeline}``, ``roofline/``) keeps the
+reference's ``roofline_terms``, ``CellReport`` and
+``WHISPER_DECODE_ENC_LEN`` word for word, and ``count_params`` with its
+jax tree walk swapped for the port's; ``repro_torch.configs`` exports
+``cells`` as the reference's package does."""
 
 import ast
 import os
@@ -61,6 +60,8 @@ PINNED = {
     "runtime/fleet.py": ("__all__", "_LB_CODE", "FleetGrid", "FleetStats"),
     "train/optimizer.py": ("OptConfig",),
     "train/checkpoint.py": ("latest_step", "save_checkpoint"),
+    "roofline/analysis.py": ("roofline_terms", "CellReport"),
+    "launch/inputs.py": ("WHISPER_DECODE_ENC_LEN",),
 }
 
 # an import statement naming jax or the reference package (not repro_torch)
@@ -79,7 +80,10 @@ def test_import_loads_no_jax_and_no_reference_module():
             "repro_torch.kernels.adaptive_sweep.ops", "repro_torch.runtime.batched_adaptive",
             "repro_torch.runtime.calibrate", "repro_torch.kernels.fleet_sweep.ops",
             "repro_torch.runtime.fleet", "repro_torch.train", "repro_torch.train.loop",
-            "repro_torch.launch.train"} <= set(names)
+            "repro_torch.launch.train", "repro_torch.launch.mesh", "repro_torch.launch.inputs",
+            "repro_torch.launch.dryrun", "repro_torch.sharding", "repro_torch.sharding.logical",
+            "repro_torch.sharding.policy", "repro_torch.sharding.pipeline",
+            "repro_torch.roofline", "repro_torch.roofline.analysis"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
@@ -205,3 +209,42 @@ def test_build_operating_table_is_the_references_plus_device():
         port = port.replace(text, "")
     assert port == ref
 
+
+
+def test_count_params_is_the_references_on_the_ports_tree_walk():
+    """``roofline.count_params`` is the reference's text with its jax tree
+    walk (an import and ``tree_flatten_with_path``) swapped for the port's
+    ``tree_items``."""
+    ref = _definitions(REF / "roofline/analysis.py")["count_params"]
+    port = _definitions(PORT / "roofline/analysis.py")["count_params"]
+    ref = ref.replace("    import jax\n\n", "").replace(
+        "jax.tree_util.tree_flatten_with_path(params_tree)[0]", "tree_items(params_tree)")
+    assert port == ref
+
+
+def test_configs_export_cells_as_the_reference():
+    import repro_torch.configs as port_configs
+    from repro_torch.configs import base
+
+    assert "cells" in port_configs.__all__ and port_configs.cells is base.cells
+    ref_init = (REF / "configs/__init__.py").read_text()
+    assert "cells" in ref_init.split("__all__")[1]
+
+
+def test_multi_device_layer_imports_touch_no_process_group():
+    """Importing the multi-device modules (the dry run's too) loads neither
+    jax nor a module of the reference and sets up no process group: the
+    dry run's fake ranks exist only once its ``main`` runs."""
+    code = (
+        "import sys\n"
+        "import torch.distributed as dist\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.inputs, repro_torch.launch.mesh\n"
+        "import repro_torch.sharding.pipeline, repro_torch.roofline\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "print(bad, dist.is_initialized())\n"
+        "sys.exit(1 if bad or dist.is_initialized() else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
