@@ -2483,7 +2483,18 @@ def phase_train_entry() -> dict:
 MESH_BATCH, MESH_DECODE = 2, 4
 MESH_LOGIT_TOL = 2e-4        # tests/test_torch_model.py
 MESH_LOSS_RTOL, MESH_PARAM_TOL = 2e-4, 2e-3    # tests/test_torch_train.py
-DRYRUN_CELLS = (("mamba2-370m", "long_500k"), ("gemma-2b", "train_4k"))
+# (arch, shape, a --override or None): a decode and a train cell; the six
+# that torch 2.11 cannot trace without models/mamba2.py's concatenated
+# padding and per-shard SSD scan and sharding/logical.py's take_rows; two
+# cells on the expert-parallel MoE path
+DRYRUN_CELLS = (("mamba2-370m", "long_500k", None), ("gemma-2b", "train_4k", None),
+                ("mamba2-370m", "prefill_32k", None), ("mamba2-370m", "train_4k", None),
+                ("jamba-1.5-large-398b", "prefill_32k", None),
+                ("jamba-1.5-large-398b", "train_4k", None),
+                ("granite-3-8b", "train_4k", None), ("whisper-small", "train_4k", None),
+                ("dbrx-132b", "train_4k", "moe=shard_map"),
+                ("llama4-scout-17b-a16e", "prefill_32k", "moe=shard_map"))
+MOE_EP_ARCHS = ("dbrx-132b", "llama4-scout-17b-a16e")
 
 
 def _free_port() -> int:
@@ -2732,26 +2743,153 @@ def mesh_collectives(mesh) -> dict:
 
 def mesh_dryruns() -> dict:
     """``python -m repro_torch.launch.dryrun`` on ``DRYRUN_CELLS`` as
-    subprocesses (their fake process groups are theirs): exit 0, one cell
-    OK, their roofline lines."""
-    rec = {}
-    for arch, shape in DRYRUN_CELLS:
+    subprocesses (their fake process groups are theirs), at most half the
+    cores' count at a time, one intra-op thread each: exit 0, one cell OK,
+    their roofline lines; an EP cell's report must hold all-to-all bytes."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
+    workers = max(1, (os.cpu_count() or 2) // 2)
+
+    def run(cell):
+        arch, shape, override = cell
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+               "--shape", shape] + (["--override", override] if override else [])
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape],
-            capture_output=True, text=True, timeout=300, cwd=ROOT,
-            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=ROOT,
+                              env=env)
+        return cell, proc, time.perf_counter() - t0
+
+    t_all = time.perf_counter()
+    log(f"  dry run (torch {torch.__version__}): {len(DRYRUN_CELLS)} cells @ 16x16, a fake "
+        f"group of 256 ranks in each subprocess, {workers} at a time")
+    rec = {}
+    with ThreadPoolExecutor(workers) as pool:
+        done = list(pool.map(run, DRYRUN_CELLS))
+    for (arch, shape, override), proc, seconds in done:
+        name = f"{arch} x {shape}" + (f" --override {override}" if override else "")
         lines = [ln.strip() for ln in proc.stdout.splitlines()
-                 if ln.strip().startswith(("roofline:", "cost:", "memory", "== "))]
-        rec[f"{arch} x {shape}"] = {"rc": proc.returncode, "lines": lines,
-                                    "seconds": time.perf_counter() - t0}
-        log(f"  dryrun {arch} x {shape} @ 16x16 (a fake group of 256 ranks in the subprocess): "
-            f"rc {proc.returncode}, {rec[f'{arch} x {shape}']['seconds']:.1f} s")
+                 if ln.strip().startswith(("roofline:", "cost:", "memory", "collectives",
+                                           "== "))]
+        rec[name] = {"rc": proc.returncode, "lines": lines, "seconds": seconds}
+        log(f"  dryrun {name}: rc {proc.returncode}, {seconds:.1f} s")
         for ln in lines:
             log(f"    {ln}")
         if proc.returncode != 0 or "1 cells compiled OK, 0 failed" not in proc.stdout:
-            fail(f"the dry run of {arch} x {shape} failed: "
+            fail(f"the dry run of {name} failed on torch {torch.__version__}: "
                  f"{(proc.stdout + proc.stderr)[-3000:]}")
+        if override and "'all-to-all': 0," in proc.stdout:
+            fail(f"the dry run of {name} recorded no all-to-all")
+    rec["torch"] = torch.__version__
+    rec["seconds"] = time.perf_counter() - t_all
+    log(f"  dry run: {len(DRYRUN_CELLS)} cells in {rec['seconds']:.1f} s (wall)")
+    return rec
+
+
+def phase_moe_ep(mesh) -> dict:
+    """The expert-parallel MoE (``moe_apply`` under the ``moe=shard_map``
+    rule, ``_moe_shard_map``) on the one-rank NCCL mesh: one MoE layer of
+    each of ``MOE_EP_ARCHS`` at full width (d_model, d_ff and the experts
+    as published, capacity factor 1.25, bf16, random weights from seed 0),
+    ``MOE_CHECK_TOKENS`` tokens, through ``moe_apply`` under the rules
+    (parameters and tokens as DTensors at the train-mode specs) and without
+    them.  On one rank t_loc = t and cap_loc = cap, so the output and aux
+    must be bit-equal to the plain path's, or within 1e-6 relative where
+    an atomic add reorders (the log says which held).  The EP branch must
+    have been taken once (``_moe_shard_map.calls``) and its collectives
+    issued over NCCL (two all-to-alls and the psums, recorded by
+    ``roofline.CostTrace``).  Then the backward through them: every
+    weight's gradient of ``(y**2).mean() + aux`` on the EP path within 1e-3
+    of the plain path's, relative to its largest value.  Each path's wall
+    time is logged."""
+    import gc
+
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.roofline.analysis import CostTrace, collective_bytes
+    from repro_torch.sharding.logical import logical_axis_rules
+    from repro_torch.sharding.policy import logical_rules, param_pspecs, to_placements
+
+    rules = logical_rules(mesh, "train", {"moe": "shard_map"})
+    rec = {}
+    for arch in MOE_EP_ARCHS:
+        cfg = get_config(arch)
+        if cfg.capacity_factor != 1.25:
+            fail(f"{arch}: capacity factor {cfg.capacity_factor}, want the published 1.25")
+        t0 = time.perf_counter()
+        p = moe.moe_init(torch.Generator("cuda").manual_seed(0), cfg, torch.bfloat16)
+        x = torch.randn((1, MOE_CHECK_TOKENS, cfg.d_model),
+                        generator=torch.Generator("cuda").manual_seed(1), device="cuda",
+                        dtype=torch.bfloat16)
+        specs = param_pspecs(cfg, {"ffn": p}, mesh, "train")["ffn"]
+
+        def place(t, spec):
+            if isinstance(t, dict):
+                return {k: place(v, spec[k]) for k, v in t.items()}
+            return distribute_tensor(t, mesh, to_placements(spec, mesh), src_data_rank=None)
+
+        pd, xd = place(p, specs), place(x, (rules["batch"], None, None))
+        with torch.no_grad():
+            moe.moe_apply(p, cfg, x)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            y, aux = moe.moe_apply(p, cfg, x)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t1) * 1e3
+            moe._moe_shard_map.calls = 0
+            with logical_axis_rules(mesh, rules), CostTrace() as trace:
+                ye, auxe = moe.moe_apply(pd, cfg, xd)
+            calls = moe._moe_shard_map.calls
+            with logical_axis_rules(mesh, rules):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                ye, auxe = moe.moe_apply(pd, cfg, xd)
+                torch.cuda.synchronize()
+                ep_ms = (time.perf_counter() - t1) * 1e3
+        ye, auxe = ye.full_tensor(), auxe.full_tensor()
+        counts = collective_bytes(trace.collectives)["counts"]
+        bit = torch.equal(ye, y) and torch.equal(auxe, aux)
+        rel = max(_max_rel(ye, y), _max_rel(auxe, aux))
+        cap = moe._capacity(cfg, MOE_CHECK_TOKENS)
+        # the backward through the NCCL collectives: every weight's gradient
+        # of (y**2).mean() + aux, each path's, within 1e-3 of its largest
+        grads = []
+        for tree, rules_on in ((p, False), (pd, True)):
+            live = [v.detach().requires_grad_(True) for v in _leaves(tree)]
+            it = iter(live)
+            tree_live = {k: ({kk: next(it) for kk in v} if isinstance(v, dict) else next(it))
+                         for k, v in tree.items()}
+            with torch.enable_grad(), (logical_axis_rules(mesh, rules) if rules_on
+                                       else contextlib.nullcontext()):
+                yy, aa = moe.moe_apply(tree_live, cfg, xd if rules_on else x)
+                loss = (yy.float() ** 2).mean() + aa
+                grads.append([_full(g).float() for g in torch.autograd.grad(loss, live)])
+        grad_rel = max(_max_rel(a, b) for a, b in zip(grads[1], grads[0]))
+        del grads
+        rec[arch] = {"tokens": MOE_CHECK_TOKENS, "capacity": cap, "ep_calls": calls,
+                     "collectives": counts, "bit_equal": bit, "max_rel": rel,
+                     "grad_max_rel": grad_rel, "plain_ms": plain_ms, "ep_ms": ep_ms,
+                     "seconds": time.perf_counter() - t0}
+        log(f"  moe=shard_map, {arch} MoE layer at full width (d_model {cfg.d_model}, "
+            f"{cfg.n_experts} experts of d_ff {cfg.d_ff}, top-{cfg.experts_per_token}, "
+            f"{cfg.n_shared_experts} shared, capacity factor {cfg.capacity_factor}: {cap} an "
+            f"expert), {MOE_CHECK_TOKENS} tokens bf16: EP path taken {calls} time(s), "
+            f"collectives over NCCL {counts}; output and aux against the plain path: "
+            f"{'bit-equal' if bit else f'max rel {rel:.3e} (limit 1e-6, an atomic add reordered)'}"
+            f"; gradients of every weight max rel {grad_rel:.3e} (limit 1e-3); "
+            f"{ep_ms:.2f} ms EP / {plain_ms:.2f} ms plain (host clock, after a warm call)")
+        if calls != 1 or counts["all-to-all"] != 2 or counts["all-reduce"] < 3:
+            fail(f"{arch}: the EP path ran {calls} time(s) with collectives {counts}; want one "
+                 "call, two all-to-alls and the psums")
+        if not (bit or rel <= 1e-6) or not bool(torch.isfinite(ye).all()):
+            fail(f"{arch}: the EP path's output differs from the plain path's on one rank "
+                 f"(max rel {rel:.3e})")
+        if not grad_rel <= 1e-3:
+            fail(f"{arch}: the EP path's gradients differ from the plain path's (max rel "
+                 f"{grad_rel:.3e})")
+        del p, pd, x, xd, y, ye
+        gc.collect()
+        torch.cuda.empty_cache()
     return rec
 
 
@@ -2764,9 +2902,9 @@ def phase_mesh() -> dict:
     ``attn=None``, the cells' route) through ``build_cell``'s prefill,
     serve and train steps against the plain steps (``mesh_serve``,
     ``mesh_train``), with every launch counter set to 0 just before (the
-    cells reach no kernel of the repo); then ``mesh_collectives`` and
-    ``mesh_dryruns``.  Each part logs its wall time; any failure fails the
-    script."""
+    cells reach no kernel of the repo); then ``mesh_collectives``,
+    ``phase_moe_ep`` (the expert-parallel MoE) and ``mesh_dryruns``.  Each
+    part logs its wall time; any failure fails the script."""
     import gc
 
     import torch.distributed as dist
@@ -2803,6 +2941,9 @@ def phase_mesh() -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         rec["collectives"] = mesh_collectives(mesh)
+        t0 = time.perf_counter()
+        rec["moe_ep"] = phase_moe_ep(mesh)
+        log(f"  moe=shard_map check {time.perf_counter() - t0:.1f} s")
     finally:
         dist.destroy_process_group()
     rec["dryrun"] = mesh_dryruns()
@@ -5332,6 +5473,57 @@ def _stepping_band(fs_f, fs_a) -> list[str]:
     return bad
 
 
+def phase_fleet_split() -> dict:
+    """``simulate_fleet``'s point split (``runtime.fleet.split_sweep``) on
+    the one card: the helper over ``[cuda:0] * 3`` (three shards, the 16
+    points padded to 18 by repeating row 0) on the 33-host least-loaded row
+    of ``fleet_compare_cases``, for S3 and for S3b, against one unsplit
+    launch of the same kernel on the same inputs: every output bit-equal,
+    three launches a split (every shard queued before any result is read).
+    Then ``simulate_fleet`` with ``shard=None`` on this one card: one
+    launch, no split in ``backend``."""
+    from repro_torch.kernels.fleet_adaptive_sweep import fleet_adaptive_sweep
+    from repro_torch.kernels.fleet_sweep import fleet_sweep
+    from repro_torch.runtime.fleet import (
+        fleet_adaptive_inputs,
+        fleet_inputs,
+        simulate_fleet,
+        split_sweep,
+    )
+    t0 = time.perf_counter()
+    name, fgrid, cfg, slot_us = next(c for c in fleet_compare_cases() if c[1].fleet.n_hosts == 33)
+    devices = [torch.device("cuda", 0)] * 3
+    rec = {"row": name, "points": len(fgrid), "shards": len(devices)}
+    for label, inputs, sweep in (("S3", fleet_inputs, fleet_sweep),
+                                 ("S3b", fleet_adaptive_inputs, fleet_adaptive_sweep)):
+        args, params, fparams = inputs(fgrid, cfg, slot_us, "cuda")
+        one = sweep(*args, params=params, fleet=fparams)
+        before = sweep.launches
+        got = split_sweep(sweep, args, devices, params=params, fleet=fparams)
+        launches = sweep.launches - before
+        differ = [k for k in one if not torch.equal(one[k], got[k])]
+        rec[label] = {"launches": launches, "bit_equal": not differ}
+        log(f"  split_sweep over [cuda:0] x 3 ({name}: {len(fgrid)} points padded to "
+            f"{-(-len(fgrid) // 3) * 3}), {label}: {launches} launches; "
+            f"{len(one) - len(differ)} of {len(one)} outputs bit-equal to one unsplit launch "
+            f"{'ok' if not differ and launches == 3 else 'FAIL'}")
+        if differ or launches != 3:
+            fail(f"{label} split over three shards differs from one launch in {differ} "
+                 f"({launches} launches)")
+    before = fleet_sweep.launches
+    st = simulate_fleet(fgrid, cfg, slot_us=slot_us, device="cuda")
+    rec["one_card"] = {"launches": fleet_sweep.launches - before, "backend": st.backend,
+                       "devices": torch.cuda.device_count()}
+    log(f"  simulate_fleet(shard=None) with {torch.cuda.device_count()} card(s): "
+        f"{rec['one_card']['launches']} launch, backend {st.backend!r}")
+    if torch.cuda.device_count() == 1 and (rec["one_card"]["launches"] != 1
+                                           or st.backend != "fleet_sweep"):
+        fail(f"simulate_fleet on one card: {rec['one_card']}")
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"  fleet split took {rec['seconds']:.1f} s")
+    return rec
+
+
 def phase_fleet_adaptive_main(compared: set, timed: list[dict], s3_main: dict) -> dict:
     """S3b's main path, in two parts, with every launch counter set to 0
     just before each and read just after.  (1) benchmarks/fleet.py's
@@ -5606,6 +5798,7 @@ def main() -> int:
     s3b_cmp = phase_compare_fleet_adaptive()
     s3b_rows = phase_time_fleet_adaptive(s3b_cmp["builds"], s3_rows)
     s3b_main = phase_fleet_adaptive_main(s3b_cmp["builds"], s3b_rows, fleet_main)
+    fleet_split = phase_fleet_split()
     # K1 has one kernel per type: bf16 ("wgmma", the serving path of
     # gemma-2b, granite-3-8b, starcoder2-15b, dbrx-132b,
     # llama4-scout-17b-a16e and jamba-1.5-large-398b, and the model paths of
@@ -5776,8 +5969,8 @@ def main() -> int:
     for k in kernels:
         if k["name"] in mesh_launches:
             k["mesh_launches"] = mesh_launches[k["name"]]
-    print(json.dumps({"training": training, "training_loop": training_loop, "mesh": mesh}),
-          flush=True)
+    print(json.dumps({"training": training, "training_loop": training_loop, "mesh": mesh,
+                      "fleet_split": fleet_split}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

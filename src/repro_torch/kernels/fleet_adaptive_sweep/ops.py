@@ -410,15 +410,16 @@ def reference_fleet_adaptive_sweep(t_s, t_l, m, nq, lam, seed_lo, seed_hi, hedge
 
 
 def _check(cols: dict, sched_edges, sched_scales, params: AdaptiveParams,
-           fleet: FleetParams) -> None:
-    _check_fleet(cols, sched_edges, sched_scales, params, fleet)
+           fleet: FleetParams, bounds: tuple[int, int] | None = None) -> None:
+    _check_fleet(cols, sched_edges, sched_scales, params, fleet, bounds)
     if params.max_steps < 1 or params.duration_us <= 0.0:
         raise ValueError("the sweep needs max_steps >= 1 and duration_us > 0")
 
 
 def fleet_adaptive_sweep(t_s, t_l, m, nq, lam, seed_lo, seed_hi, hedge_d, sched_edges=None,
                          sched_scales=None, *, params: AdaptiveParams,
-                         fleet: FleetParams) -> dict[str, torch.Tensor]:
+                         fleet: FleetParams,
+                         bounds: tuple[int, int] | None = None) -> dict[str, torch.Tensor]:
     """The fleet sweep by event jumps over P points of ``fleet.n_hosts``
     hosts: ``t_s``, ``t_l``, ``lam`` (the point's fleet rate), ``hedge_d``
     float32 (P,), ``m``, ``nq``, ``seed_lo``, ``seed_hi`` int32 (P,) (the
@@ -426,10 +427,13 @@ def fleet_adaptive_sweep(t_s, t_l, m, nq, lam, seed_lo, seed_hi, hedge_d, sched_
     schedule rows -> the dict of ``reference_fleet_adaptive_sweep``.
 
     CUDA tensors go through the kernel, one launch; CPU tensors through
-    ``reference_fleet_adaptive_sweep``."""
+    ``reference_fleet_adaptive_sweep``.  ``bounds`` (m_max, q_max): the
+    maxima of a batch the caller has checked that holds these points (a
+    shard of it); the launch then reads nothing back from the device and
+    takes that batch's build."""
     cols = {"t_s": t_s, "t_l": t_l, "m": m, "nq": nq, "lam": lam, "seed_lo": seed_lo,
             "seed_hi": seed_hi, "hedge_d": hedge_d}
-    _check(cols, sched_edges, sched_scales, params, fleet)
+    _check(cols, sched_edges, sched_scales, params, fleet, bounds)
     if t_s.device.type == "cpu":
         return reference_fleet_adaptive_sweep(t_s, t_l, m, nq, lam, seed_lo, seed_hi, hedge_d,
                                               sched_edges, sched_scales, params, fleet)
@@ -442,9 +446,9 @@ def fleet_adaptive_sweep(t_s, t_l, m, nq, lam, seed_lo, seed_hi, hedge_d, sched_
     stats = torch.empty((len(STAT_NAMES), n, fleet.n_hosts), dtype=torch.float32,
                         device=t_s.device)
     ends = torch.empty((len(POINT_NAMES), n), dtype=torch.float32, device=t_s.device)
+    m_max, q_max = bounds or (int(cols["m"].max()), int(cols["nq"].max()))
     build = launch_fleet_adaptive_sweep(cols, sched_edges, sched_scales, params, fleet, stats,
-                                        ends, m_max=int(cols["m"].max()),
-                                        q_max=int(cols["nq"].max()))
+                                        ends, m_max=m_max, q_max=q_max)
     fleet_adaptive_sweep.launches += 1
     fleet_adaptive_sweep.launches_by_build[build] = (
         fleet_adaptive_sweep.launches_by_build.get(build, 0) + 1)

@@ -416,9 +416,9 @@ def reference_fleet_sweep(t_s, t_l, m, nq, lam, seed_lo, seed_hi, hedge_d, sched
 
 
 def _check(cols: dict, sched_edges, sched_scales, params: SweepParams,
-           fleet: FleetParams) -> None:
+           fleet: FleetParams, bounds: tuple[int, int] | None = None) -> None:
     check_columns({k: v for k, v in cols.items() if k != "hedge_d"}, sched_edges,
-                  sched_scales, params.sleep_states)
+                  sched_scales, params.sleep_states, bounds)
     hedge = cols["hedge_d"]
     if hedge.dim() != 1 or hedge.shape != cols["t_s"].shape or hedge.dtype != torch.float32:
         raise ValueError(f"hedge_d: want float32 shape {tuple(cols['t_s'].shape)}, got "
@@ -439,7 +439,8 @@ def _check(cols: dict, sched_edges, sched_scales, params: SweepParams,
 
 def fleet_sweep(t_s, t_l, m, nq, lam, seed_lo, seed_hi, hedge_d, sched_edges=None,
                 sched_scales=None, *, params: SweepParams,
-                fleet: FleetParams) -> dict[str, torch.Tensor]:
+                fleet: FleetParams,
+                bounds: tuple[int, int] | None = None) -> dict[str, torch.Tensor]:
     """The fixed-slot fleet sweep over P points of ``fleet.n_hosts`` hosts:
     ``t_s``, ``t_l``, ``lam`` (the point's fleet rate), ``hedge_d`` float32
     (P,), ``m``, ``nq``, ``seed_lo``, ``seed_hi`` int32 (P,) (the seed halves
@@ -447,10 +448,13 @@ def fleet_sweep(t_s, t_l, m, nq, lam, seed_lo, seed_hi, hedge_d, sched_edges=Non
     dict of ``reference_fleet_sweep``.
 
     CUDA tensors go through the kernel, one launch; CPU tensors through
-    ``reference_fleet_sweep``."""
+    ``reference_fleet_sweep``.  ``bounds`` (m_max, q_max): the maxima of a
+    batch the caller has checked that holds these points (a shard of it);
+    the launch then reads nothing back from the device and takes that
+    batch's build."""
     cols = {"t_s": t_s, "t_l": t_l, "m": m, "nq": nq, "lam": lam, "seed_lo": seed_lo,
             "seed_hi": seed_hi, "hedge_d": hedge_d}
-    _check(cols, sched_edges, sched_scales, params, fleet)
+    _check(cols, sched_edges, sched_scales, params, fleet, bounds)
     if t_s.device.type == "cpu":
         return reference_fleet_sweep(t_s, t_l, m, nq, lam, seed_lo, seed_hi, hedge_d,
                                      sched_edges, sched_scales, params, fleet)
@@ -462,8 +466,9 @@ def fleet_sweep(t_s, t_l, m, nq, lam, seed_lo, seed_hi, hedge_d, sched_edges=Non
     n = t_s.shape[0]
     stats = torch.empty((len(STAT_NAMES), n, fleet.n_hosts), dtype=torch.float32,
                         device=t_s.device)
+    m_max, q_max = bounds or (int(cols["m"].max()), int(cols["nq"].max()))
     build = launch_fleet_sweep(cols, sched_edges, sched_scales, params, fleet, stats,
-                               m_max=int(cols["m"].max()), q_max=int(cols["nq"].max()))
+                               m_max=m_max, q_max=q_max)
     fleet_sweep.launches += 1
     fleet_sweep.launches_by_build[build] = fleet_sweep.launches_by_build.get(build, 0) + 1
     return dict(zip(STAT_NAMES, stats.unbind(0)))

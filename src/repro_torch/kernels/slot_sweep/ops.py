@@ -334,9 +334,13 @@ def reference_slot_sweep(t_s, t_l, m, nq, lam, seed_lo, seed_hi, sched_edges, sc
     return out
 
 
-def check_columns(cols: dict, sched_edges, sched_scales, sleep_states) -> None:
+def check_columns(cols: dict, sched_edges, sched_scales, sleep_states,
+                  bounds: tuple[int, int] | None = None) -> None:
     """The checks both sweep wrappers make on their per-point columns,
-    schedule rows and sleep states (shapes, types, bounds, one device)."""
+    schedule rows and sleep states (shapes, types, bounds, one device).
+    ``bounds`` (m_max, q_max): the caller has checked the values of a batch
+    that holds these columns and passes its maxima, so nothing is read back
+    from the device."""
     n = cols["t_s"].shape[0]
     for name, t in cols.items():
         if t.dim() != 1 or t.shape[0] != n:
@@ -349,9 +353,12 @@ def check_columns(cols: dict, sched_edges, sched_scales, sleep_states) -> None:
             raise TypeError(f"{name} must be int32, got {cols[name].dtype}")
     if n == 0:
         raise ValueError("the sweep needs at least one point")
-    m_max, q_max = int(cols["m"].max()), int(cols["nq"].max())
-    if int(cols["m"].min()) < 1 or int(cols["nq"].min()) < 1:
-        raise ValueError("every point needs m >= 1 and n_queues >= 1")
+    if bounds is not None:
+        m_max, q_max = bounds
+    else:
+        m_max, q_max = int(cols["m"].max()), int(cols["nq"].max())
+        if int(cols["m"].min()) < 1 or int(cols["nq"].min()) < 1:
+            raise ValueError("every point needs m >= 1 and n_queues >= 1")
     if m_max > MAX_THREADS or q_max > MAX_QUEUES:
         raise ValueError(
             f"the sweep kernel takes m <= {MAX_THREADS} and n_queues <= {MAX_QUEUES} a "

@@ -148,7 +148,8 @@ def build_cell(arch: str, shape_name: str, mesh, *,
     """cfg_overrides: dataclasses.replace fields (e.g. kv_quant=True).
     rule_overrides: logical-axis rules, and ``attn``: None or "chunked"
     picks ``Model(attn=...)`` (the reference's ``attn`` rule); "pallas"
-    (the flash-attention kernel) is refused, and so is ``moe=shard_map``.
+    (the flash-attention kernel) is refused.  ``moe="shard_map"`` stays
+    in the rules, where ``moe_apply`` reads it (the expert-parallel path).
     probe_groups=k builds a k-group variant of the arch (same width and
     shape): the reference's roofline probes, which the port's dry run has
     no need of (its trace runs every layer)."""
@@ -171,10 +172,6 @@ def build_cell(arch: str, shape_name: str, mesh, *,
             "the dry run traces attn=None or attn=chunked")
     if attn not in (None, "chunked"):
         raise ValueError(f"attn must be None, 'chunked' or 'pallas', got {attn!r}")
-    if overrides.get("moe") == "shard_map":
-        raise NotImplementedError(
-            "moe=shard_map: the reference's expert-parallel _moe_shard_map / "
-            "_moe_sharding_ok (src/repro/models/moe.py:76, 145) are not ported")
     model = Model(cfg, attn=attn, device="meta")
     mode = shape.kind
     rules = logical_rules(mesh, mode, overrides=overrides)

@@ -104,10 +104,17 @@ def ssm_init(gen: torch.Generator, cfg: ModelConfig, dtype, *, groups: tuple = (
     }
 
 
+def _left_pad(x, n: int):
+    """``x`` (B,L,C) with ``n`` zero rows before its first: ``F.pad(x, (0,
+    0, n, 0))`` as a concatenation, which DTensor places on every torch
+    release (torch 2.11's planner fails on the pad's redistribution)."""
+    return torch.cat([x.new_zeros((x.shape[0], n, x.shape[2])), x], dim=1)
+
+
 def _causal_conv(x, w, b):
     """Depthwise causal conv via shifted sums. x: (B,L,C); w: (W,C)."""
     width = w.shape[0]
-    pad = F.pad(x, (0, 0, width - 1, 0))
+    pad = _left_pad(x, width - 1)
     out = sum(pad[:, i:i + x.shape[1], :] * w[i][None, None, :]
               for i in range(width))
     return F.silu(out + b[None, None, :])
@@ -115,7 +122,7 @@ def _causal_conv(x, w, b):
 
 def _conv_tail(x, width):
     """Last (W-1) raw inputs — the decode-time conv state."""
-    pad = F.pad(x, (0, 0, max(width - 1 - x.shape[1], 0), 0))
+    pad = _left_pad(x, max(width - 1 - x.shape[1], 0))
     return pad[:, -(width - 1):, :]
 
 
@@ -145,7 +152,72 @@ def ssd_chunked(x, dt, a, bmat, cmat, chunk: int, h0=None):
     cmat: (B, L, N)        output projections
     h0:   (B, nh, hd, N)   initial state (None -> zeros)
     Returns (y: (B,L,nh,hd), h_final: (B,nh,hd,N)).
+
+    On a DTensor ``x`` the scan runs on each rank's shard
+    (``_ssd_on_shards``): batch rows and heads are independent, and the
+    einsums' reshapes would otherwise merge a dim that DTensor holds sharded
+    on the heads, which torch 2.11 cannot place.
     """
+    if type(x) is not torch.Tensor:
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(x, DTensor):
+            return _ssd_on_shards(x, dt, a, bmat, cmat, chunk, h0)
+    return _ssd_local(x, dt, a, bmat, cmat, chunk, h0)
+
+
+def _ssd_on_shards(x, dt, a, bmat, cmat, chunk: int, h0):
+    """``ssd_chunked`` of DTensors, each rank scanning its batch rows and
+    heads: a mesh dim on which ``x`` (or else ``dt``) shards the batch (dim
+    0) or the heads (dim 2) evenly splits them so, any other replicates;
+    ``x``, ``dt`` and ``h0`` are split so, ``a`` as the heads, ``bmat`` /
+    ``cmat`` as the batch.  An operand replicated on a mesh dim that splits
+    the work (``a`` over batch shards, ``bmat`` / ``cmat`` over head
+    shards) gets its gradient summed over that dim."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.sharding import local as sm
+
+    mesh = x.device_mesh
+    on = {0: [], 2: []}                       # mesh dims splitting batch / heads
+    for i in range(mesh.ndim):
+        for t in (x, dt):
+            p = t.placements[i] if isinstance(t, DTensor) else Replicate()
+            if isinstance(p, Shard) and p.dim in on:
+                on[p.dim].append(i)
+                break
+    for dim, dims in on.items():
+        n = 1
+        for i in dims:
+            n *= mesh.size(i)
+        if x.shape[dim] % n:
+            on[dim] = []
+    rep = Replicate()
+
+    def place(batch, heads):
+        """Placements with ``batch`` on the batch-sharding mesh dims and
+        ``heads`` on the head-sharding ones, Replicate elsewhere."""
+        return tuple(batch if i in on[0] else heads if i in on[2] else rep
+                     for i in range(mesh.ndim))
+
+    def enter(t, placements, grad=None):
+        return sm.enter(sm.replicated(t, mesh), placements, grad)
+
+    xp = place(Shard(0), Shard(2))
+    xl = enter(x, xp)
+    dtl = enter(dt, xp)
+    al = enter(a, place(rep, Shard(0)), place(Partial(), Shard(0)))
+    bcp, bcg = place(Shard(0), rep), place(Shard(0), Partial())
+    bl, cl = enter(bmat, bcp, bcg), enter(cmat, bcp, bcg)
+    hp = place(Shard(0), Shard(1))
+    h0l = None if h0 is None else enter(h0, hp)
+    y, h = _ssd_local(xl, dtl, al, bl, cl, chunk, h0l)
+    bsz, length, nh, hd = x.shape
+    return (sm.leave(y, mesh, xp, x.shape),
+            sm.leave(h, mesh, hp, (bsz, nh, hd, bmat.shape[-1])))
+
+
+def _ssd_local(x, dt, a, bmat, cmat, chunk: int, h0=None):
     bsz, length, nh, hd = x.shape
     n = bmat.shape[-1]
     if length % chunk:

@@ -15,9 +15,19 @@ The expert products are ``torch.bmm`` over the buffer, as the reference's
 
 On DTensors (the dry run, a mesh) the buffers carry the reference's
 ``shard(..., ("expert", "expert_capacity", None))`` annotations and the
-scatter runs replicated (``_dispatch``).  Not ported: the reference's
-expert-parallel path (``_moe_shard_map``, ``_moe_sharding_ok``: ``shard_map``
-with all-to-all exchanges behind the ``moe=shard_map`` rule).
+scatter runs replicated (``_dispatch``).
+
+Expert parallelism (the reference's ``moe=shard_map`` rule): where the
+active logical rules set ``moe`` to ``"shard_map"`` and the shapes divide
+(``_moe_sharding_ok``, the reference's word for word), ``moe_apply`` runs
+``_moe_shard_map``: each rank routes its own tokens and scatters them into
+a partition-local (E, cap_loc, D) buffer, one all-to-all over the expert
+axis brings each rank its experts' rows from every rank, the expert GLUs
+run on the rank's experts and its slice of d_ff, a psum over "model" (in
+the activation dtype) completes them, the inverse all-to-all sends the
+rows home and the combine is local.  The per-rank code runs on plain
+local tensors between ``sharding.local.enter`` / ``leave`` (the
+counterpart of ``shard_map``), so DTensor places nothing inside it.
 """
 
 from __future__ import annotations
@@ -26,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.sharding.logical import shard
+from repro_torch.sharding.logical import current_rules, shard
 from .layers import dense_init, mlp_apply, mlp_init
 
 __all__ = ["moe_init", "moe_apply"]
@@ -126,8 +136,123 @@ def _dispatch(e: int, cap: int, eid, slot, contrib):
     return buf.index_put_((eid, slot), contrib, accumulate=True)
 
 
+def _batch_axes(bx) -> tuple:
+    return bx if isinstance(bx, tuple) else ((bx,) if bx else ())
+
+
+def _moe_shard_map(p, cfg: ModelConfig, x, mesh, rules):
+    """Partition-local EP dispatch: local scatter -> all_to_all(expert) ->
+    local expert GEMMs -> psum(model) -> all_to_all back -> local combine
+    (the reference's ``_moe_shard_map``).  Operands come to the reference's
+    ``in_specs`` and the results leave at its ``out_specs``; a plain ``x``
+    is taken as replicated on every rank, and its result comes back plain."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.launch.mesh import mesh_shape
+    from repro_torch.sharding import local as sm
+    from repro_torch.sharding.policy import to_placements
+
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.experts_per_token
+    data_ax, model_ax, bx = rules["expert"], rules["model"], rules["batch"]
+    batch_axes = _batch_axes(bx)
+    sizes = mesh_shape(mesh)
+    n_tok_shards = 1
+    for a in batch_axes:
+        n_tok_shards *= sizes[a]
+    t = b * s
+    t_loc = t // n_tok_shards
+    cap_loc = max(int(t_loc * k / e * cfg.capacity_factor), 1)
+    plain = not isinstance(x, DTensor)
+
+    def take(v, spec):
+        """The local shard of ``v`` at ``spec``, its gradient summed over
+        the mesh dims the spec leaves out."""
+        v = sm.replicated(v, mesh)
+        named = {a for ax in spec if ax is not None
+                 for a in (ax if isinstance(ax, tuple) else (ax,))}
+        place = to_placements(spec, mesh)
+        return sm.enter(v, place, sm.spec_grad(place, mesh, named))
+
+    xl = take(x.reshape(t, d), (bx, None))
+    pl = {"router": take(p["router"], (None, None)),
+          "w_gate": take(p["w_gate"], (data_ax, None, model_ax)),
+          "w_up": take(p["w_up"], (data_ax, None, model_ax)),
+          "w_down": take(p["w_down"], (data_ax, model_ax, None))}
+    shared = None
+    if cfg.n_shared_experts:
+        sh = p["shared"]
+        shared = {"w_gate": take(sh["w_gate"], (None, model_ax)),
+                  "w_up": take(sh["w_up"], (None, model_ax)),
+                  "w_down": take(sh["w_down"], (model_ax, None))}
+
+    # ---- the per-rank function (the reference's local_fn) ----
+    probs, gate, idx = _route(pl, cfg, xl)
+    assign, pos = _positions(idx, e)
+    f_e = sm.psum(assign.sum(dim=(0, 1)), mesh, batch_axes) / (t * k)
+    p_e = sm.psum(probs.sum(dim=0), mesh, batch_axes) / t
+    aux = e * (f_e * p_e).sum()
+
+    eid = idx.reshape(t_loc * k)
+    keep = pos < cap_loc
+    slot = pos.clamp_max(cap_loc - 1)
+    xk = xl[:, None, :].expand(t_loc, k, d).reshape(t_loc * k, d)
+    contrib = torch.where(keep[:, None], xk, 0).to(x.dtype)
+    buf = _dispatch(e, cap_loc, eid, slot, contrib)
+
+    # exchange: every rank sends expert j's slice to rank j
+    buf = sm.all_to_all(buf, mesh, data_ax, 0, 1)            # (e_loc, C, d)
+    y = _expert_mlp(cfg, pl, buf)                              # partial over f_loc
+    y = sm.psum(y.to(xl.dtype), mesh, model_ax)                # activation dtype on the wire
+    y = sm.all_to_all(y, mesh, data_ax, 1, 0)                  # (e, cap_loc, d)
+
+    w = (gate.reshape(t_loc * k) * keep).to(x.dtype)
+    out = (y[eid, slot] * w[:, None]).reshape(t_loc, k, d).sum(dim=1)
+    if shared is not None:
+        sh_up = xl @ shared["w_up"]
+        sh_g = F.silu(xl @ shared["w_gate"])
+        out = out + sm.psum((sh_g * sh_up) @ shared["w_down"], mesh, model_ax)
+
+    # ---- out_specs: (P(batch, None), P()) ----
+    n_all = mesh.size()
+    y_place = to_placements((bx, None), mesh)
+    y_full = sm.leave(out, mesh, y_place, (t, d), scale=n_tok_shards / n_all)
+    aux = sm.leave(aux, mesh, [Replicate()] * mesh.ndim, (), scale=1.0 / n_all)
+    if plain:
+        return y_full.full_tensor().reshape(b, s, d), aux.full_tensor()
+    return y_full.reshape(b, s, d), aux
+
+
+def _moe_sharding_ok(cfg: ModelConfig, x, mesh, rules) -> bool:
+    """shard_map path needs even divisibility everywhere."""
+    if rules is None or mesh is None:
+        return False
+    from repro_torch.launch.mesh import mesh_shape
+
+    shape = mesh_shape(mesh)
+    data_ax, model_ax, bx = rules.get("expert"), rules.get("model"), rules.get("batch")
+    if rules.get("moe") != "shard_map" or not data_ax or not model_ax:
+        return False
+    batch_axes = _batch_axes(bx)
+    n_tok = 1
+    for a in batch_axes:
+        n_tok *= shape[a]
+    t = x.shape[0] * x.shape[1]
+    # partition-local capacity must stay statistically safe: with too few
+    # tokens per shard (decode), local top-k skew would drop tokens, so
+    # fall back to the global-dispatch path there.
+    enough = t // max(n_tok, 1) * cfg.experts_per_token >= 4 * cfg.n_experts
+    return (n_tok > 0 and t % n_tok == 0 and enough
+            and cfg.n_experts % shape[data_ax] == 0
+            and cfg.d_ff % shape[model_ax] == 0)
+
+
 def moe_apply(p, cfg: ModelConfig, x):
     """x: (B, S, D) -> (y, aux_loss).  Top-k routing, renormalized weights."""
+    rules, mesh = current_rules()
+    if _moe_sharding_ok(cfg, x, mesh, rules):
+        _moe_shard_map.calls += 1
+        return _moe_shard_map(p, cfg, x, mesh, rules)
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.experts_per_token
     t = b * s
@@ -160,3 +285,6 @@ def moe_apply(p, cfg: ModelConfig, x):
     if cfg.n_shared_experts:
         y = y + mlp_apply(p["shared"], xf, "swiglu")
     return y.reshape(b, s, d), aux
+
+
+_moe_shard_map.calls = 0        # moe_apply calls that took the expert-parallel path

@@ -37,10 +37,12 @@ What differs from the reference:
     (``kernels/fleet_sweep/ops.py``), not XLA's;
   - ``device`` picks where the sweep runs: CUDA (the default) launches the
     kernel or raises, ``"cpu"`` runs its plain version;
-  - one device runs the whole sweep: ``shard`` is accepted and means what
-    it means in the reference with one device visible (no split), and
-    ``FleetStats.backend`` names what ran (``"fleet_sweep"`` or
-    ``"fleet_adaptive_sweep"``, the kernel, or ``"plain"``);
+  - ``shard`` splits the points over the visible CUDA devices as the
+    reference's ``shard_map`` over a ``("pts",)`` mesh does
+    (``split_sweep``: the rows padded by repeating row 0, one launch a
+    device); ``FleetStats.backend`` names what ran (``"fleet_sweep"`` or
+    ``"fleet_adaptive_sweep"``, the kernel, or ``"plain"``, with
+    ``" x n shards"`` after a split);
   - nothing is compiled per shape, so the reference's ``CompileCache`` has
     no counterpart: each kernel is built once, at first use, and the slot
     loop stops at the run's duration, so ``bucket_steps`` only bounds it;
@@ -51,6 +53,7 @@ What differs from the reference:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from dataclasses import dataclass, field
@@ -382,6 +385,58 @@ def fleet_adaptive_inputs(fgrid: FleetGrid, cfg: SimRunConfig, slot_us: float,
     return args, params, fparams
 
 
+def split_sweep(sweep, args: tuple, devices, **kw) -> dict[str, torch.Tensor]:
+    """One fleet sweep (``fleet_sweep`` or ``fleet_adaptive_sweep``) of the
+    per-point columns ``args`` (tensors whose first dim is the point, or
+    ``None``) split over ``devices``, one shard a device in list order: the
+    reference's ``shard_map`` over a ``("pts",)`` mesh
+    (``src/repro/runtime/fleet.py:797-808, 1073-1081``).  The points are
+    padded to a multiple of the shard count by repeating row 0, each
+    shard's columns are copied to its device before any launch, the
+    launches are all queued before any result is read, and the results are
+    joined in point order on ``devices[0]`` with the padding cut off.
+
+    Every per-point array comes from one ``fleet_inputs`` /
+    ``fleet_adaptive_inputs`` call on the whole grid, whose ``params`` (the
+    event-jump budget, the slot count) and whose maxima of m and n_queues
+    (the kernel build, passed as ``bounds``) every shard keeps: a shard is
+    never a sweep of a sub-grid.  ``kw``: the sweep's keywords."""
+    devices = [torch.device(d) for d in devices]
+    n_pts = args[0].shape[0]
+    n = len(devices)
+    pad = (-n_pts) % n
+    per = (n_pts + pad) // n
+
+    def padded(a):
+        return torch.cat([a, a[:1].expand(pad, *a.shape[1:])]) if pad else a
+
+    m, nq = args[2], args[3]
+    if int(m.min()) < 1 or int(nq.min()) < 1:
+        raise ValueError("every point needs m >= 1 and n_queues >= 1")
+    bounds = (int(m.max()), int(nq.max()))
+    cols = [None if a is None else padded(a) for a in args]
+    shards = [[None if a is None else a[i * per:(i + 1) * per].to(dev) for a in cols]
+              for i, dev in enumerate(devices)]
+    outs = []
+    for dev, shard_args in zip(devices, shards):
+        with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+            outs.append(sweep(*shard_args, bounds=bounds, **kw))
+    return {k: torch.cat([o[k].to(devices[0]) for o in outs])[:n_pts] for k in outs[0]}
+
+
+def _shard_devices(device: torch.device, n_pts: int, shard: bool | None) -> list:
+    """The devices the points split over: every visible CUDA device (at
+    most one a point) where ``shard`` is true, or None with more than one
+    visible (the reference's ``fleet.py:1063-1065``); ``device`` alone
+    otherwise."""
+    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
+    use_shard = (n_dev > 1) if shard is None else bool(shard)
+    n_shards = max(min(n_dev, n_pts), 1) if use_shard else 1
+    if n_shards == 1:
+        return [device]
+    return [torch.device("cuda", i) for i in range(n_shards)]
+
+
 def simulate_fleet(fgrid: FleetGrid, cfg: SimRunConfig | None = None, *,
                    slot_us: float = 0.5, shard: bool | None = None,
                    stepping: str = "fixed", device="cuda") -> FleetStats:
@@ -391,9 +446,10 @@ def simulate_fleet(fgrid: FleetGrid, cfg: SimRunConfig | None = None, *,
     ``cfg`` supplies the environment as for ``simulate_batch`` (its windows
     and binned series are not read: the fleet keeps per-host totals); the
     fleet (host count, balancer, topology) and the per-point hedge
-    deadlines come from ``fgrid``.  ``shard`` is accepted for the
-    reference's signature: the port runs the sweep on ``device`` alone, as
-    the reference does with one device visible.  ``stepping="adaptive"``
+    deadlines come from ``fgrid``.  ``shard``: split the points over the
+    visible CUDA devices (``split_sweep``), by default where more than one
+    is visible; on the CPU, or with one card, one launch runs them all.
+    ``stepping="adaptive"``
     runs the fleet sweep by event jumps (``fleet_adaptive_sweep``): the
     hosts of a point advance in lock-step by one shared ``dt``, the nearest
     boundary over the whole fleet (every host's wake, drain-out, fill and
@@ -410,18 +466,27 @@ def simulate_fleet(fgrid: FleetGrid, cfg: SimRunConfig | None = None, *,
     validate_batched_config(cfg)
     device = resolve_device(device)
     n_pts = len(fgrid)
+    devices = _shard_devices(device, n_pts, shard)
+    where = devices[0] if len(devices) == 1 else torch.device("cpu")
+    split = f" x {len(devices)} shards" if len(devices) > 1 else ""
+
+    def run(sweep, args, **kw):
+        if len(devices) == 1:
+            return sweep(*args, **kw)
+        return split_sweep(sweep, args, devices, **kw)
+
     if stepping == "adaptive":
-        args, params, fparams = fleet_adaptive_inputs(fgrid, cfg, float(slot_us), device)
-        out = fleet_adaptive_sweep(*args, params=params, fleet=fparams)
+        args, params, fparams = fleet_adaptive_inputs(fgrid, cfg, float(slot_us), where)
+        out = run(fleet_adaptive_sweep, args, params=params, fleet=fparams)
         return FleetStats(
             fgrid=fgrid, cfg=cfg, slot_us=float(slot_us),
-            backend="fleet_adaptive_sweep" if device.type == "cuda" else "plain",
+            backend=("fleet_adaptive_sweep" if device.type == "cuda" else "plain") + split,
             stepping=stepping, scan_len=params.max_steps,
             **{k: out[k].cpu().numpy().astype(np.float64)
                for k in (*STAT_NAMES, "n_steps", "forced_steps")},
             sim_time_us=out["sim_time"].cpu().numpy().astype(np.float64))
-    args, params, fparams = fleet_inputs(fgrid, cfg, float(slot_us), device)
-    out = fleet_sweep(*args, params=params, fleet=fparams)
+    args, params, fparams = fleet_inputs(fgrid, cfg, float(slot_us), where)
+    out = run(fleet_sweep, args, params=params, fleet=fparams)
     vals = {k: out[k].cpu().numpy().astype(np.float64) for k in STAT_NAMES}
     # the reference's float32 step count: live slots, capped by the scan
     dt = np.float32(slot_us)
@@ -429,7 +494,7 @@ def simulate_fleet(fgrid: FleetGrid, cfg: SimRunConfig | None = None, *,
                         np.float32(params.n_slots))
     return FleetStats(
         fgrid=fgrid, cfg=cfg, slot_us=float(slot_us),
-        backend="fleet_sweep" if device.type == "cuda" else "plain",
+        backend=("fleet_sweep" if device.type == "cuda" else "plain") + split,
         stepping=stepping, scan_len=params.n_slots,
         n_steps=np.full(n_pts, float(n_live)),
         forced_steps=np.zeros(n_pts),

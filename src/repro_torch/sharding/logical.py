@@ -142,34 +142,75 @@ def take_rows(table, ids):
     elsewhere), and the result is their sum (``Partial``); a dim that
     shards the columns keeps them sharded in the result, unless it shards
     the ids too, where the columns are gathered first (FSDP's gather on
-    use).  DTensor's own rules for this lookup differ between torch
-    releases, and one fails in the backward."""
+    use).  The lookup is one ``autograd.Function`` (``_TakeRows``) whose
+    backward scatters the rank's gradient rows into its block of the
+    table: the table's gradient is ``Partial`` on the mesh dims that split
+    the ids over a whole (or gathered) table, each rank holding its ids'
+    share, and placed as the table elsewhere.  DTensor's own rules for
+    this lookup differ between torch releases: 2.11's backward of the
+    column gather asks for a ``Shard(1)`` -> ``Partial`` it does not have,
+    and a gradient brought back to ``Shard(1)`` meets the tied output
+    head's ``Partial`` one in a sum that 2.11 cannot place either."""
     if type(table) is torch.Tensor:
         return table[ids]
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    from torch.distributed.tensor import DTensor, Replicate
 
-    mesh = table.device_mesh
-    out_shape = (*ids.shape, table.shape[1])
-    tp = list(table.placements)
-    ip = list(ids.placements) if isinstance(ids, DTensor) else [Replicate()] * mesh.ndim
-    op = list(ip)
-    for i, p in enumerate(tp):
-        if isinstance(p, Shard) and p.dim == 0:
-            ip[i], op[i] = Replicate(), Partial()
-        elif isinstance(p, Shard) and isinstance(ip[i], Shard):
-            tp[i] = Replicate()
-        elif isinstance(p, Shard):
-            op[i] = Shard(len(out_shape) - 1)
-    table = table.redistribute(mesh, tp)
-    local_ids = ids.redistribute(mesh, ip).to_local() if isinstance(ids, DTensor) else ids
-    shape, offset = compute_local_shape_and_global_offset(table.shape, mesh, table.placements)
-    i = local_ids - offset[0]
-    inside = (i >= 0) & (i < shape[0])
-    rows = table.to_local()[i.clamp(0, shape[0] - 1)]
-    rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
-    stride = [1] * len(out_shape)
-    for d in range(len(out_shape) - 2, -1, -1):
-        stride[d] = stride[d + 1] * out_shape[d + 1]
-    return DTensor.from_local(rows, mesh, op, run_check=False, shape=out_shape,
-                              stride=tuple(stride))
+    if not isinstance(ids, DTensor):
+        ids = DTensor.from_local(ids, table.device_mesh, [Replicate()] * table.device_mesh.ndim,
+                                 run_check=False)
+    return _TakeRows.apply(table, ids)
+
+
+class _TakeRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, ids):
+        from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+        from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+        from .local import contiguous_stride
+
+        mesh = table.device_mesh
+        out_shape = (*ids.shape, table.shape[1])
+        tp = list(table.placements)
+        ip = list(ids.placements)
+        op = list(ip)
+        for i, p in enumerate(tp):
+            if isinstance(p, Shard) and p.dim == 0:
+                ip[i], op[i] = Replicate(), Partial()
+            elif isinstance(p, Shard) and isinstance(ip[i], Shard):
+                tp[i] = Replicate()
+            elif isinstance(p, Shard):
+                op[i] = Shard(len(out_shape) - 1)
+        table = table.redistribute(mesh, tp)
+        local_ids = ids.redistribute(mesh, ip).to_local()
+        shape, offset = compute_local_shape_and_global_offset(table.shape, mesh, table.placements)
+        i = local_ids - offset[0]
+        inside = (i >= 0) & (i < shape[0])
+        i = i.clamp(0, shape[0] - 1)
+        rows = table.to_local()[i]
+        rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
+        # the gradient's blocks: a rank's share of the sum where its ids are
+        # a part of all (a mesh dim that splits them over a whole table)
+        gp = [p if not isinstance(p, Replicate) else
+              Partial() if isinstance(ip[k], Shard) else p for k, p in enumerate(tp)]
+        ctx.save_for_backward(i, inside)
+        ctx.mesh, ctx.gp = mesh, tuple(gp)
+        ctx.op = tuple(Replicate() if isinstance(p, Partial) else p for p in op)
+        ctx.table_shape, ctx.local_shape = tuple(table.shape), tuple(shape)
+        return DTensor.from_local(rows, mesh, op, run_check=False, shape=out_shape,
+                                  stride=contiguous_stride(out_shape))
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import DTensor
+
+        from .local import contiguous_stride
+
+        i, inside = ctx.saved_tensors
+        g = grad.redistribute(ctx.mesh, ctx.op).to_local()
+        g = torch.where(inside[..., None], g, torch.zeros_like(g))
+        block = g.new_zeros(ctx.local_shape).index_put_(
+            (i.reshape(-1),), g.reshape(-1, g.shape[-1]), accumulate=True)
+        return DTensor.from_local(block, ctx.mesh, ctx.gp, run_check=False,
+                                  shape=ctx.table_shape,
+                                  stride=contiguous_stride(ctx.table_shape)), None

@@ -83,6 +83,7 @@ def test_import_loads_no_jax_and_no_reference_module():
             "repro_torch.launch.train", "repro_torch.launch.mesh", "repro_torch.launch.inputs",
             "repro_torch.launch.dryrun", "repro_torch.sharding", "repro_torch.sharding.logical",
             "repro_torch.sharding.policy", "repro_torch.sharding.pipeline",
+            "repro_torch.sharding.local",
             "repro_torch.roofline", "repro_torch.roofline.analysis"} <= set(names)
     code = (
         "import importlib, sys\n"
@@ -239,7 +240,7 @@ def test_multi_device_layer_imports_touch_no_process_group():
         "import sys\n"
         "import torch.distributed as dist\n"
         "import repro_torch.launch.dryrun, repro_torch.launch.inputs, repro_torch.launch.mesh\n"
-        "import repro_torch.sharding.pipeline, repro_torch.roofline\n"
+        "import repro_torch.sharding.pipeline, repro_torch.sharding.local, repro_torch.roofline\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad, dist.is_initialized())\n"

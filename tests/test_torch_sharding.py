@@ -15,7 +15,8 @@ the CPU.
   in the ``slow`` mirror of the reference's
   ``test_every_cell_constructs_on_small_mesh_subprocess``.
 - The dry run on reduced configs over a fake 2x4 mesh against 1x1, the
-  refused routes, and the CLI on mamba2-370m x long_500k (``slow``, the
+  refused kernel route, the expert-parallel MoE's exchanges in a train
+  cell, and the CLI on mamba2-370m x long_500k (``slow``, the
   mirror of ``test_dryrun_cli_one_cell_subprocess``).
 
 A spec is compared as the reference's ``PartitionSpec`` entries padded
@@ -393,12 +394,30 @@ for arch, shape in [("gemma-2b", "train_4k"), ("dbrx-132b", "prefill_32k"),
         coll = collective_bytes(trace.collectives)
         out[f"{arch}|{shape}|{d}x{m}"] = {"flops": trace.flops, "bytes": trace.bytes,
                                           "peak": trace.peak, "counts": coll["counts"]}
-for ov in ({"attn": "pallas"}, {"moe": "shard_map"}):
-    try:
-        build_cell("dbrx-132b", "prefill_32k", make_host_mesh(1, 1, device_type="cpu"),
-                   rule_overrides=ov)
-    except NotImplementedError as err:
-        out[json.dumps(ov)] = str(err)
+try:
+    build_cell("dbrx-132b", "prefill_32k", make_host_mesh(1, 1, device_type="cpu"),
+               rule_overrides={"attn": "pallas"})
+except NotImplementedError as err:
+    out[json.dumps({"attn": "pallas"})] = str(err)
+# the expert-parallel rule on a reduced dbrx-132b train cell, 2x4, and without it
+from repro_torch.models import moe
+from repro_torch.sharding import local
+psum_axes = []
+_psum = local._psum
+local._psum = lambda x, mesh, axes: psum_axes.append(list(axes)) or _psum(x, mesh, axes)
+red = get_config("dbrx-132b").reduced()
+ov = {f.name: getattr(red, f.name) for f in dataclasses.fields(red)
+      if getattr(red, f.name) != getattr(get_config("dbrx-132b"), f.name)}
+fake_world(8)
+for rules in ({"moe": "shard_map"}, {}):
+    moe._moe_shard_map.calls = 0
+    psum_axes.clear()
+    cell = build_cell("dbrx-132b", "train_4k", make_host_mesh(2, 4, device_type="cpu"),
+                      cfg_overrides=ov, rule_overrides=rules)
+    _, trace = cell.lower()
+    out["dbrx-132b|train_4k|2x4|" + json.dumps(rules)] = {
+        "counts": collective_bytes(trace.collectives)["counts"], "layers": red.n_layers,
+        "calls": moe._moe_shard_map.calls, "psum_axes": psum_axes[:]}
 print("DRY " + json.dumps(out))
 """
 
@@ -430,8 +449,28 @@ def test_dryrun_train_cell_reduces_gradients(small_dryrun):
 
 
 def test_dryrun_refuses_the_kernel_and_shard_map_routes(small_dryrun):
+    """The flash-attention kernel route is still refused (K1 has no sharded
+    form); the expert-parallel ``moe=shard_map`` rule is no longer refused:
+    its cell traces (``test_dryrun_expert_parallel_train_cell_exchanges``)."""
     assert "flash-attention kernel" in small_dryrun[json.dumps({"attn": "pallas"})]
-    assert "_moe_shard_map" in small_dryrun[json.dumps({"moe": "shard_map"})]
+    assert json.dumps({"moe": "shard_map"}) not in small_dryrun
+    assert small_dryrun["dbrx-132b|train_4k|2x4|" + json.dumps({"moe": "shard_map"})]["calls"] > 0
+
+
+def test_dryrun_expert_parallel_train_cell_exchanges(small_dryrun):
+    """A reduced dbrx-132b train cell on the 2x4 fake group under
+    ``moe=shard_map``: every MoE layer takes the expert-parallel path in
+    the forward and again in remat's recomputation, two all-to-alls each,
+    and the backward's two a layer; the expert outputs are psum'd over
+    "model" (all-reduces).  Without the rule: no all-to-all, no EP call."""
+    ep = small_dryrun["dbrx-132b|train_4k|2x4|" + json.dumps({"moe": "shard_map"})]
+    base = small_dryrun["dbrx-132b|train_4k|2x4|" + json.dumps({})]
+    n = ep["layers"]
+    assert ep["calls"] == 2 * n                          # forward + remat's recomputation
+    assert ep["counts"]["all-to-all"] == 6 * n, ep["counts"]
+    assert ["model"] in ep["psum_axes"] and ep["counts"]["all-reduce"] > 0
+    assert base["calls"] == 0 and base["counts"]["all-to-all"] == 0, base
+    assert base["psum_axes"] == []
 
 
 @pytest.mark.slow
