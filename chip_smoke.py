@@ -2483,17 +2483,22 @@ def phase_train_entry() -> dict:
 MESH_BATCH, MESH_DECODE = 2, 4
 MESH_LOGIT_TOL = 2e-4        # tests/test_torch_model.py
 MESH_LOSS_RTOL, MESH_PARAM_TOL = 2e-4, 2e-3    # tests/test_torch_train.py
-# (arch, shape, a --override or None): a decode and a train cell; the six
-# that torch 2.11 cannot trace without models/mamba2.py's concatenated
-# padding and per-shard SSD scan and sharding/logical.py's take_rows; two
-# cells on the expert-parallel MoE path
-DRYRUN_CELLS = (("mamba2-370m", "long_500k", None), ("gemma-2b", "train_4k", None),
-                ("mamba2-370m", "prefill_32k", None), ("mamba2-370m", "train_4k", None),
-                ("jamba-1.5-large-398b", "prefill_32k", None),
-                ("jamba-1.5-large-398b", "train_4k", None),
-                ("granite-3-8b", "train_4k", None), ("whisper-small", "train_4k", None),
-                ("dbrx-132b", "train_4k", "moe=shard_map"),
-                ("llama4-scout-17b-a16e", "prefill_32k", "moe=shard_map"))
+# the dry run's Optimized set: every lever of the reference's tables at once
+# (benchmarks/make_experiments_tables.py)
+DRYRUN_OPTIMIZED = ("--override", "moe=shard_map", "--override", "attn=chunked",
+                    "--override", "seq=model", "--kv-quant", "--kv-ring")
+# (arch, shape, the dry run's extra arguments): a decode and a train cell;
+# the six that torch 2.11 cannot trace without models/mamba2.py's
+# concatenated padding and per-shard SSD scan and sharding/logical.py's
+# take_rows; two cells on the expert-parallel MoE path; one Optimized cell
+DRYRUN_CELLS = (("mamba2-370m", "long_500k", ()), ("gemma-2b", "train_4k", ()),
+                ("mamba2-370m", "prefill_32k", ()), ("mamba2-370m", "train_4k", ()),
+                ("jamba-1.5-large-398b", "prefill_32k", ()),
+                ("jamba-1.5-large-398b", "train_4k", ()),
+                ("granite-3-8b", "train_4k", ()), ("whisper-small", "train_4k", ()),
+                ("dbrx-132b", "train_4k", ("--override", "moe=shard_map")),
+                ("llama4-scout-17b-a16e", "prefill_32k", ("--override", "moe=shard_map")),
+                ("gemma-2b", "prefill_32k", DRYRUN_OPTIMIZED))
 MOE_EP_ARCHS = ("dbrx-132b", "llama4-scout-17b-a16e")
 
 
@@ -2745,14 +2750,18 @@ def mesh_dryruns() -> dict:
     """``python -m repro_torch.launch.dryrun`` on ``DRYRUN_CELLS`` as
     subprocesses (their fake process groups are theirs), at most half the
     cores' count at a time, one intra-op thread each: exit 0, one cell OK,
-    their roofline lines; an EP cell's report must hold all-to-all bytes."""
+    their roofline lines.  A MoE arch under ``moe=shard_map`` must take the
+    expert-parallel path (``_moe_shard_map``) once a MoE layer, twice in a
+    train cell (remat's recomputation); every other cell never."""
+    from repro_torch.configs import SHAPES, get_config
+
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
     workers = max(1, (os.cpu_count() or 2) // 2)
 
     def run(cell):
-        arch, shape, override = cell
+        arch, shape, extra = cell
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-               "--shape", shape] + (["--override", override] if override else [])
+               "--shape", shape, *extra]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=ROOT,
                               env=env)
@@ -2764,11 +2773,11 @@ def mesh_dryruns() -> dict:
     rec = {}
     with ThreadPoolExecutor(workers) as pool:
         done = list(pool.map(run, DRYRUN_CELLS))
-    for (arch, shape, override), proc, seconds in done:
-        name = f"{arch} x {shape}" + (f" --override {override}" if override else "")
+    for (arch, shape, extra), proc, seconds in done:
+        name = " ".join((f"{arch} x {shape}", *extra))
         lines = [ln.strip() for ln in proc.stdout.splitlines()
                  if ln.strip().startswith(("roofline:", "cost:", "memory", "collectives",
-                                           "== "))]
+                                           "expert-parallel", "== "))]
         rec[name] = {"rc": proc.returncode, "lines": lines, "seconds": seconds}
         log(f"  dryrun {name}: rc {proc.returncode}, {seconds:.1f} s")
         for ln in lines:
@@ -2776,8 +2785,16 @@ def mesh_dryruns() -> dict:
         if proc.returncode != 0 or "1 cells compiled OK, 0 failed" not in proc.stdout:
             fail(f"the dry run of {name} failed on torch {torch.__version__}: "
                  f"{(proc.stdout + proc.stderr)[-3000:]}")
-        if override and "'all-to-all': 0," in proc.stdout:
-            fail(f"the dry run of {name} recorded no all-to-all")
+        calls = [int(ln.rsplit(":", 1)[1]) for ln in proc.stdout.splitlines()
+                 if ln.strip().startswith("expert-parallel MoE calls:")]
+        want = 0
+        if arch in MOE_EP_ARCHS and "moe=shard_map" in extra:
+            n_moe = sum(ffn == "moe" for _, ffn in get_config(arch).layer_plan())
+            want = n_moe * (2 if SHAPES[shape].kind == "train" else 1)
+        rec[name]["moe_ep_calls"] = calls
+        if calls != [want]:
+            fail(f"the dry run of {name} took the expert-parallel MoE path {calls} "
+                 f"times, not {want}")
     rec["torch"] = torch.__version__
     rec["seconds"] = time.perf_counter() - t_all
     log(f"  dry run: {len(DRYRUN_CELLS)} cells in {rec['seconds']:.1f} s (wall)")

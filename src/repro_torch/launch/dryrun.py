@@ -35,6 +35,7 @@ import traceback
 from repro_torch.configs.base import SHAPES, cells, get_config
 from repro_torch.launch.inputs import build_cell
 from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models import moe
 from repro_torch.roofline.analysis import analyze_cell, model_flops
 from repro_torch.train.loop import meta_params
 
@@ -129,10 +130,12 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
     mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
     mesh_name = "2x16x16" if multi_pod else "16x16"
     t0 = time.time()
+    moe._moe_shard_map.calls = 0
     cell = build_cell(arch, shape_name, mesh, **(extra or {}))
     with closed_form_strided_shards():
         out, trace = cell.lower()
     dt = time.time() - t0
+    ep_calls = moe._moe_shard_map.calls
 
     shape = SHAPES[shape_name]
     cfg = get_config(arch)
@@ -149,6 +152,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
               f"out={rep.out_bytes / 1e9:.3f}GB")
         print(f"   cost: flops/dev={rep.flops_per_dev:.3e} bytes/dev={rep.bytes_per_dev:.3e}")
         print(f"   collectives/dev: {rep.coll_detail}")
+        print(f"   expert-parallel MoE calls: {ep_calls}")
         t = rep.terms
         print(f"   roofline: compute={t['compute_s']:.4f}s "
               f"memory={t['memory_s']:.4f}s collective={t['collective_s']:.4f}s "
@@ -156,6 +160,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
               f"fraction={t['roofline_fraction']:.3f} "
               f"useful_flops_ratio={rep.useful_flops_ratio:.3f}")
         sys.stdout.flush()
+    rep.moe_ep_calls = ep_calls
     return rep
 
 
@@ -222,7 +227,8 @@ def main(argv=None) -> int:
                         row = rep.row()
                         row["coll_detail"] = {
                             k: v for k, v in rep.coll_detail.items()}
-                        row.update(flops_per_dev=rep.flops_per_dev,
+                        row.update(moe_ep_calls=rep.moe_ep_calls,
+                                   flops_per_dev=rep.flops_per_dev,
                                    bytes_per_dev=rep.bytes_per_dev,
                                    coll_bytes_per_dev=rep.coll_bytes_per_dev,
                                    arg_bytes=rep.arg_bytes, peak_bytes=rep.peak_bytes)

@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.sharding.logical import merge_last, splittable
+from repro_torch.sharding.logical import merge_last, query_split, splittable
 from .layers import apply_rope, dense_init, rmsnorm, rmsnorm_init, softcap
 
 __all__ = ["ATTN_IMPLS", "attn_init", "attn_apply", "attn_prefill", "attn_decode",
@@ -54,10 +54,19 @@ def _project_qkv(p, cfg: ModelConfig, xq, xkv):
     q = splittable(xq @ p["wq"], hd).reshape(*xq.shape[:-1], -1, hd)
     k = splittable(xkv @ p["wk"], hd).reshape(*xkv.shape[:-1], -1, hd)
     v = splittable(xkv @ p["wv"], hd).reshape(*xkv.shape[:-1], -1, hd)
-    if "q_norm" in p:
-        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
-        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
     return q, k, v
+
+
+def _norms(p):
+    """The q and k norms' scales, or None."""
+    return (p["q_norm"], p["k_norm"]) if "q_norm" in p else None
+
+
+def _qk_norm(cfg: ModelConfig, q, k, norms):
+    if norms is not None:
+        q = rmsnorm(q, norms[0], cfg.norm_eps)
+        k = rmsnorm(k, norms[1], cfg.norm_eps)
+    return q, k
 
 
 def _sdpa(cfg: ModelConfig, q, k, v, mask, *, k_scale=None, v_scale=None):
@@ -88,10 +97,11 @@ def _sdpa(cfg: ModelConfig, q, k, v, mask, *, k_scale=None, v_scale=None):
 
 
 def _sdpa_chunked(cfg: ModelConfig, q, k, v, *, causal: bool, window: int,
-                  chunk: int = 1024):
+                  chunk: int = 1024, q_offset: int = 0):
     """Flash-style online-softmax attention: a loop over KV chunks, never
     materializing the (S, T) score matrix.  Returns None when T is not a
-    multiple of the chunk (the caller falls back)."""
+    multiple of the chunk (the caller falls back).  ``q_offset``: the
+    position of q's first row (a rank's block of the queries)."""
     b, s, h, hd = q.shape
     t, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -100,7 +110,7 @@ def _sdpa_chunked(cfg: ModelConfig, q, k, v, *, causal: bool, window: int,
         return None
     f32 = torch.float32
     qg = splittable(q, g, 2).reshape(b, s, kvh, g, hd).float() * hd ** -0.5
-    qpos = torch.arange(s, device=q.device)
+    qpos = torch.arange(s, device=q.device) + q_offset
     m = torch.full((b, kvh, g, s), NEG_INF, dtype=f32, device=q.device)
     l = torch.zeros((b, kvh, g, s), dtype=f32, device=q.device)
     acc = torch.zeros((b, kvh, g, s, hd), dtype=f32, device=q.device)
@@ -130,11 +140,13 @@ def _sdpa_chunked(cfg: ModelConfig, q, k, v, *, causal: bool, window: int,
 
 
 def _attention(cfg: ModelConfig, q, k, v, mask, *, causal: bool, window: int,
-               impl: str | None):
+               impl: str | None, q_offset: int = 0):
     """Dispatch on ``impl`` (see the module docstring); the conditions are
-    the reference's, so the same shapes reach the kernel."""
+    the reference's, so the same shapes reach the kernel.  ``q_offset``
+    (the position of q's first row, with ``mask`` built for it) is for the
+    query split, which the kernel route does not take."""
     if impl == "chunked" and causal:
-        out = _sdpa_chunked(cfg, q, k, v, causal=causal, window=window)
+        out = _sdpa_chunked(cfg, q, k, v, causal=causal, window=window, q_offset=q_offset)
         if out is not None:
             return out
     if impl == "kernel" and causal:
@@ -156,6 +168,107 @@ def _causal_mask(s: int, t: int, q_offset, local_window: int, device=None):
     return m
 
 
+def _attend(cfg: ModelConfig, q, k, v, norms, qpos, kpos, *, causal: bool, window: int,
+            impl: str | None, q_offset: int = 0):
+    """What follows the projections, alike on DTensors and on a rank's
+    local shards (``_attend_split``): the q/k norms (``norms``: their
+    scales, or None), RoPE at ``qpos`` / ``kpos`` (None: no RoPE), the
+    causal mask for queries from position ``q_offset``, and ``_attention``'s
+    route.  Returns (out (B, S, H, hd), k as the cache takes it)."""
+    q, k = _qk_norm(cfg, q, k, norms)
+    if qpos is not None:
+        q = apply_rope(q, qpos, cfg.rope_theta)
+        k = apply_rope(k, kpos, cfg.rope_theta)
+    mask = None
+    if causal:
+        mask = _causal_mask(q.shape[1], k.shape[1], q_offset, window, q.device)[None, None, None]
+    out = _attention(cfg, q, k, v, mask, causal=causal, window=window, impl=impl,
+                     q_offset=q_offset)
+    return out, k
+
+
+def _attend_full(p, cfg: ModelConfig, x, xkv, positions, *, causal: bool, window: int,
+                 impl: str | None, rope: bool, cache: bool = False):
+    """Full-sequence attention of ``x`` on ``xkv``: y (B, S, D) = o @ wo,
+    with ``cache`` (y, k, v), k and v (B, T, KV, hd) as the cache takes
+    them.  The one place that picks the query split
+    (``sharding.logical.query_split``); otherwise the projections on
+    ``x`` as it is (a plain tensor or a DTensor) and ``_attend``."""
+    d = query_split(x, p["wk"].shape[-1] // cfg.resolved_head_dim)
+    if d is not None:
+        return _attend_split(p, cfg, x, xkv, positions, d, causal=causal, window=window,
+                             impl=impl, rope=rope, cache=cache)
+    q, k, v = _project_qkv(p, cfg, x, xkv)
+    pos = positions if rope else None
+    out, k = _attend(cfg, q, k, v, _norms(p), pos, pos, causal=causal, window=window,
+                     impl=impl)
+    y = merge_last(out) @ p["wo"]
+    return (y, k, v) if cache else y
+
+
+def _attend_split(p, cfg: ModelConfig, x, xkv, positions, d: int, *, causal: bool,
+                  window: int, impl: str | None, rope: bool, cache: bool = False):
+    """``_attend_full`` on DTensors with the queries' sequence split over
+    mesh dim ``d``: y as ``o @ wo`` leaves it (``Partial`` on ``d``, reduced
+    where it joins the residual stream); k and v whole on ``d``.
+
+    The projections keep their columns (wq, wk, wv) and rows (wo) split
+    over ``d``, as everywhere else.  Between them each rank works on local
+    tensors (``sharding.local.enter`` / ``leave``): one all-to-all over
+    ``d`` trades its columns of q for a block of S / n queries with every
+    head; K and V are gathered whole; its rows of the scores against every
+    key (the causal mask shifted to the block's first position) and of P V
+    follow; the inverse all-to-all brings the output back to its columns.
+    So each rank does 1/n of every product, and no score crosses the link.
+    The gradients: q's and the output's by the inverse exchanges; K's, V's
+    and the norms' are each rank's share, summed over the mesh dims that
+    split the work."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    from repro_torch.sharding import local as sm
+
+    if impl == "kernel":
+        raise NotImplementedError("the flash-attention kernel has no sharded form")
+    mesh, hd = x.device_mesh, cfg.resolved_head_dim
+    axis = mesh.mesh_dim_names[d]
+    b, s = x.shape[:2]
+    bp = [pl if pl == Shard(0) else Replicate() for pl in x.placements]
+    cols = [Shard(2) if i == d else pl for i, pl in enumerate(bp)]      # q's, the output's
+    rows = [Shard(1) if i == d else pl for i, pl in enumerate(bp)]      # the query block
+    kp = [Replicate() if i == d else pl for i, pl in enumerate(bp)]
+    kgrad = [Partial() if i == d else pl for i, pl in enumerate(kp)]
+    q, k, v = x @ p["wq"], xkv @ p["wk"], xkv @ p["wv"]
+    t = k.shape[1]
+    ql = sm.all_to_all(sm.enter(q, cols), mesh, axis, 1, 2)
+    kl, vl = (sm.enter(z, kp, kgrad).reshape(-1, t, z.shape[-1] // hd, hd) for z in (k, v))
+    shape, off = compute_local_shape_and_global_offset(x.shape, mesh, rows)
+    bl, sl = shape[:2]
+    ql = ql.reshape(bl, sl, -1, hd)
+    norms = _norms(p)
+    if norms is not None:
+        ngrad = [Partial() if isinstance(pl, Shard) else Replicate() for pl in rows]
+        norms = [sm.enter(w, [Replicate()] * mesh.ndim, ngrad) for w in norms]
+    qpos = kpos = None
+    if rope:
+        kpos = positions
+        if type(kpos) is not torch.Tensor:      # a DTensor: each rank reads it whole
+            kpos = kpos.full_tensor()
+        if kpos.ndim > 1:
+            kpos = kpos[off[0]:off[0] + bl]
+        qpos = kpos[..., off[1]:off[1] + sl]
+    out, kl = _attend(cfg, ql, kl, vl, norms, qpos, kpos, causal=causal, window=window,
+                      impl=impl, q_offset=off[1])
+    out = sm.all_to_all(out.reshape(bl, sl, -1), mesh, axis, 2, 1)
+    y = sm.leave(out, mesh, cols, (b, s, q.shape[-1])) @ p["wo"]
+    if not cache:
+        return y
+    # each rank holds k and v whole on d: a gradient shared among its n ranks
+    k, v = (sm.leave(z, mesh, kp, (b, t, *z.shape[2:]), scale=1.0 / mesh.size(d))
+            for z in (kl, vl))
+    return y, k, v
+
+
 def attn_apply(p, cfg: ModelConfig, x, positions, *, local: bool = False,
                causal: bool = True, xkv=None, impl: str | None = None):
     """Full-sequence attention (train / encoder / cross).  ``causal=False``
@@ -165,16 +278,9 @@ def attn_apply(p, cfg: ModelConfig, x, positions, *, local: bool = False,
     takes ``impl``'s route: the encoder and cross-attention always run the
     plain sdpa."""
     xkv = x if xkv is None else xkv
-    q, k, v = _project_qkv(p, cfg, x, xkv)
-    if cfg.use_rope and xkv is x:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-    mask = None
-    window = cfg.local_window if local else 0
-    if causal:
-        mask = _causal_mask(x.shape[1], xkv.shape[1], 0, window, x.device)[None, None, None]
-    out = _attention(cfg, q, k, v, mask, causal=causal, window=window, impl=impl)
-    return merge_last(out) @ p["wo"]
+    return _attend_full(p, cfg, x, xkv, positions, causal=causal,
+                        window=cfg.local_window if local else 0, impl=impl,
+                        rope=cfg.use_rope and xkv is x)
 
 
 # ---------------------------------------------------------------------------
@@ -208,14 +314,9 @@ def _quantize_kv(x):
 def attn_prefill(p, cfg: ModelConfig, x, positions, *, local: bool = False,
                  impl: str | None = None):
     """Like attn_apply but also returns the cache entry for decode."""
-    q, k, v = _project_qkv(p, cfg, x, x)
-    if cfg.use_rope:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-    window = cfg.local_window if local else 0
-    mask = _causal_mask(x.shape[1], x.shape[1], 0, window, x.device)[None, None, None]
-    out = _attention(cfg, q, k, v, mask, causal=True, window=window, impl=impl)
-    y = merge_last(out) @ p["wo"]
+    y, k, v = _attend_full(p, cfg, x, x, positions, causal=True,
+                           window=cfg.local_window if local else 0, impl=impl,
+                           rope=cfg.use_rope, cache=True)
     if cfg.kv_quant:
         k8, ks = _quantize_kv(k)
         v8, vs = _quantize_kv(v)
@@ -263,6 +364,7 @@ def attn_decode(p, cfg: ModelConfig, x, cache, pos, *, local: bool = False):
     """
     b = x.shape[0]
     q, k, v = _project_qkv(p, cfg, x, x)                   # q: (B,1,H,hd)
+    q, k = _qk_norm(cfg, q, k, _norms(p))
     if cfg.use_rope:
         q = apply_rope(q, pos[:, None], cfg.rope_theta)
         k = apply_rope(k, pos[:, None], cfg.rope_theta)

@@ -63,6 +63,27 @@ def _dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
+def _normed(x, scale, cfg: ModelConfig):
+    """``rmsnorm(x)``, a sub-block's (or the output head's) input, whole
+    along the sequence: under ``seq="model"`` the all-gather that
+    Megatron's sequence parallelism puts before a column-parallel
+    projection (GSPMD inserts it for the reference; its backward
+    reduce-scatters).  DTensor would issue it inside the projection's
+    matmul on torch 2.13, but 2.11 refuses to flatten a split sequence into
+    the matmul's rows.  Under the baseline rules, and outside rules, the
+    norm alone."""
+    return shard(rmsnorm(x, scale, cfg.norm_eps), ("batch", None, None))
+
+
+def _residual(y):
+    """A sub-block's output at the residual stream's placements before it
+    joins the stream: a row-parallel projection's ``Partial`` is reduced
+    there (all-reduced, or reduce-scattered under ``seq="model"``), as
+    GSPMD reduces it, so the next projection's input is whole on "model"
+    and its weight stays split.  The identity outside logical rules."""
+    return shard(y, ("batch", "seq", None))
+
+
 def _groups(tree) -> list[dict]:
     """Every group of a group-stacked tree, as views (a write through one
     lands in the tree): one ``unbind`` a leaf, whose backward stacks the
@@ -154,7 +175,7 @@ class Model:
 
     def _logits(self, params, x):
         cfg = self.cfg
-        x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        x = _normed(x, params["final_norm"], cfg)
         if cfg.tie_embeddings:
             logits = x @ params["embed"].to(x.dtype).T
         else:
@@ -181,24 +202,24 @@ class Model:
         positions = torch.arange(t, device=x.device)
         for gp in _groups(enc["blocks"]):
             sub = gp["layer0"]
-            x = x + attn.attn_apply(sub["mixer"], cfg,
-                                    rmsnorm(x, sub["mixer_norm"], cfg.norm_eps),
-                                    positions, causal=False)
-            x = x + mlp_apply(sub["ffn"], rmsnorm(x, sub["ffn_norm"], cfg.norm_eps),
-                              cfg.mlp_type)
+            x = x + _residual(attn.attn_apply(sub["mixer"], cfg,
+                                              _normed(x, sub["mixer_norm"], cfg),
+                                              positions, causal=False))
+            x = x + _residual(mlp_apply(sub["ffn"], _normed(x, sub["ffn_norm"], cfg),
+                                        cfg.mlp_type))
             x = shard(x, ("batch", "seq", None))
-        return rmsnorm(x, enc["final_norm"], cfg.norm_eps)
+        return _normed(x, enc["final_norm"], cfg)
 
     # ---- full-sequence decoder (forward / prefill core) ---------------------
     def _ffn(self, sub, ffn: str, x):
         """(x + the layer's FFN of x, its MoE aux loss or None)."""
         cfg = self.cfg
         if ffn == "dense":
-            return x + mlp_apply(sub["ffn"], rmsnorm(x, sub["ffn_norm"], cfg.norm_eps),
-                                 cfg.mlp_type), None
+            return x + _residual(mlp_apply(sub["ffn"], _normed(x, sub["ffn_norm"], cfg),
+                                           cfg.mlp_type)), None
         if ffn == "moe":
-            f, aux = moe_apply(sub["ffn"], cfg, rmsnorm(x, sub["ffn_norm"], cfg.norm_eps))
-            return x + f, aux
+            f, aux = moe_apply(sub["ffn"], cfg, _normed(x, sub["ffn_norm"], cfg))
+            return x + _residual(f), aux
         return x, None
 
     def _stack(self, params, x, positions, memory, *, collect_cache: bool,
@@ -235,7 +256,7 @@ class Model:
         for j, (mixer, ffn) in enumerate(self._unit_plan()):
             sub = gp[f"layer{j}"]
             local = mixer == "attn_local"
-            hin = rmsnorm(x, sub["mixer_norm"], cfg.norm_eps)
+            hin = _normed(x, sub["mixer_norm"], cfg)
             if mixer == "ssm":
                 a, state = ssm.ssm_forward(sub["mixer"], cfg, hin)
                 if collect_cache:
@@ -246,11 +267,11 @@ class Model:
             else:
                 a = attn.attn_apply(sub["mixer"], cfg, hin, positions,
                                     local=local, impl=self.attn)
-            x = x + a
+            x = x + _residual(a)
             if memory is not None:
-                x = x + attn.attn_apply(sub["cross"], cfg,
-                                        rmsnorm(x, sub["cross_norm"], cfg.norm_eps),
-                                        positions, causal=False, xkv=memory)
+                x = x + _residual(attn.attn_apply(sub["cross"], cfg,
+                                                  _normed(x, sub["cross_norm"], cfg),
+                                                  positions, causal=False, xkv=memory))
             x, layer_aux = self._ffn(sub, ffn, x)
             if layer_aux is not None:
                 aux = aux + layer_aux
@@ -355,13 +376,13 @@ class Model:
                 else:
                     a, _ = attn.attn_decode(sub["mixer"], cfg, hin, gc[f"layer{j}"], pos,
                                             local=(mixer == "attn_local"))
-                x = x + a
+                x = x + _residual(a)
                 if cfg.is_encdec:
                     # the plain sdpa over the whole encoder output, no mask
                     hin = rmsnorm(x, sub["cross_norm"], cfg.norm_eps)
                     q = splittable(hin @ sub["cross"]["wq"], hd).reshape(b, 1, cfg.n_heads, hd)
                     o = attn._sdpa(cfg, q, cache["cross"]["k"][g], cache["cross"]["v"][g],
                                    None)
-                    x = x + o.reshape(b, 1, -1) @ sub["cross"]["wo"]
+                    x = x + _residual(o.reshape(b, 1, -1) @ sub["cross"]["wo"])
                 x, _ = self._ffn(sub, ffn, x)
         return self._logits(params, x)[:, 0], cache

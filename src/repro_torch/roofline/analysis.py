@@ -45,6 +45,7 @@ direction inside a node.  All three assume the card's full 700 W.
 
 from __future__ import annotations
 
+import threading
 import weakref
 from dataclasses import dataclass, field
 
@@ -94,7 +95,10 @@ class CostTrace(TorchDispatchMode):
     under it hold now and held at most.  With ``device`` (a device type)
     only ops whose tensors all lie there count: ``"meta"`` for the dry
     run, whose model lives there while DTensor computes shard sizes on
-    small CPU tensors."""
+    small CPU tensors.  ``live`` and ``peak`` change under a lock: a
+    storage's finalizer (``_free``) runs on whichever thread drops the last
+    reference, also on the tracing thread when a collection runs inside the
+    dispatch (so a reentrant lock)."""
 
     def __init__(self, device: str | None = None):
         super().__init__()
@@ -109,9 +113,11 @@ class CostTrace(TorchDispatchMode):
         self.collectives: list[tuple[str, int, torch.dtype]] = []
         self.live = 0
         self.peak = 0
+        self._lock = threading.RLock()
 
     def _free(self, nbytes: int) -> None:
-        self.live -= nbytes
+        with self._lock:
+            self.live -= nbytes
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -142,8 +148,9 @@ class CostTrace(TorchDispatchMode):
         if all(fresh):
             for t in outputs:
                 n = t.untyped_storage().nbytes()
-                self.live += n
-                self.peak = max(self.peak, self.live)
+                with self._lock:
+                    self.live += n
+                    self.peak = max(self.peak, self.live)
                 weakref.finalize(t.untyped_storage(), self._free, n)
         return out
 

@@ -31,6 +31,7 @@ from __future__ import annotations
 import threading
 
 import numpy as np
+import torch
 
 from repro_torch.core.hr_sleep import hr_sleep
 from repro_torch.runtime.dispatch import FlowHashDispatch, RoundRobinDispatch
@@ -102,6 +103,7 @@ class Server:
         # ingest blocks (it is short), pump try-locks — if a peer is
         # already pumping, this poller reports no progress and re-sleeps.
         self._engine_lock = threading.Lock()
+        self._intra_op_threads = None      # the process's count while a CPU server runs
         self._runtime = Runtime(
             self.queues,
             process=self._ingest,
@@ -139,11 +141,26 @@ class Server:
 
     # -- lifecycle --------------------------------------------------------------
     def start(self) -> None:
+        """Start the pollers.  On a CPU engine they run its steps on one
+        intra-op thread each (``torch.set_num_threads(1)``, for the process,
+        set before they start and restored by ``stop`` after they are
+        joined): a poller is one core, as the paper's lcore is, and a thread
+        team for each of a serving batch's small products contends with the
+        other pollers and the host's other work; on a loaded host each
+        product then waits on its slowest thread."""
+        device = getattr(self.engine, "device", None)     # any engine with submit / pump
+        if device is not None and torch.device(device).type == "cpu":
+            self._intra_op_threads = torch.get_num_threads()
+            torch.set_num_threads(1)
         self._runtime.start()
         self.stats.backend = "server"
 
     def stop(self, timeout: float = 10.0) -> ServerStats:
-        return self._runtime.stop(timeout)
+        st = self._runtime.stop(timeout)
+        n, self._intra_op_threads = self._intra_op_threads, None
+        if n is not None:
+            torch.set_num_threads(n)
+        return st
 
     @property
     def stats(self) -> ServerStats:

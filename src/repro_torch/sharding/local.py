@@ -63,11 +63,14 @@ class _Enter(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        from torch.distributed.tensor import DTensor
+        from torch.distributed.tensor import DTensor, Replicate
 
         gd = DTensor.from_local(g.contiguous(), ctx.mesh, ctx.grad, run_check=False,
                                 shape=ctx.shape, stride=contiguous_stride(ctx.shape))
-        return gd.redistribute(ctx.mesh, ctx.src), None, None
+        # a Partial input was summed on entry: its gradient is the whole one
+        # on every rank (DTensor's own rule; it refuses a move to Partial)
+        src = tuple(Replicate() if p.is_partial() else p for p in ctx.src)
+        return gd.redistribute(ctx.mesh, src), None, None
 
 
 def replicated(t, mesh):

@@ -23,7 +23,7 @@ import threading
 import torch
 
 __all__ = ["logical_axis_rules", "shard", "current_rules", "to_pspec", "splittable",
-           "merge_last", "take_rows"]
+           "query_split", "merge_last", "take_rows"]
 
 _state = threading.local()
 
@@ -67,23 +67,62 @@ def _divisible(shape, pspec, mesh) -> bool:
 
 def shard(x, spec: tuple):
     """Redistribute a DTensor to ``spec``'s placements if logical rules are
-    active; ``x`` itself otherwise."""
+    active; ``x`` itself otherwise.  A pending sum (``Partial``: a
+    row-parallel projection's output) is reduced there, as GSPMD reduces
+    it before the value's next use, also where a dim does not divide and
+    the spec is not applied.  The gradient of that reduction comes back at
+    the reduced placements, as ``with_sharding_constraint``'s transpose
+    constrains the cotangent: DTensor's own backward would leave a
+    ``Partial`` gradient as it is, and the projection's backward would
+    then gather its weight whole."""
     rules, mesh = current_rules()
     if rules is None or mesh is None:
         return x
-    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import DTensor, Replicate
 
     from .policy import to_placements
 
     if not isinstance(x, DTensor):
         return x
     pspec = to_pspec(spec, rules)
-    if not _divisible(x.shape, pspec, mesh):
+    if _divisible(x.shape, pspec, mesh):
+        placements = to_placements(pspec, mesh)
+    elif any(p.is_partial() for p in x.placements):
+        placements = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+    else:
         return x  # replicate rather than force uneven sharding
-    placements = to_placements(pspec, mesh)
     if tuple(x.placements) == placements:
         return x
+    if any(p.is_partial() for p in x.placements):
+        return _GradAsForward.apply(x.redistribute(mesh, placements))
     return x.redistribute(mesh, placements)
+
+
+def query_split(x, kv_heads: int):
+    """The mesh dim over which attention on ``x`` (B, S, D) splits its
+    queries' sequence, or None.  Inside rules, where the "model" mesh dim's
+    n ranks do not divide the ``kv_heads`` (gemma-2b's one KV head of 8 query
+    heads over 16): there DTensor cannot split a head group and gathers
+    every head whole on each rank.  Each rank then takes S / n queries with
+    all heads, which is 1/n of the scores, as GSPMD's split of the heads'
+    columns gives the reference.  None also where n does not divide S (a
+    decode step) or on a plain tensor."""
+    rules, _ = current_rules()
+    if rules is None or type(x) is torch.Tensor:
+        return None
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return None
+    names = x.device_mesh.mesh_dim_names or ()
+    axis = rules.get("model")
+    if not isinstance(axis, str) or axis not in names:
+        return None
+    d = names.index(axis)
+    n = x.device_mesh.size(d)
+    if n == 1 or kv_heads % n == 0 or x.shape[1] % n:
+        return None
+    return d
 
 
 def splittable(x, inner: int, dim: int = -1):

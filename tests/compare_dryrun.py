@@ -9,7 +9,9 @@ the reference's dry run, written for the older default, fails on them.
 The port's CLI (``python -m repro_torch.launch.dryrun``) runs in a
 subprocess.  Both print FLOPs, bytes and collective bytes a device and
 argument and peak bytes; the reference's roofline seconds are under its
-TPU v5e constants and are not compared.
+TPU v5e constants and are not compared.  ``--hlo`` also prints the
+reference's per-op split: each dot and collective of its compiled
+one-group probe, a device's shapes.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -25,7 +28,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def reference(arch: str, shape: str, multi_pod: bool) -> dict:
+def _reference_dryrun():
+    """``repro.launch.dryrun`` with its meshes' axes ``AxisType.Auto``."""
     import jax
     from jax.sharding import AxisType
 
@@ -37,10 +41,36 @@ def reference(arch: str, shape: str, multi_pod: bool) -> dict:
         return jax.make_mesh(dims, axes, axis_types=(AxisType.Auto,) * len(dims))
 
     dryrun.make_production_mesh = auto_mesh
-    rep = dryrun.run_cell(arch, shape, multi_pod=multi_pod, verbose=False)
+    return dryrun
+
+
+def reference(arch: str, shape: str, multi_pod: bool) -> dict:
+    rep = _reference_dryrun().run_cell(arch, shape, multi_pod=multi_pod, verbose=False)
     return {"flops_per_dev": rep.flops_per_dev, "bytes_per_dev": rep.bytes_per_dev,
             "coll_bytes_per_dev": rep.coll_bytes_per_dev, "arg_bytes": rep.arg_bytes,
             "peak_bytes": rep.peak_bytes, "coll_counts": rep.coll_detail["counts"]}
+
+
+_HLO_OP = re.compile(r"= (.+?) (dot|all-reduce|all-gather|reduce-scatter|all-to-all|"
+                     r"collective-permute)\((.*)")
+
+
+def reference_ops(arch: str, shape: str, multi_pod: bool) -> list[str]:
+    """The reference's per-op split: its one-group probe (``probe_groups=1``)
+    compiled, each dot's and collective's result shape a device, with a
+    collective's replica groups."""
+    from repro.launch.inputs import build_cell
+
+    mesh = _reference_dryrun().make_production_mesh(multi_pod=multi_pod)
+    text = build_cell(arch, shape, mesh, probe_groups=1).lower().compile().as_text()
+    out = []
+    for line in text.splitlines():
+        m = _HLO_OP.search(line)
+        if m:
+            groups = re.search(r"replica_groups=(\S+?),? ", m.group(3))
+            out.append(f"{m.group(2)} {m.group(1)[:120]}"
+                       + (f" groups={groups.group(1)[:60]}" if groups else ""))
+    return out
 
 
 def port(arch: str, shape: str, multi_pod: bool) -> dict:
@@ -62,6 +92,8 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default="mamba2-370m")
     ap.add_argument("--shape", default="long_500k")
     ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--hlo", action="store_true",
+                    help="also print the reference's dots and collectives, one layer group")
     args = ap.parse_args(argv)
     rows = {"port": port(args.arch, args.shape, args.multi_pod),
             "reference": reference(args.arch, args.shape, args.multi_pod)}
@@ -69,6 +101,9 @@ def main(argv=None) -> int:
         print(f"{name:9s} " + " ".join(f"{k}={v:.4e}" if isinstance(v, float) else f"{k}={v}"
                                        for k, v in row.items()))
     print(json.dumps(rows))
+    if args.hlo:
+        for line in reference_ops(args.arch, args.shape, args.multi_pod):
+            print("hlo", line)
     return 0
 
 

@@ -12,7 +12,11 @@ lookup (``sharding.logical.take_rows``, an ``autograd.Function``).
   tensors (the gradient of the old form was not the whole one: each rank
   kept its own ids' share under a replicated placement); ``ssd_chunked``
   and ``_causal_conv`` at the model's placements against the plain ops, with
-  the gradients of every operand.
+  the gradients of every operand; a reduced gemma-2b (its one KV head does
+  not divide the 2 "model" ranks: attention splits the queries' sequence)
+  through ``build_cell``'s prefill step and the train step's loss and
+  gradients, against the plain steps, under the baseline rules and under
+  ``seq="model"`` with the chunked route.
 """
 
 import json
@@ -131,6 +135,8 @@ def test_take_rows_on_plain_tensors_is_indexing_bit_for_bit():
     _bit_equal(lambda t: take_rows(t, ids), lambda t: t[ids], table)
 
 
+MODEL_RULES = {"baseline": {}, "chunked+seq": {"attn": "chunked", "seq": "model"}}
+
 WORKER = r'''
 import json, os, sys
 import numpy as np
@@ -139,7 +145,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 
-def rank_fn(rank, world, port, out):
+def rank_fn(rank, world, port, out, model_rules):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
                             world_size=world)
@@ -213,6 +219,51 @@ def rank_fn(rank, world, port, out):
         w, bias = torch.randn(4, 6, generator=g), torch.randn(6, generator=g)
         compare("_causal_conv", mamba2._causal_conv, [xc, w, bias],
                 [(S(0), S(2)), (R, S(1)), (R, S(0))])
+
+        # a reduced gemma-2b (4 query heads over one KV head: 2 "model"
+        # ranks do not divide it) through build_cell's prefill step and the
+        # train step's loss and gradients, against the plain steps
+        import dataclasses
+        from torch.distributed.tensor.experimental import implicit_replication
+        from repro_torch.configs import get_config
+        from repro_torch.launch.inputs import build_cell, place_like
+        from repro_torch.models import Model, attention
+        from repro_torch.sharding.logical import logical_axis_rules
+        from repro_torch.train.steps import _value_and_grad, make_loss_fn, make_prefill_step
+        from repro_torch.train.tree import tree_items
+
+        cfg = get_config("gemma-2b")
+        red = cfg.reduced()
+        ov = {f.name: getattr(red, f.name) for f in dataclasses.fields(cfg)
+              if getattr(red, f.name) != getattr(cfg, f.name)}
+        split = attention._attend_split
+        calls = []
+        attention._attend_split = lambda *a, **k: calls.append(1) or split(*a, **k)
+        for name, rules in model_rules.items():
+            model = Model(red, attn=rules.get("attn"), device="cpu")
+            params = model.init(torch.Generator().manual_seed(0))
+            toks = torch.randint(0, red.vocab_size, (4, 17), generator=g)
+            batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+            calls.clear()
+            _, plain, _ = make_prefill_step(model)(params, {"tokens": batch["tokens"]})
+            cell = build_cell("gemma-2b", "prefill_32k", mesh, cfg_overrides=ov,
+                              rule_overrides=rules)
+            _, logits, _ = cell.run(place_like(params, cell.args[0]),
+                                    place_like({"tokens": batch["tokens"]}, cell.args[1]))
+            loss_fn = make_loss_fn(model, remat=True)
+            (l1, _), g1 = _value_and_grad(loss_fn, params, batch)
+            cell = build_cell("gemma-2b", "train_4k", mesh, cfg_overrides=ov,
+                              rule_overrides=rules)
+            with logical_axis_rules(cell.mesh, cell.rules), implicit_replication():
+                (l2, _), g2 = _value_and_grad(loss_fn, place_like(params, cell.args[0]),
+                                              place_like(batch, cell.args[2]))
+            res["model " + name] = {
+                "logits": float((logits.full_tensor() - plain).abs().max() / plain.abs().max()),
+                "loss": abs(float(l2.full_tensor()) - float(l1)) / abs(float(l1)),
+                "grads": {"/".join(p): float((b.full_tensor() - a).abs().max()
+                                             / a.abs().max().clamp_min(1e-30))
+                          for (p, a), (_, b) in zip(tree_items(g1), tree_items(g2))},
+                "split_calls": len(calls)}
         if rank == 0:
             with open(os.path.join(out, "res.json"), "w") as f:
                 json.dump(res, f)
@@ -221,8 +272,8 @@ def rank_fn(rank, world, port, out):
 
 
 if __name__ == "__main__":
-    mp.start_processes(rank_fn, args=(4, int(sys.argv[1]), sys.argv[2]), nprocs=4,
-                       start_method="spawn")
+    mp.start_processes(rank_fn, args=(4, int(sys.argv[1]), sys.argv[2], json.loads(sys.argv[3])),
+                       nprocs=4, start_method="spawn")
 '''
 
 
@@ -238,7 +289,8 @@ def on_ranks(tmp_path_factory):
     script = out / "worker.py"
     script.write_text(WORKER)
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
-    proc = subprocess.run([sys.executable, str(script), str(_free_port()), str(out)],
+    proc = subprocess.run([sys.executable, str(script), str(_free_port()), str(out),
+                           json.dumps(MODEL_RULES)],
                           capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     return json.loads((out / "res.json").read_text())
@@ -266,3 +318,16 @@ def test_ssd_on_shards_keeps_the_heads_split(on_ranks):
     assert on_ranks["ssd_chunked model placements"]["placements"] == [
         "(Shard(dim=0), Shard(dim=2))", "(Shard(dim=0), Shard(dim=1))"]
     assert np.isfinite(on_ranks["ssd_chunked heads on data"]["out"])
+
+
+@pytest.mark.parametrize("rules", list(MODEL_RULES))
+def test_reduced_dense_model_on_four_ranks_equals_the_plain_steps(on_ranks, rules):
+    """Reduced gemma-2b on the 2x2 mesh (attention's queries split over
+    "model", every row-parallel output reduced before it joins the residual
+    stream): the prefill step's logits and the train step's loss and every
+    parameter's gradient against the plain steps, at the model tolerances
+    (f32 2e-4 of the largest magnitude)."""
+    r = on_ranks["model " + rules]
+    assert r["split_calls"] > 0, r                 # the query split ran
+    assert r["logits"] < 2e-4 and r["loss"] < 2e-4, r
+    assert len(r["grads"]) > 8 and max(r["grads"].values()) < 2e-4, r["grads"]

@@ -462,14 +462,17 @@ def test_dryrun_expert_parallel_train_cell_exchanges(small_dryrun):
     ``moe=shard_map``: every MoE layer takes the expert-parallel path in
     the forward and again in remat's recomputation, two all-to-alls each,
     and the backward's two a layer; the expert outputs are psum'd over
-    "model" (all-reduces).  Without the rule: no all-to-all, no EP call."""
+    "model" (all-reduces).  Without the rule: no EP call.  Both cells also
+    split attention's queries over "model" (2 KV heads over 4 ranks), two
+    all-to-alls a layer in each of the same three passes."""
     ep = small_dryrun["dbrx-132b|train_4k|2x4|" + json.dumps({"moe": "shard_map"})]
     base = small_dryrun["dbrx-132b|train_4k|2x4|" + json.dumps({})]
     n = ep["layers"]
     assert ep["calls"] == 2 * n                          # forward + remat's recomputation
-    assert ep["counts"]["all-to-all"] == 6 * n, ep["counts"]
+    assert base["counts"]["all-to-all"] == 6 * n, base["counts"]     # the query split
+    assert ep["counts"]["all-to-all"] - base["counts"]["all-to-all"] == 6 * n, ep["counts"]
     assert ["model"] in ep["psum_axes"] and ep["counts"]["all-reduce"] > 0
-    assert base["calls"] == 0 and base["counts"]["all-to-all"] == 0, base
+    assert base["calls"] == 0, base
     assert base["psum_axes"] == []
 
 
