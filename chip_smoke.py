@@ -7,17 +7,22 @@ Phases, each a hard failure (nonzero exit, no result line):
 1. the card (nvidia-smi name and power limit), torch/CUDA versions, and the
    build of every kernel of ``src/repro_torch/kernels`` (flash attention,
    decode attention, SSD chunk scan, the four sweeps; one nvcc per source, in
-   parallel), with every kernel's registers and spills (both flash-attention
-   kernels, both decode splits, the K3 kernels and the sweeps must not
-   spill; the f32 decode split's 12 builds also print their stack frame and
-   the blocks an SM the card places, 8 warps);
+   parallel), with every kernel's registers and spills (the three
+   flash-attention kernels, both decode splits, the K3 kernels and the
+   sweeps must not spill; the hd-128 ping-pong kernel neither, nor use a
+   stack, nor have its wgmma serialised or its setmaxnreg ignored by ptxas;
+   the f32 decode split's 12 builds also print their stack frame and the
+   blocks an SM the card places, 8 warps);
 2. each kernel against its plain PyTorch version on the card, at the
    serving path's shapes (flash attention at each served model's prefill
    widths: gemma-2b, granite-3-8b with GQA group 4, starcoder2-15b with
    group 12, dbrx-132b with group 6, llama4-scout-17b-a16e with group 5 and
    jamba-1.5-large-398b / internvl2-76b with group 8, at S = 16 and every
    serving bucket, and whisper-small's decoder, hd 64, at S = 16, 444 and
-   448 in bf16 and f32), the reference test
+   448 in bf16 and f32; every bf16 hd-128 case also on the kernel the
+   entry point's rule does not take for its S, past the wrapper, so both
+   hd-128 kernels are held at ragged S=200, a window of 300 at S=1024 and
+   B=2 as well), the reference test
    sweep's and the full widths of gemma-2b, gemma2-2b and mamba2-370m, with
    the tolerance stated per case;
    flash attention's bf16 cases go to its "wgmma" route and its f32 cases to
@@ -28,8 +33,11 @@ Phases, each a hard failure (nonzero exit, no result line):
    requires grad under grad mode (they have no backward);
 3. kernel, plain version and the PyTorch library call (where one computes
    the same function) timed with CUDA events at those shapes (flash
-   attention also at the hd-128 models' S=1024 and whisper-small's
-   decoder at S=448, bf16 and f32), beside the
+   attention also at the hd-128 models' S = 16, 128, 256, 384, 512 and
+   1024, each
+   row naming the kernel the entry point took and timing both bf16
+   kernels past the wrapper, and whisper-small's decoder at S=448, bf16
+   and f32), beside the
    card's bound for the same work, with the achieved TFLOP/s and the share
    of the bound; decode attention's bf16 route also at every piece length
    it can pick, its split and combine apart (torch.profiler), and its f32
@@ -61,7 +69,10 @@ Phases, each a hard failure (nonzero exit, no result line):
    and the bf16 route check at S=448) and internvl2-76b at 36 of 80 layers
    (a prefill of a 256-position vision prefix and 768 tokens and 4 greedy
    decode steps with the counters set to 0: K1 once a layer; the route
-   check on that prefill); decode attention and the SSD scan 0 on every
+   check on that prefill); K1's launches also by kernel, each served
+   prompt on the kernel the source's rule gives its bucket (hd 128:
+   flash_fwd_wgmma_bf16 at 128, flash_fwd_pingpong_bf16 at 512 and 1024);
+   decode attention and the SSD scan 0 on every
    route for every model: no model path reaches them, in the reference or
    in the port.  Each model logs its peak memory at init, the times and
    the device-busy share of a prefill and a decode step, and each served
@@ -219,9 +230,12 @@ bytes bound, and whether y and h_final are bit-equal to this checkout's
     python3 chip_smoke.py --attention-ab SRC [SRC ...]
 
 does the same for flash attention (``csrc/flash_attention.cu``) at phase
-3's shapes and the f32 route at hd 128 and 64: bf16 outputs bit for bit
-against this checkout's, f32 outputs each against the plain version at
-2e-5 (``phase_attention_source_ab``).
+3's gemma-2b shapes, the f32 route at hd 128 and 64, the five hd-128 served
+widths at S=1024 and granite-3-8b's at S = 16, 128, 512 and 4096, with
+SDPA timed in the middle of each visit: bf16 outputs within 2e-2 of the
+plain version (required) and bit for bit against this checkout's
+(reported), f32 outputs each against the plain version at 2e-5
+(``phase_attention_source_ab``).
 
     python3 chip_smoke.py --decode-ab SRC [SRC ...]
 
@@ -240,6 +254,14 @@ SRC) with clock64 probes in the f32 route's kernel and prints, at the three
 f32 ``DECODE_SHAPES``, each phase's cycles a block (min / median / max, and
 the slowest blocks): setup, first tile, each tile's parts, segment ends,
 the counts and merges after the walk (``phase_decode_phases``).
+
+    python3 chip_smoke.py --attention-phases [SRC ...]
+
+builds a copy of this checkout's ``csrc/flash_attention.cu`` (and of each
+SRC) with clock64 probes in the hd-128 ping-pong kernel's sections and
+prints, at three shapes, block 0's two consumers' cycles a section by
+phase (loads and turn, issue, S, softmax, P V, pack), the section's period
+and the SM clock (``phase_attention_phases``).
 
     python3 chip_smoke.py --sweep-ab SRC [SRC ...]
 
@@ -329,6 +351,15 @@ SERVED_ATTENTION = (("gemma-2b", 8, 1, 256), ("granite-3-8b", 32, 8, 128),
                     ("starcoder2-15b", 48, 4, 128), ("dbrx-132b", 48, 8, 128),
                     ("llama4-scout-17b-a16e", 40, 8, 128),
                     ("jamba-1.5-large-398b / internvl2-76b", 64, 8, 128))
+# K1's bf16 kernels by q rows a block, and the hd-128 kernel's dynamic shared
+# memory: 1 KB of alignment slack, two 32 KB Q slots, 2 stages of 32 KB K and
+# V tiles (csrc/flash_attention.cu, pp_smem_bytes)
+PINGPONG, WGMMA64 = "flash_fwd_pingpong_bf16", "flash_fwd_wgmma_bf16"
+PP_SMEM_BYTES = 1024 + 2 * 128 * 128 * 2 + 2 * 2 * 128 * 128 * 2
+# the hd-128 bf16 rows of phase 3: each served width at these lengths (the
+# serving buckets, S=16, and both sides of the source's PP_MIN_S), both
+# kernels timed past the wrapper beside the one the entry point takes
+HD128_SEQ = (16, 128, 256, 384, 512, 1024)
 # whisper-small's decoder self-attention (MHA, hd 64), the only K1 launch of
 # its prefill, at the decoder's 448 positions and the check's 444
 WHISPER_ATTENTION = ("whisper-small decoder", 12, 12, 64)
@@ -470,6 +501,22 @@ def phase_card() -> None:
             tc = {n: v for n, v in kernels.items() if n.startswith(kernel + "<")}
             if len(tc) != 3 or any(spills for _, spills, _ in tc.values()):
                 fail(f"want {kernel} at hd 64, 128 and 256 without spills; ptxas gave {tc}")
+    # K1's bf16 kernel at hd 128 from PP_MIN_S rows on: one build, no spill,
+    # no stack; ptxas neither serialises its wgmma nor ignores its setmaxnreg
+    fa_log = _build.BUILD_INFO["flash_attention.cu"]["log"]
+    pp = {n: r for n, r in ptxas_records(fa_log).items()
+          if n.startswith("flash_fwd_pingpong_bf16<")}
+    warned = [ln.strip() for ln in fa_log.splitlines()
+              if re.search(r"Potential Performance Loss|C7508|setmaxnreg ignored", ln)]
+    for name, (regs, spills, smem, frame) in pp.items():
+        log(f"  {name}: {regs} registers at entry (setmaxnreg: 24 producer, 240 each consumer "
+            f"warpgroup), {spills} bytes of spill stores + loads, {frame} bytes of stack frame, "
+            f"{smem} bytes of static shared memory and {PP_SMEM_BYTES} dynamic (two Q slots, "
+            "a 2-stage K/V ring of 128-key tiles)")
+    if list(pp) != ["flash_fwd_pingpong_bf16<128, 2>"] or any(r[1] or r[3] for r in pp.values()):
+        fail(f"want flash_fwd_pingpong_bf16<128, 2> without spills or stack; ptxas gave {pp}")
+    if warned:
+        fail(f"ptxas serialised wgmma or ignored setmaxnreg in flash_attention.cu: {warned}")
     # K2's f32 route: decode_split_f32<hd, heads> at hd 64/128/256 x 1/2/4/8
     # heads a unit, none spilling; its blocks an SM as the card places them
     # (its shared memory allows 8 warps an SM, and its registers must not
@@ -657,12 +704,14 @@ def ptxas_records(log_text: str) -> dict[str, tuple[int, int, int, int]]:
     return out
 
 
-def phase_compare() -> dict[str, float]:
+def phase_compare() -> tuple[dict[str, float], dict[str, float]]:
     """Kernel vs plain version; returns the max abs error per route at the
-    served models' prefill shapes: ``SERVED_ATTENTION`` in bf16
-    ("wgmma"), gemma-2b in f32 ("mma", split TF32), whisper-small's decoder
-    (``WHISPER_ATTENTION``) in both."""
+    served models' prefill shapes (``SERVED_ATTENTION`` in bf16 ("wgmma"),
+    gemma-2b in f32 ("mma", split TF32), whisper-small's decoder
+    (``WHISPER_ATTENTION``) in both) and per kernel over every case it took
+    (bf16 hd 128 from ``PP_MIN_S`` rows on: ``flash_fwd_pingpong_bf16``)."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from repro_torch.kernels.flash_attention.kernel import BF16_KERNELS, bf16_rows
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 plain version in full f32
     torch.backends.cudnn.allow_tf32 = False
     log("phase 2: kernel vs plain version (TF32 off for the f32 cases); tolerance: the "
@@ -689,6 +738,14 @@ def phase_compare() -> dict[str, float]:
                50.0, 32.0),
               ("gemma-2b prefill B=2", 2, 512, 8, 1, 256, torch.bfloat16, True, 0, 0.0, 1.0),
               ("gemma-2b prefill f32", 1, 1024, 8, 1, 256, torch.float32, True, 0, 0.0, 1.0)]
+    # bf16 edges of the hd-128 ping-pong kernel at granite-3-8b's width: rows
+    # past S and T in a 128-row item and a 128-key tile, a window that cuts
+    # 128-key tiles, and the batch stride
+    name, h, kv, hd = SERVED_ATTENTION[1]
+    cases += [(f"{name} ragged S=200", 1, 200, h, kv, hd, torch.bfloat16, True, 0, 0.0, 1.0),
+              (f"{name} S=1024, window 300", 1, 1024, h, kv, hd, torch.bfloat16, True, 300, 0.0,
+               1.0),
+              (f"{name} B=2 S=1024", 2, 1024, h, kv, hd, torch.bfloat16, True, 0, 0.0, 1.0)]
     # f32 edges of the split-TF32 kernel: rows past S and T zero-filled by
     # cp.async, windows that cut its 32-row and 64- or 32-key tiles, logits
     # that the softcap bends (q x4) and that reach past it (q x32, held
@@ -714,9 +771,14 @@ def phase_compare() -> dict[str, float]:
     name, h, kv, hd = WHISPER_ATTENTION
     cases += [(f"{name} prefill", 1, s, h, kv, hd, dtype, True, 0, 0.0, 1.0)
               for dtype in (torch.bfloat16, torch.float32) for s in (16, *WHISPER_SEQ)]
-    flash_attention.launches_by_route = {"wgmma": 0, "mma": 0}
+    set_launch_counts_to_zero()
     route_err = {"wgmma": 0.0, "mma": 0.0}
+    kernel_err = dict.fromkeys(flash_attention.launches_by_kernel, 0.0)
+    want_kernels = dict.fromkeys(flash_attention.launches_by_kernel, 0)
     for name, b, s, h, kv, hd, dtype, causal, window, cap, q_scale in cases:
+        kernel = (BF16_KERNELS[bf16_rows(b, s, h, hd)] if dtype == torch.bfloat16
+                  else "flash_fwd_mma_f32")
+        want_kernels[kernel] += 1
         q, k, v = attn_inputs(gen, b, s, h, kv, hd, dtype)
         q = (q_scale * q.float()).to(dtype)
         out = flash_attention(q, k, v, causal=causal, window=window, softcap=cap)
@@ -731,12 +793,25 @@ def phase_compare() -> dict[str, float]:
             plain = flash_attention_ref(q, k, v, causal=causal, window=window, softcap=cap)
             f64_note = (f", plain version in f64 (the f32 one is "
                         f"{float((plain.double() - ref).abs().max()):.3e} from it)")
+        # at hd 128 in bf16 the kernel the rule does not take for this S
+        # too, past the wrapper (not counted): both are held at every case
+        other = ""
+        if dtype == torch.bfloat16 and hd == 128:
+            rows = next(r for r, n in BF16_KERNELS.items() if n != kernel)
+            ok_o, err_o = within(attention_launch(q, k, v, dict(causal=causal, window=window,
+                                                                softcap=cap), rows=rows),
+                                 ref, **tol)
+            ok = ok and ok_o
+            kernel_err[BF16_KERNELS[rows]] = max(kernel_err[BF16_KERNELS[rows]], err_o)
+            other = f"; {BF16_KERNELS[rows]} past the wrapper {err_o:.3e}"
         log(f"  {name}: B={b} S=T={s} H={h} KV={kv} hd={hd} {str(dtype)[6:]} "
             f"causal={causal} window={window} softcap={cap} q scale {q_scale}: "
-            f"max_abs_err={err:.3e} (max|ref| {float(ref.float().abs().max()):.3e}{f64_note}) "
-            f"tol atol={tol['atol']} rtol={tol['rtol']} {'ok' if ok else 'FAIL'}")
+            f"{kernel}: max_abs_err={err:.3e} (max|ref| {float(ref.float().abs().max()):.3e}"
+            f"{f64_note}){other} tol atol={tol['atol']} rtol={tol['rtol']} "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"flash_attention disagrees with its plain version ({name}, S={s})")
+        kernel_err[kernel] = max(kernel_err[kernel], err)
         if " prefill" in name:
             route = "wgmma" if dtype == torch.bfloat16 else "mma"
             route_err[route] = max(route_err[route], err)
@@ -744,20 +819,26 @@ def phase_compare() -> dict[str, float]:
             "mma": sum(c[6] == torch.float32 for c in cases)}
     if flash_attention.launches_by_route != want:
         fail(f"flash_attention routes {flash_attention.launches_by_route}, want {want}")
-    log(f"  launches by route: {flash_attention.launches_by_route}")
-    return route_err
+    if flash_attention.launches_by_kernel != want_kernels:
+        fail(f"flash_attention kernels {flash_attention.launches_by_kernel}, want {want_kernels}")
+    log(f"  launches by route: {flash_attention.launches_by_route}; by kernel: "
+        f"{flash_attention.launches_by_kernel}")
+    return route_err, kernel_err
 
 
 def phase_time() -> dict[str, list[dict]]:
     """K1 rows by route: "wgmma" holds gemma-2b's three prefill buckets, a
-    gemma2-2b softcap row, the hd-128 models' prefill at S=1024
-    (``SERVED_ATTENTION[1:]``) and whisper-small's decoder at S=448, "mma"
+    gemma2-2b softcap row, the hd-128 models' prefill at ``HD128_SEQ``
+    (``SERVED_ATTENTION[1:]``; each row names the kernel the entry point
+    took and times both bf16 kernels past the wrapper, ``ms_by_kernel``)
+    and whisper-small's decoder at S=448, "mma"
     the f32 rows at gemma-2b heads and whisper-small's decoder, whose
     ``bound_ms`` is the route's own (its three TF32 passes at the TF32
     peak), the f32 CUDA-core one beside it (``f32_bound_ms``)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from repro_torch.kernels.flash_attention.kernel import BF16_KERNELS, bf16_rows
     log("phase 3: flash attention, median of 20 CUDA-event timings after 3 warm-up calls, "
         "each behind a device-side spin (host dispatch not timed), inputs warm in L2")
     gen = torch.Generator("cuda").manual_seed(1)
@@ -768,8 +849,8 @@ def phase_time() -> dict[str, list[dict]]:
                 "wgmma", 1024, 8, 4, 256, torch.bfloat16, 4096, 50.0, 32.0),
                ("gemma-2b prefill S=1024 f32", "mma", 1024, 8, 1, 256, torch.float32, 0, 0.0,
                 1.0)]
-    shapes += [(f"{name} prefill S=1024", "wgmma", 1024, h, kv, hd, torch.bfloat16, 0, 0.0, 1.0)
-               for name, h, kv, hd in SERVED_ATTENTION[1:]]
+    shapes += [(f"{name} prefill S={s}", "wgmma", s, h, kv, hd, torch.bfloat16, 0, 0.0, 1.0)
+               for name, h, kv, hd in SERVED_ATTENTION[1:] for s in HD128_SEQ]
     name, h, kv, hd = WHISPER_ATTENTION
     s = WHISPER_SEQ[-1]
     shapes += [(f"{name} prefill S={s}", "wgmma", s, h, kv, hd, torch.bfloat16, 0, 0.0, 1.0),
@@ -792,9 +873,17 @@ def phase_time() -> dict[str, list[dict]]:
                              is_causal=True, enable_gqa=True)
         bound_ms, bound_by, flops = attn_bound(1, s, h, kv, hd, dtype, causal=True,
                                                window=window)
+        kernel = (BF16_KERNELS[bf16_rows(1, s, h, hd)] if dtype == torch.bfloat16
+                  else "flash_fwd_mma_f32")
         row = {"name": name, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-               "launches": launches, "tflops": flops / ms / 1e9,
+               "launches": launches, "tflops": flops / ms / 1e9, "kernel": kernel,
                "shape": f"B=1 S=T={s} H={h} KV={kv} hd={hd} {str(dtype)[6:]} causal"}
+        both = ""
+        if hd == 128 and dtype == torch.bfloat16:
+            row["ms_by_kernel"] = {BF16_KERNELS[r]: time_ms(attention_launch, q, k, v, kw,
+                                                            rows=r) for r in BF16_KERNELS}
+            both = "; past the wrapper " + ", ".join(
+                f"{n} {t_:.4f} ms" for n, t_ in row["ms_by_kernel"].items())
         f32_bound = ""
         if dtype == torch.float32:
             row.update(f32_bound_ms=bound_ms, f32_bound_by=bound_by,
@@ -809,10 +898,10 @@ def phase_time() -> dict[str, list[dict]]:
         rows[route].append(row)
         lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
         ratio = "" if lib_ms is None else f", kernel/sdpa {ms / lib_ms:.2f}"
-        log(f"  {name} [{route}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib}, "
-            f"bound {bound_ms * 1e3:.2f} us ({bound_by}, {peak}); "
+        log(f"  {name} [{route}, {kernel}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"sdpa {lib}, bound {bound_ms * 1e3:.2f} us ({bound_by}, {peak}); "
             f"{flops / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of the bound"
-            f"{f32_bound}{ratio}")
+            f"{f32_bound}{ratio}{both}")
     return rows
 
 
@@ -1324,18 +1413,21 @@ def phase_ssd_source_ab(sources: list[str]) -> list[dict]:
     return rows
 
 
-def attention_launch(q, k, v, kw: dict, lib=None):
+def attention_launch(q, k, v, kw: dict, lib=None, rows=None):
     """One flash attention past its wrapper (so that no launch counter
     moves), for ``--attention-ab``'s comparison of two sources (``lib``,
-    default this checkout's)."""
+    default this checkout's) and phase 3's of the two bf16 kernels
+    (``rows``, q rows a block; default the entry point's rule)."""
     from repro_torch.kernels.flash_attention.kernel import launch_flash_attention
     out = torch.empty_like(q)
-    launch_flash_attention(q, k, v, out, scale=q.shape[-1] ** -0.5, lib=lib, **kw)
+    launch_flash_attention(q, k, v, out, scale=q.shape[-1] ** -0.5, lib=lib, rows=rows, **kw)
     return out
 
 
-# --attention-ab's shapes: phase 3's (hd 256, causal) and the f32 route at
-# hd 64 and 128: (name, B, S, H, KV, hd, dtype, causal, window, softcap, q scale)
+# --attention-ab's shapes: phase 3's (hd 256, causal), the f32 route at hd 64
+# and 128, the five hd-128 served widths at S=1024, granite-3-8b's at S=16,
+# 128, 512 and 4096: (name, B, S, H, KV, hd, dtype, causal, window, softcap,
+# q scale)
 ATTENTION_AB_SHAPES = (
     *((f"gemma-2b prefill S={s}", 1, s, 8, 1, 256, torch.bfloat16, True, 0, 0.0, 1.0)
       for s in SERVE_BUCKETS),
@@ -1345,6 +1437,10 @@ ATTENTION_AB_SHAPES = (
     ("S=1024 H=8 KV=2 hd=128 f32", 1, 1024, 8, 2, 128, torch.float32, True, 0, 0.0, 1.0),
     ("S=1024 H=8 KV=8 hd=64 f32, not causal", 1, 1024, 8, 8, 64, torch.float32, False, 0,
      0.0, 1.0),
+    *((f"{name} prefill S=1024", 1, 1024, h, kv, hd, torch.bfloat16, True, 0, 0.0, 1.0)
+      for name, h, kv, hd in SERVED_ATTENTION[1:]),
+    *((f"{SERVED_ATTENTION[1][0]} prefill S={s}", 1, s, *SERVED_ATTENTION[1][1:],
+       torch.bfloat16, True, 0, 0.0, 1.0) for s in (16, 128, 512, 4096)),
 )
 
 
@@ -1354,13 +1450,20 @@ def phase_attention_source_ab(sources: list[str]) -> list[dict]:
     variant), each built with the same flags, at ``ATTENTION_AB_SHAPES``.
     Each is timed as the median of 20 CUDA-event timings after 3 warm-ups
     (behind the spin), in the order this, SRC1 .. SRCn, SRCn .. SRC1, this,
-    all launched the same way (``attention_launch``).  bf16 outputs are
-    compared bit for bit with this checkout's; f32 outputs, which another
-    route rounds otherwise, each against the plain version at 2e-5 (both
-    reported, not required: a variant may compute something else)."""
+    all launched the same way (``attention_launch``), with SDPA timed twice
+    in the middle of the same visit where one PyTorch call computes the
+    shape (no softcap).  bf16 outputs are compared bit for bit with this
+    checkout's (reported: a redesign is not bit-equal to its parent) and
+    each against the plain version at the reference's 2e-2 (required);
+    f32 outputs, which another route rounds otherwise, each against the
+    plain version at 2e-5 (reported, not required: a variant may compute
+    something else).  Each row names the kernel this checkout's entry point
+    takes."""
+    import torch.nn.functional as F
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import flash_attention_ref
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention.kernel import BF16_KERNELS, bf16_rows
     named = {"this": fa_kernel._SOURCE, **{s: str(Path(s).resolve()) for s in sources}}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(named)) as pool:
@@ -1371,7 +1474,6 @@ def phase_attention_source_ab(sources: list[str]) -> list[dict]:
         info = _build.BUILD_INFO[source]
         log(f"  {name}: nvcc {info['seconds']:.2f} s; ptxas {ptxas_kernels(info['log'])}")
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 plain version in full f32
-    order = [*named, *reversed(named)]
     gen = torch.Generator("cuda").manual_seed(1)
     rows = []
     for name, b, s, h, kv, hd, dtype, causal, window, cap, q_scale in ATTENTION_AB_SHAPES:
@@ -1380,27 +1482,39 @@ def phase_attention_source_ab(sources: list[str]) -> list[dict]:
         kw = dict(causal=causal, window=window, softcap=cap)
         outs = {n: attention_launch(q, k, v, kw, lib) for n, lib in libs.items()}
         torch.cuda.synchronize()
+        ref = flash_attention_ref(q, k, v, **kw)
+        check = {n: within(o, ref, **TOL[dtype]) for n, o in outs.items()}
+        what = f"(within {TOL[dtype]['atol']:g} of the plain version, max abs err)"
+        kernel = "flash_fwd_mma_f32"
         if dtype == torch.bfloat16:
-            check = {n: torch.equal(outs["this"], o) for n, o in outs.items() if n != "this"}
-            what = "bit-equal to this"
-        else:
-            ref = flash_attention_ref(q, k, v, **kw)
-            check = {n: within(o, ref, **TOL[dtype]) for n, o in outs.items()}
-            what = "(within 2e-5 of the plain version, max abs err)"
-        times = {n: [] for n in named}
-        for n in order:
-            times[n].append(time_ms(attention_launch, q, k, v, kw, libs[n]))
+            what += ", bit-equal to this: " + str(
+                {n: torch.equal(outs["this"], o) for n, o in outs.items() if n != "this"})
+            kernel = BF16_KERNELS[bf16_rows(b, s, h, hd)]
+            if not all(ok for ok, _ in check.values()):
+                fail(f"attention A/B {name}: a source is outside 2e-2 of the plain version: "
+                     f"{check}")
+        runs = {n: (lambda lib=lib: attention_launch(q, k, v, kw, lib)) for n, lib in libs.items()}
+        middle = []
+        if not cap and not window:
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            runs["sdpa"] = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
+            middle = ["sdpa", "sdpa"]
+        times = {n: [] for n in runs}
+        for n in [*named, *middle, *reversed(named)]:
+            times[n].append(time_ms(runs[n]))
         bound_ms, bound_by, flops = attn_bound(b, s, h, kv, hd, dtype, causal=causal,
                                                window=window)
         route = ("" if dtype == torch.bfloat16 else
                  f", route bound {attn_route_bound(b, s, h, kv, hd, flops)[0] * 1e3:.2f} us")
-        log(f"  {name}, order {' '.join(order)}: " + "; ".join(
+        log(f"  {name} [this: {kernel}], order "
+            f"{' '.join([*named, *middle, *reversed(named)])}: " + "; ".join(
             f"{n} " + ", ".join(f"{t:.4f}" for t in ts) + " ms ("
             f"{flops / statistics.mean(ts) / 1e9:.1f} TFLOP/s)" for n, ts in times.items())
             + f"; {str(dtype)[6:]} bound {bound_ms * 1e3:.2f} us ({bound_by}){route}; {what}: "
             f"{check}")
-        rows.append({"name": name, "times_ms": times, "check": check, "bound_ms": bound_ms,
-                     "bound_by": bound_by})
+        rows.append({"name": name, "kernel": kernel, "times_ms": times, "check": check,
+                     "bound_ms": bound_ms, "bound_by": bound_by})
     log(f"attention A/B took {time.perf_counter() - t0:.1f} s")
     return rows
 
@@ -1607,11 +1721,124 @@ def phase_decode_phases(sources: list[str]) -> list[dict]:
     return rows
 
 
+# clock64 probes in flash_fwd_pingpong_bf16's middle sections (anchor,
+# probe, where): block 0's two consumers, one thread each, section by
+# section: the loads' and the turn's wait, the issue of q kᵀ and P V, the
+# wait for S, the softmax, the wait for P V, the pack; and the global timer
+# at each section's start, for the SM clock
+_PP_PROBES = (
+    ("template <int HD, int ST>\nconstexpr size_t pp_smem_bytes()",
+     "__device__ long long g_pp_phase[2 * 64 * 8];\n"
+     "#define PP_PROBE(j) if (blockIdx.x == 0 && threadIdx.x % 128 == 0 && sec < 64) "
+     "g_pp_phase[(c * 64 + sec) * 8 + (j)] = clock64();\n\n", "before"),
+    ("    bool issued = false;          // has this consumer issued a section yet?\n",
+     "    int sec = 0;\n", "after"),
+    ("        for (int n = 1; n < t.n_tiles; ++n) {\n",
+     "          PP_PROBE(0);\n          if (blockIdx.x == 0 && threadIdx.x % 128 == 0 && "
+     "sec < 64) {\n            long long g;\n            asm volatile(\"mov.u64 %0, "
+     "%%globaltimer;\" : \"=l\"(g));\n            g_pp_phase[(c * 64 + sec) * 8 + 7] = g;\n"
+     "          }\n", "after"),
+    ("          reg_fence64(s);\n          reg_fence64(acc);\n", "          PP_PROBE(1);\n",
+     "before"),
+    ("          wgmma_wait<1>();   // S_n; P V may still run\n", "          PP_PROBE(2);\n",
+     "before"),
+    ("          wgmma_wait<1>();   // S_n; P V may still run\n", "          PP_PROBE(3);\n",
+     "after"),
+    ("          wgmma_wait<0>();\n          reg_fence64(acc);\n          release(empty_v(",
+     "          PP_PROBE(4);\n", "before"),
+    ("          reg_fence64(acc);\n          release(empty_v(vc % ST));\n          ++vc;\n"
+     "          pp_pack(pa, s);\n", "          PP_PROBE(5);\n", "before"),
+    ("          reg_fence64(acc);\n          release(empty_v(vc % ST));\n          ++vc;\n"
+     "          pp_pack(pa, s);\n", "          PP_PROBE(6);\n          ++sec;\n", "after"),
+    ("const char* flash_attention_error_string(int err) {",
+     "int pp_phases_read(void* dst) {\n"
+     "  return (int)cudaMemcpyFromSymbol(dst, g_pp_phase, sizeof(g_pp_phase));\n}\n\n"
+     "int pp_phases_clear() {\n  void* p = nullptr;\n"
+     "  cudaError_t e = cudaGetSymbolAddress(&p, g_pp_phase);\n"
+     "  return (int)(e != cudaSuccess ? e : cudaMemset(p, 0, sizeof(g_pp_phase)));\n}\n\n",
+     "before"),
+)
+_PP_PHASE_NAMES = ("loads + turn", "issue", "S", "softmax", "P V", "pack")
+# (name, S, T, H, KV, causal): 132 items of 16 tiles (one a block), and
+# granite-3-8b's width causal at S=1024 and 4096
+_PP_PHASE_SHAPES = (("H=44 S=384 T=2048, not causal", 384, 2048, 44, 1, False),
+                    ("granite-3-8b S=1024", 1024, 1024, 32, 8, True),
+                    ("granite-3-8b S=4096", 4096, 4096, 32, 8, True))
+
+
+def phase_attention_phases(sources: list[str]) -> list[dict]:
+    """``--attention-phases [SRC ...]``: where a section of the hd-128
+    ping-pong kernel's time goes.  A copy of this checkout's
+    ``csrc/flash_attention.cu`` (and of each SRC with the same text at the
+    probes' anchors) gets clock64 probes (``_PP_PROBES``; a missing anchor
+    fails), is built into ``build/`` and launched at ``_PP_PHASE_SHAPES``;
+    block 0's two consumers each record, in its sections 1-63, the cycles
+    of each phase (``_PP_PHASE_NAMES``).  Prints each consumer's median over
+    sections 3-13, the section's period, the SM clock over those sections
+    (clock64 against the global timer) and four sections' timelines."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    rows = []
+    gen = torch.Generator("cuda").manual_seed(9)
+    for src in [str(_build.CSRC_DIR / fa_kernel._SOURCE), *sources]:
+        text = Path(src).read_text()
+        for anchor, probe, where in _PP_PROBES:
+            if text.count(anchor) != 1:
+                fail(f"--attention-phases: {src} has {text.count(anchor)} of the anchor "
+                     f"{anchor[:60]!r}, want 1")
+            text = text.replace(anchor, probe + anchor if where == "before" else anchor + probe)
+        copy = _build.BUILD_DIR / f"{Path(src).stem}_phases.cu"
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        copy.write_text(text)
+        lib = fa_kernel.build(str(copy))
+        lib.pp_phases_read.restype = lib.pp_phases_clear.restype = ctypes.c_int
+        lib.pp_phases_read.argtypes = [ctypes.c_void_p]
+        lib.pp_phases_clear.argtypes = []
+        for name, s, t_len, h, kv, causal in _PP_PHASE_SHAPES:
+            q = torch.randn(1, s, h, 128, generator=gen, device="cuda").bfloat16()
+            k, v = (torch.randn(1, t_len, kv, 128, generator=gen, device="cuda").bfloat16()
+                    for _ in range(2))
+            kw = dict(causal=causal, window=0, softcap=0.0)
+            ms = time_ms(attention_launch, q, k, v, kw, lib)
+            buf = np.zeros((2, 64, 8), np.int64)
+            # one more launch into cleared probes (the timed ones wrote over
+            # the last shape's, and a shorter walk leaves sections unwritten)
+            if lib.pp_phases_clear():
+                fail("--attention-phases: clearing the probes failed")
+            attention_launch(q, k, v, kw, lib)
+            torch.cuda.synchronize()
+            if lib.pp_phases_read(buf.ctypes.data):
+                fail("--attention-phases: reading the probes failed")
+            secs = range(3, min(int((buf[0, :, 6] > 0).sum()) - 1, 14))
+            rec = {"source": src, "name": name, "ms": ms, "consumers": []}
+            for c in range(2):
+                med = {n: int(np.median([buf[c, i, j + 1] - buf[c, i, j] for i in secs]))
+                       for j, n in enumerate(_PP_PHASE_NAMES)}
+                period = int(np.median([buf[c, i + 1, 0] - buf[c, i, 0] for i in secs]))
+                rec["consumers"].append({"cycles": med, "period": period})
+            ghz = ((buf[0, secs[-1], 0] - buf[0, secs[0], 0])
+                   / max(1, buf[0, secs[-1], 7] - buf[0, secs[0], 7]))
+            rec["sm_ghz"] = float(ghz)
+            log(f"  {Path(src).name} {name}: {ms:.4f} ms (CUDA events); SM clock {ghz:.3f} GHz; "
+                + "; ".join(f"consumer {c}: " + ", ".join(f"{n} {x}" for n, x in
+                                                         r["cycles"].items())
+                            + f", period {r['period']} cycles"
+                            for c, r in enumerate(rec["consumers"])))
+            base = buf[0, 3, 0]
+            for i in range(3, 7):
+                log("    section %d: " % i + " | ".join(
+                    f"consumer {c} " + " ".join(str(int(x - base)) for x in buf[c, i, :7])
+                    for c in range(2)))
+            rows.append(rec)
+    return rows
+
+
 def set_launch_counts_to_zero() -> None:
     """Every kernel wrapper of the serving path (K1, K2, K3) counts from 0."""
     from repro_torch.kernels import decode_attention, flash_attention, ssd_scan
     flash_attention.launches = 0
     flash_attention.launches_by_route = {"wgmma": 0, "mma": 0}
+    flash_attention.launches_by_kernel = dict.fromkeys(flash_attention.launches_by_kernel, 0)
     decode_attention.launches = 0
     decode_attention.launches_by_route = {"mma": 0, "simt": 0}
     ssd_scan.launches = 0
@@ -1735,6 +1962,7 @@ def serve_requests(model, params) -> dict:
     stats = server.stop()
     launches = flash_attention.launches
     by_route = dict(flash_attention.launches_by_route)
+    by_kernel = dict(flash_attention.launches_by_kernel)
     decode_by_route = dict(decode_attention.launches_by_route)
     other_launches = {"decode_attention": decode_attention.launches,
                       "ssd_scan": ssd_scan.launches}
@@ -1753,6 +1981,16 @@ def serve_requests(model, params) -> dict:
     if by_route != {"wgmma": want, "mma": 0}:
         fail(f"{cfg.name}: flash_attention routes {by_route}: every bf16 prefill launch "
              "must be wgmma")
+    # each prompt prefills at its bucket (B=1), on the kernel the source's
+    # rule gives that length
+    from repro_torch.kernels.flash_attention.kernel import BF16_KERNELS, bf16_rows
+    hd = cfg.resolved_head_dim
+    want_kernels = dict.fromkeys(by_kernel, 0)
+    for n in PROMPT_LENS:
+        bucket = next(b for b in SERVE_BUCKETS if b >= n)
+        want_kernels[BF16_KERNELS[bf16_rows(1, bucket, cfg.n_heads, hd)]] += attn_layers
+    if by_kernel != want_kernels:
+        fail(f"{cfg.name}: flash_attention kernels {by_kernel}, want {want_kernels}")
     if any(other_launches.values()) or any(decode_by_route.values()):
         fail(f"{cfg.name}: the serving path launched {other_launches} (decode attention by "
              f"route {decode_by_route}); no model path reaches them")
@@ -1763,7 +2001,7 @@ def serve_requests(model, params) -> dict:
     log(f"  {cfg.name}: completed={completed}/{len(reqs)} cpu={stats.cpu_fraction:.3f} "
         f"ttft_ms_median={ttft:.2f} tokens={tokens} wall_s={wall_s:.3f} "
         f"tokens_per_s={tokens / wall_s:.1f} flash_attention_launches={launches} "
-        f"(by route {by_route}) "
+        f"(by route {by_route}, by kernel {by_kernel}) "
         f"decode_attention_launches={other_launches['decode_attention']} "
         f"(by route {decode_by_route}) "
         f"ssd_scan_launches={other_launches['ssd_scan']}")
@@ -1791,7 +2029,7 @@ def serve_requests(model, params) -> dict:
                 {"tokens": toks})
         profile(f"{cfg.name} decode step (4 slots)", model.decode_step, params, dtoks, cache,
                 dpos)
-    return {"launches": launches, "by_route": by_route, **other_launches,
+    return {"launches": launches, "by_route": by_route, "by_kernel": by_kernel, **other_launches,
             "decode_by_route": decode_by_route, "engine": engine, "completed": completed,
             "cpu_fraction": stats.cpu_fraction, "ttft_ms": ttft,
             "tokens_per_s": tokens / wall_s}
@@ -1962,16 +2200,22 @@ def mamba2_consistency(model, params, *, decode_tol: dict) -> dict:
 
 
 def launch_counts() -> dict:
-    """The serving path's launch counters (K1 and K2 by route, K3)."""
+    """The serving path's launch counters (K1 by route and by kernel, K2 by
+    route, K3)."""
     from repro_torch.kernels import decode_attention, flash_attention, ssd_scan
     return {"flash_attention": dict(flash_attention.launches_by_route),
+            "flash_attention_kernels": dict(flash_attention.launches_by_kernel),
             "decode_attention": dict(decode_attention.launches_by_route),
             "ssd_scan": ssd_scan.launches}
 
 
 def check_launches(what: str, counts: dict, *, wgmma: int, mma: int) -> None:
-    """K1 launched exactly ``wgmma`` / ``mma`` times, K2 and K3 not at all."""
+    """K1 launched exactly ``wgmma`` / ``mma`` times (its kernels' counts
+    adding up to them), K2 and K3 not at all."""
+    by_kernel = counts["flash_attention_kernels"]
     if (counts["flash_attention"] != {"wgmma": wgmma, "mma": mma}
+            or by_kernel[PINGPONG] + by_kernel[WGMMA64] != wgmma
+            or by_kernel["flash_fwd_mma_f32"] != mma
             or any(counts["decode_attention"].values()) or counts["ssd_scan"]):
         fail(f"{what}: launches {counts}, want flash_attention "
              f"{{'wgmma': {wgmma}, 'mma': {mma}}} and no decode_attention or ssd_scan")
@@ -2063,7 +2307,8 @@ def phase_whisper() -> dict:
     checked.pop("forward")
     counts = launch_counts()
     check_launches("float32 check", counts, wgmma=0, mma=2 * cfg.n_layers)
-    record.update(check_float32=checked, f32_by_route=counts["flash_attention"])
+    record.update(check_float32=checked, f32_by_route=counts["flash_attention"],
+                  f32_by_kernel=counts["flash_attention_kernels"])
     del wide
     torch.cuda.empty_cache()
 
@@ -2084,7 +2329,7 @@ def phase_whisper() -> dict:
     check_launches(f"bf16 prefill on {split} tokens and 4 greedy decode steps (tokens {made})",
                    counts, wgmma=cfg.n_layers, mma=0)
     record.update(by_route=counts["flash_attention"], decode_by_route=counts["decode_attention"],
-                  ssd_scan=counts["ssd_scan"])
+                  ssd_scan=counts["ssd_scan"], by_kernel=counts["flash_attention_kernels"])
     with torch.no_grad():
         lk, _ = model.prefill(params, batch)
         lp, _ = Model(cfg, attn=None, device="cuda").prefill(params, batch)
@@ -2150,7 +2395,7 @@ def phase_internvl2() -> dict:
     check_launches(f"bf16 prefill of {s} positions and 4 greedy decode steps at positions "
                    f"{s}-{s + 3} (tokens {made})", counts, wgmma=cfg.n_layers, mma=0)
     record.update(by_route=counts["flash_attention"], decode_by_route=counts["decode_attention"],
-                  ssd_scan=counts["ssd_scan"])
+                  ssd_scan=counts["ssd_scan"], by_kernel=counts["flash_attention_kernels"])
     del pre
     with torch.no_grad():
         lp, _ = Model(cfg, attn=None, device="cuda").prefill(params, batch)
@@ -5745,7 +5990,8 @@ def profile(name: str, fn, *args, kernel: tuple[str, str] = ("flash_attention", 
     focus = sum(ms for n, ms in by_name.items() if kernel[1] in n)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
     log(f"  profile {name}: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
-        f"({100 * busy / wall_ms:.1f}%), {kernel[0]} {focus:.3f} ms, "
+        f"({100 * busy / wall_ms:.1f}%), {kernel[0]} {focus:.3f} ms "
+        f"({100 * focus / busy:.1f}% of busy), "
         f"{sum(map(len, runs.values())) // calls} kernels; top: "
         + "; ".join(f"{n[:60]} {ms:.4f} ms" for n, ms in top))
     return by_name
@@ -5774,6 +6020,7 @@ def main() -> int:
           "--fleet-adaptive-ab": phase_fleet_adaptive_source_ab,
           "--ssd-ab": phase_ssd_source_ab, "--attention-ab": phase_attention_source_ab,
           "--decode-ab": phase_decode_source_ab, "--decode-phases": phase_decode_phases,
+          "--attention-phases": phase_attention_phases,
           "--train-loop": train_loop_child, "--mesh": lambda _: phase_mesh()}
     if sys.argv[1:2] and sys.argv[1] in ab:
         log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5784,7 +6031,7 @@ def main() -> int:
         return 0
     t_start = time.perf_counter()
     phase_card()
-    route_err = phase_compare()
+    route_err, kernel_err = phase_compare()
     decode_err = phase_compare_decode()
     ssd_err = phase_compare_ssd()
     phase_grad_guard()
@@ -5816,39 +6063,48 @@ def main() -> int:
     s3b_rows = phase_time_fleet_adaptive(s3b_cmp["builds"], s3_rows)
     s3b_main = phase_fleet_adaptive_main(s3b_cmp["builds"], s3b_rows, fleet_main)
     fleet_split = phase_fleet_split()
-    # K1 has one kernel per type: bf16 ("wgmma", the serving path of
-    # gemma-2b, granite-3-8b, starcoder2-15b, dbrx-132b,
-    # llama4-scout-17b-a16e and jamba-1.5-large-398b, and the model paths of
-    # whisper-small and internvl2-76b; launches are the nine runs' sum
-    # (mamba2-370m makes none), by model beside it; its numbers at
-    # gemma-2b's largest prefill bucket, every row beside them) and f32
-    # ("mma", split TF32, on one model path: whisper-small's f32
-    # prefill-then-decode check, whose launches it reports, the timing
-    # phase's and the serving runs' (0) beside them; its numbers at gemma-2b
-    # heads, whisper's row beside them; its bound is its route's, as K3's
-    # is, with the f32 CUDA-core one left to phase 3's log)
+    # K1 has three kernels: bf16 ("wgmma", the serving path of gemma-2b,
+    # granite-3-8b, starcoder2-15b, dbrx-132b, llama4-scout-17b-a16e and
+    # jamba-1.5-large-398b, and the model paths of whisper-small and
+    # internvl2-76b) is flash_fwd_wgmma_bf16 (64 q rows a block: hd 64 and
+    # 256, and hd 128 below PP_MIN_S rows) and flash_fwd_pingpong_bf16 (hd
+    # 128 from PP_MIN_S rows on); launches are the nine runs' sum by kernel
+    # (mamba2-370m makes none), by model beside it; numbers at gemma-2b's
+    # largest prefill bucket and at granite-3-8b's S=1024, every row of the
+    # kernel beside them.  f32 ("mma", split TF32, flash_fwd_mma_f32, on one
+    # model path: whisper-small's f32 prefill-then-decode check, whose
+    # launches it reports, the timing phase's and the serving runs' (0)
+    # beside them; its numbers at gemma-2b heads, whisper's row beside them;
+    # its bound is its route's, as K3's is, with the f32 CUDA-core one left
+    # to phase 3's log)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     main_row, f32_row = rows["wgmma"][len(SERVE_BUCKETS) - 1], rows["mma"][0]
+    pp_row = next(r for r in rows["wgmma"]
+                  if r["name"] == f"{SERVED_ATTENTION[1][0]} prefill S=1024")
     served_runs = {"gemma-2b": served, **served_models, "whisper-small": whisper,
                    "internvl2-76b": internvl2}
-    row_keys = ("name", "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+    row_keys = ("name", "shape", "kernel", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                 "tflops", "bound_share")
     k1 = {"route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
           "replaces": "src/repro/kernels/flash_attention/kernel.py:81"}
-    kernels = [
-        {"name": "flash_attention (wgmma, bf16)", **k1,
-         "launches": sum(r["by_route"]["wgmma"] for r in served_runs.values()),
-         "launches_by_model": {n: r["by_route"]["wgmma"] for n, r in served_runs.items()},
-         "max_abs_err": route_err["wgmma"], **{k: main_row[k] for k in keys},
-         "shape": main_row["shape"],
-         "rows": [{k: r[k] for k in row_keys} for r in rows["wgmma"]]},
+    kernels = []
+    for kernel, row in ((WGMMA64, main_row), (PINGPONG, pp_row)):
+        kernels.append({
+            "name": f"flash_attention (wgmma, bf16: {kernel})", **k1,
+            "launches": sum(r["by_kernel"][kernel] for r in served_runs.values()),
+            "launches_by_model": {n: r["by_kernel"][kernel] for n, r in served_runs.items()},
+            "route_launches": sum(r["by_route"]["wgmma"] for r in served_runs.values()),
+            "max_abs_err": kernel_err[kernel], **{k: row[k] for k in keys},
+            "shape": row["shape"],
+            "rows": [{k: r.get(k) for k in (*row_keys, "ms_by_kernel")} for r in rows["wgmma"]
+                     if r["kernel"] == kernel or "ms_by_kernel" in r]})
+    kernels.append(
         {"name": "flash_attention (mma, f32)", **k1,
          "launches": whisper["f32_by_route"]["mma"], "timing_launches": f32_row["launches"],
          "max_abs_err": route_err["mma"], **{k: f32_row[k] for k in keys},
          "shape": "B=1 S=T=1024 H=8 KV=1 hd=256 f32 causal",
          "serving_launches": sum(r["by_route"]["mma"] for r in served_runs.values()),
-         "rows": [{k: r[k] for k in row_keys} for r in rows["mma"][1:]]},
-    ]
+         "rows": [{k: r[k] for k in row_keys} for r in rows["mma"][1:]]})
     # decode attention and the SSD scan are on no model path: their launches
     # are the timing phase's, at the shape of the row (K2: bf16 "mma" at
     # gemma-2b decode with the serving engine's cache, f32 "simt" at

@@ -12,9 +12,10 @@
 // H=8, KV=1, hd=256, S=T up to 1024, causal) the work is 4*S*T/2*hd*H
 // FLOPs over ~(2*S*H + 2*T*KV)*hd*2 bytes, about 450 FLOPs per byte, above
 // the H100's ~295 bf16 FLOPs/byte ridge: the bound is operations, on the
-// tensor cores.  Each input type has one kernel:
+// tensor cores.  bf16 has two kernels, f32 one:
 //
-// * bf16, flash_fwd_wgmma_bf16 (the serving path).  Both products run on
+// * bf16, flash_fwd_wgmma_bf16 (the serving path at hd 64 and 256, and at
+//   hd 128 below PP_MIN_S rows).  Both products run on
 //   the tensor cores with wgmma (bf16 operands, f32 accumulators), fed by
 //   TMA.  One block per (64 q rows, head, batch): one consumer warpgroup
 //   (128 threads) owns the 64 rows, one producer warp issues the TMA loads.
@@ -32,6 +33,22 @@
 //   are never loaded.  Under causal the q tiles run longest-first.  TMA
 //   zero-fills rows past S and T (ragged edges need no padding).  The one
 //   rounding the Pallas kernel does not make is P -> bf16 before P V.
+// * bf16 at hd 128 from PP_MIN_S rows on, flash_fwd_pingpong_bf16
+//   (FlashAttention-3's layout).  At hd 128 a 64x64 tile's softmax (ex2
+//   at 16 an SM a clock) costs about as much as its two products, and the
+//   kernel above runs them one after the other.  Here three warpgroups
+//   share a block: a producer (its registers handed to the consumers by
+//   setmaxnreg) and two consumers of 64 q rows each, with S = Q K^T and
+//   O += P V as m64n128k16 over 128-key tiles.  Each consumer issues tile
+//   n's q k^T and tile n - 1's P V together and runs tile n's softmax
+//   while P V is on the tensor cores; the two take turns to issue (named
+//   barriers), so one's products overlap the other's softmax.  One block
+//   an SM, persistent: it walks 128-row work items, the longest causal
+//   ones of every head and batch row first, dealt to the blocks in a
+//   snake, with Q in two slots and the K/V ring running on across items,
+//   so an item's loads overlap the one before (at 197 KB of shared memory
+//   a second block cannot share the SM).  The arithmetic is the kernel
+//   above's, with the scale folded into the exponent: p = 2^(s sl - m sl).
 // * f32, flash_fwd_mma_f32 (route "mma").  One TF32 pass keeps ~3 decimal
 //   digits and would miss the reference's 2e-5; the split of
 //   csrc/ssd_scan.cu does not: each f32 operand is v = hi + lo (hi rounded
@@ -58,7 +75,7 @@
 //   fragments.  wgmma is not used: TF32 wgmma reads B only K-major from
 //   shared memory, so P V would need V transposed and split.
 //
-// Both keep the two guards of the TPU kernel: p = mask ? p : 0 (a fully
+// All keep the two guards of the TPU kernel: p = 0 where masked (a fully
 // masked tile has m_prev = m_new = NEG_INF, so exp(0) = 1 would leak in)
 // and l == 0 -> 1 in the final divide (fully masked rows give 0).
 
@@ -796,6 +813,447 @@ flash_fwd_wgmma_bf16(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at hd 128: a persistent kernel, two consumer warpgroups in ping-pong
+// (FlashAttention-3's layout)
+// ---------------------------------------------------------------------------
+
+constexpr int PP_ROWS = 128;                      // q rows a work item: 64 a consumer warpgroup
+constexpr int PP_KEYS = 128;                      // keys a K/V tile
+constexpr int PP_STAGES = 2;                      // K/V ring depth
+constexpr int PP_THREADS = 3 * 128;               // producer + two consumer warpgroups
+constexpr int PP_CONSUMER_WARPS = 8;
+constexpr uint32_t PP_BOX_BYTES = PP_KEYS * 64 * 2;  // one K/V box: 128 keys x 64 bf16
+constexpr int PP_TURN_BAR = 1;                    // named barriers 1, 2: consumer c may issue
+// The entry point serves bf16 hd 128 with this kernel from this many q
+// rows on, and with flash_fwd_wgmma_bf16 below it: phase 3 of
+// chip_smoke.py times both at every hd-128 served width at S = 16, 128,
+// 256, 384, 512 and 1024.  From 384 rows this kernel was the faster on an
+// H100; below, a head's one or two 128-row items leave SMs idle and pay
+// this kernel's longer set-up.
+constexpr int PP_MIN_S = 384;
+
+template <int HD, int ST>
+constexpr size_t pp_smem_bytes() {
+  // + slack to align to 1 KB; two Q slots, then K and V a stage
+  return 1024 + 2 * (size_t)PP_ROWS * HD * 2 + 2 * (size_t)ST * PP_KEYS * HD * 2;
+}
+
+#define ACC64(d) ACC32(d), ACC8(d, 32), ACC8(d, 40), ACC8(d, 48), ACC8(d, 56)
+#define ACC64_STR                                                                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "  \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "  \
+  "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// d (64x128 f32) (+)= A (64x16, shared, K-major) * B (16x128, shared,
+// K-major); d is overwritten where !accumulate.
+__device__ __forceinline__ void wgmma_ss128(float (&d)[64], uint64_t da, uint64_t db,
+                                            int accumulate) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %66, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " ACC64_STR
+      ", %64, %65, p, 1, 1, 0, 0;\n\t}"
+      : ACC64(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64x128 f32) += A (64x16, registers) * B (16x128, shared, MN-major).
+__device__ __forceinline__ void wgmma_rs128(float (&d)[64], const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %69, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " ACC64_STR
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n\t}"
+      : ACC64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void reg_fence64(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// 2^x on the SFU (ex2.approx, subnormal results flushed to 0): one
+// instruction where exp2f adds a range check around it.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The softcap on a 64x128 score fragment, into log2 units (the softmax's
+// scale is then 1).
+__device__ __forceinline__ void pp_softcap(float (&s)[64], float softcap, float scale) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) s[i] = softcap * tanhf(s[i] * scale / softcap) * LOG2E;
+}
+
+// Mask (when MASK) and the online softmax update of (m, l) on a 64x128 score
+// fragment; s comes back holding p and corr the factor for O.  s and m are
+// in the units of the scores, and p = 2^(s sl - m sl), one fma and one ex2
+// an element (sl = scale log2(e), or 1 after the softcap).  A masked score
+// is NEG_INF, whose p underflows to 0; while a row has seen no visible key
+// (m == NEG_INF) its m sl is taken as 0, so that p stays 0 there too.
+// Element i of a thread sits at row qrow + 8 ((i >> 1) & 1) and key
+// kcol + 8 (i >> 2) + (i & 1); the maxima and sums run as four partial
+// chains a row.
+template <bool MASK>
+__device__ __forceinline__ void pp_softmax(float (&s)[64], float (&m)[2], float (&l)[2],
+                                           float (&corr)[2], int qrow, int kcol, int T_len,
+                                           int causal, int window, float sl) {
+  float mx[2][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) mx[j / 4][j % 4] = NEG_INF;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    if (MASK) {
+      const int qpos = qrow + 8 * ((i >> 1) & 1);
+      const int kpos = kcol + 8 * (i >> 2) + (i & 1);
+      bool ok = kpos < T_len;
+      if (causal) ok = ok && kpos <= qpos;
+      if (window > 0) ok = ok && kpos > qpos - window;
+      if (!ok) s[i] = NEG_INF;
+    }
+    float& x = mx[(i >> 1) & 1][(i >> 2) & 3];
+    x = fmaxf(x, s[i]);
+  }
+  float ms[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float r = fmaxf(fmaxf(mx[hh][0], mx[hh][1]), fmaxf(mx[hh][2], mx[hh][3]));
+    // the four lanes of a quad hold one row
+    r = fmaxf(r, __shfl_xor_sync(0xffffffffu, r, 1));
+    r = fmaxf(r, __shfl_xor_sync(0xffffffffu, r, 2));
+    const float m_new = fmaxf(m[hh], r);
+    corr[hh] = ex2((m[hh] - m_new) * sl);
+    m[hh] = m_new;
+    ms[hh] = m_new == NEG_INF ? 0.f : m_new * sl;
+  }
+  float ps[2][4] = {};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int hh = (i >> 1) & 1;
+    s[i] = ex2(fmaf(s[i], sl, -ms[hh]));
+    ps[hh][(i >> 2) & 3] += s[i];
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+    l[hh] = l[hh] * corr[hh] + ((ps[hh][0] + ps[hh][1]) + (ps[hh][2] + ps[hh][3]));
+}
+
+// The tile of 128 keys from k0 against a consumer's 64 rows from qc0: the
+// softcap where one is set, the mask only where the tile straddles the
+// causal diagonal, the window's edge or T.
+__device__ __forceinline__ void pp_tile_softmax(float (&s)[64], float (&m)[2], float (&l)[2],
+                                                float (&corr)[2], int k0, int qc0, int r0,
+                                                int cq, int T_len, int causal, int window,
+                                                float softcap, float scale, float sl) {
+  if (softcap != 0.f) pp_softcap(s, softcap, scale);
+  const bool full = k0 + PP_KEYS <= T_len && (!causal || k0 + PP_KEYS - 1 <= qc0) &&
+                    (window <= 0 || k0 > qc0 + 63 - window);
+  if (full)
+    pp_softmax<false>(s, m, l, corr, qc0 + r0, k0 + cq, T_len, causal, window, sl);
+  else
+    pp_softmax<true>(s, m, l, corr, qc0 + r0, k0 + cq, T_len, causal, window, sl);
+}
+
+// S = Q K^T over hd 128: 8 k-steps of 32 bytes into a 128-byte swizzled
+// row, the next 64-column box every 4; the first k-step overwrites s.
+__device__ __forceinline__ void pp_issue_qk(float (&s)[64], uint32_t sq, uint32_t sk) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_ss128(s, sw128_desc(sq + (kk / 4) * BOX_BYTES + (kk % 4) * 32, 16, 1024),
+                sw128_desc(sk + (kk / 4) * PP_BOX_BYTES + (kk % 4) * 32, 16, 1024), kk);
+  wgmma_commit();
+}
+
+// O = O corr + P V: V is (keys, hd), the MN-major B operand; a k-step is
+// 16 key rows (2048 bytes), hd's two 64-column boxes one box apart.  O is
+// rescaled while the tensor cores run the q k^T issued before it.
+__device__ __forceinline__ void pp_issue_pv(float (&acc)[64], const float (&corr)[2],
+                                            const uint32_t (&pa)[8][4], uint32_t sv) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] *= corr[(i >> 1) & 1];
+  reg_fence64(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < PP_KEYS / 16; ++kk)
+    wgmma_rs128(acc, pa[kk], sw128_desc(sv + kk * 2048, PP_BOX_BYTES, 1024));
+  wgmma_commit();
+}
+
+// P as the register A operand of P V: k-step kk covers accumulator entries
+// 8 kk .. 8 kk + 7, which are exactly its four A registers.
+__device__ __forceinline__ void pp_pack(uint32_t (&pa)[8][4], const float (&s)[64]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+}
+
+// A work item: 128 q rows of one (head, batch) and the 128-key tiles they
+// can see (tiles outside that range are wholly masked and would change
+// neither m, l nor O, so they are not loaded).  Items are numbered head
+// fastest, then batch, then the q tile, reversed under causal: the longest
+// causal tiles of every head and batch row come first.
+struct PpWork {
+  int h, b, q0, k_first, n_tiles;
+};
+
+__device__ __forceinline__ PpWork pp_work(int w, int B, int S, int T_len, int H, int causal,
+                                          int window) {
+  const int n_qt = (S + PP_ROWS - 1) / PP_ROWS;
+  PpWork t;
+  t.h = w % H;
+  w /= H;
+  t.b = w % B;
+  w /= B;
+  t.q0 = (causal ? n_qt - 1 - w : w) * PP_ROWS;
+  int k_lo = 0, k_hi = T_len;
+  if (causal) k_hi = min(T_len, t.q0 + PP_ROWS);
+  if (window > 0) k_lo = max(0, t.q0 - window + 1);
+  t.k_first = (k_lo / PP_KEYS) * PP_KEYS;
+  t.n_tiles = k_hi > t.k_first ? (k_hi - t.k_first + PP_KEYS - 1) / PP_KEYS : 0;
+  return t;
+}
+
+// The item a block takes in round r: the rounds deal the items out to the
+// blocks in a snake (0 .. G-1, then G-1 .. 0), so that in the longest-first
+// order every block's total work comes out nearly equal.
+__device__ __forceinline__ int pp_item(int r) {
+  return r * gridDim.x + (r % 2 == 0 ? blockIdx.x : gridDim.x - 1 - blockIdx.x);
+}
+
+// One block an SM (at most), persistent over its items.  Warpgroup 0 is the
+// producer: one thread issues every TMA copy, in the order the consumers
+// take them: per item Q (two slots, so the next item's Q lands during this
+// one), K_0, then K_n and V_{n-1}, through one K/V ring that runs on across
+// items.  Warpgroups 1 and 2 each own 64 of an item's rows and walk its
+// tiles in sections: section n issues S_n = Q K_n^T and O = O corr_{n-1} +
+// P_{n-1} V_{n-1} (FlashAttention-3's overlap: the softmax of tile n runs
+// while P V of tile n - 1 is on the tensor cores), then waits for S_n alone
+// (wait_group 1), runs its softmax, waits for P V and packs P_n.  The two
+// consumers take turns to issue a section (named barriers PP_TURN_BAR + c):
+// one issues its two products while the other runs its softmax, so the
+// tensor cores and the SFUs work at the same time.
+template <int HD, int ST>
+__global__ void __launch_bounds__(PP_THREADS, 1)
+flash_fwd_pingpong_bf16(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        __nv_bfloat16* __restrict__ o, int B, int S, int T_len, int H, int KV,
+                        int causal, int window, float softcap, float scale) {
+  static_assert(HD == 128, "the ping-pong kernel is laid out for hd 128");
+  constexpr uint32_t Q_HALF = 64 * HD * 2;         // one consumer's 64 rows, 2 boxes
+  constexpr uint32_t Q_TILE = 2 * Q_HALF;
+  constexpr uint32_t KV_TILE = PP_KEYS * HD * 2;   // 2 boxes of 128 keys x 64 columns
+
+  // barriers: per Q slot full and empty, then per stage K full, V full,
+  // K empty, V empty
+  __shared__ __align__(8) uint64_t bars[4 + 4 * ST];
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  auto q_full = [&](int slot) { return smem_u32(&bars[slot]); };
+  auto q_empty = [&](int slot) { return smem_u32(&bars[2 + slot]); };
+  auto full_k = [&](int st) { return smem_u32(&bars[4 + st]); };
+  auto full_v = [&](int st) { return smem_u32(&bars[4 + ST + st]); };
+  auto empty_k = [&](int st) { return smem_u32(&bars[4 + 2 * ST + st]); };
+  auto empty_v = [&](int st) { return smem_u32(&bars[4 + 3 * ST + st]); };
+  auto q_tile = [&](int slot) { return sq + Q_TILE * slot; };
+  auto k_tile = [&](int st) { return sq + 2 * Q_TILE + KV_TILE * (2 * st); };
+  auto v_tile = [&](int st) { return sq + 2 * Q_TILE + KV_TILE * (2 * st + 1); };
+  const int n_items = (S + PP_ROWS - 1) / PP_ROWS * B * H;
+
+  if (threadIdx.x == 0) {
+    for (int slot = 0; slot < 2; ++slot) {
+      mbar_init(q_full(slot), 1);
+      mbar_init(q_empty(slot), PP_CONSUMER_WARPS);
+    }
+    for (int st = 0; st < ST; ++st) {
+      mbar_init(full_k(st), 1);
+      mbar_init(full_v(st), 1);
+      mbar_init(empty_k(st), PP_CONSUMER_WARPS);
+      mbar_init(empty_v(st), PP_CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // producer: its registers go to the consumers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
+    if (threadIdx.x == 0) {
+      int kn = 0, vn = 0, qn = 0;   // K tiles, V tiles and Q tiles issued
+      for (int r = 0; pp_item(r) < n_items; ++r) {
+        const PpWork t = pp_work(pp_item(r), B, S, T_len, H, causal, window);
+        if (t.n_tiles == 0) continue;
+        const int kvh = t.h / (H / KV);
+        const int slot = qn % 2;
+        if (qn >= 2) mbar_wait(q_empty(slot), ((qn / 2) - 1) & 1);
+        mbar_expect_tx(q_full(slot), Q_TILE);
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+#pragma unroll
+          for (int cb = 0; cb < HD / 64; ++cb)
+            tma_load(q_tile(slot) + c * Q_HALF + cb * BOX_BYTES, &tm_q, q_full(slot), 64 * cb,
+                     t.h, t.q0 + 64 * c, t.b);
+        ++qn;
+        for (int n = 0; n <= t.n_tiles; ++n) {
+          if (n < t.n_tiles) {
+            const int st = kn % ST;
+            if (kn >= ST) mbar_wait(empty_k(st), ((kn / ST) - 1) & 1);
+            mbar_expect_tx(full_k(st), KV_TILE);
+#pragma unroll
+            for (int cb = 0; cb < HD / 64; ++cb)
+              tma_load(k_tile(st) + cb * PP_BOX_BYTES, &tm_k, full_k(st), 64 * cb, kvh,
+                       t.k_first + n * PP_KEYS, t.b);
+            ++kn;
+          }
+          if (n > 0) {
+            const int st = vn % ST;
+            if (vn >= ST) mbar_wait(empty_v(st), ((vn / ST) - 1) & 1);
+            mbar_expect_tx(full_v(st), KV_TILE);
+#pragma unroll
+            for (int cb = 0; cb < HD / 64; ++cb)
+              tma_load(v_tile(st) + cb * PP_BOX_BYTES, &tm_v, full_v(st), 64 * cb, kvh,
+                       t.k_first + (n - 1) * PP_KEYS, t.b);
+            ++vn;
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
+    const int c = wg - 1;
+    const int warp = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x % 32;
+    const int r0 = warp * 16 + lane / 4;   // rows r0 and r0 + 8 of this consumer's 64
+    const int cq = 2 * (lane % 4);
+    const float sl = softcap != 0.f ? 1.f : scale * LOG2E;
+
+    float acc[64], s[64];
+    uint32_t pa[8][4];
+    float m[2], l[2], corr[2];
+    int kc = 0, vc = 0, qc = 0;   // K tiles, V tiles and Q tiles taken
+    bool issued = false;          // has this consumer issued a section yet?
+
+    auto release = [&](uint32_t bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    // the turn protocol: consumer 1 hands consumer 0 the first turn; each
+    // section takes this consumer's turn and hands the other its own; and
+    // consumer 0 takes one more turn at the end, which meets consumer 1's
+    // last hand-over
+    auto my_turn = [&]() {
+      if (!issued && c == 1) named_arrive(PP_TURN_BAR, 256);
+      issued = true;
+      named_sync(PP_TURN_BAR + c, 256);
+    };
+    auto your_turn = [&]() { named_arrive(PP_TURN_BAR + 1 - c, 256); };
+
+    for (int r = 0; pp_item(r) < n_items; ++r) {
+      const PpWork t = pp_work(pp_item(r), B, S, T_len, H, causal, window);
+      const int qc0 = t.q0 + 64 * c;
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+      m[0] = m[1] = NEG_INF;
+      l[0] = l[1] = 0.f;
+      if (t.n_tiles > 0) {
+        const int slot = qc % 2;
+        const uint32_t sqc = q_tile(slot) + c * Q_HALF;
+        mbar_wait(q_full(slot), (qc / 2) & 1);
+
+        // section 0: S_0 alone
+        mbar_wait(full_k(kc % ST), (kc / ST) & 1);
+        my_turn();
+        reg_fence64(s);
+        wgmma_fence();
+        pp_issue_qk(s, sqc, k_tile(kc % ST));
+        your_turn();
+        wgmma_wait<0>();
+        reg_fence64(s);
+        release(empty_k(kc % ST));
+        ++kc;
+        if (t.n_tiles == 1) release(q_empty(slot));
+        pp_tile_softmax(s, m, l, corr, t.k_first, qc0, r0, cq, T_len, causal, window, softcap,
+                        scale, sl);
+        pp_pack(pa, s);
+
+        // sections 1 .. n_tiles - 1: S_n, and P_{n-1} V_{n-1}
+        for (int n = 1; n < t.n_tiles; ++n) {
+          mbar_wait(full_k(kc % ST), (kc / ST) & 1);
+          mbar_wait(full_v(vc % ST), (vc / ST) & 1);
+          my_turn();
+          reg_fence64(s);
+          reg_fence64(acc);
+          wgmma_fence();
+          pp_issue_qk(s, sqc, k_tile(kc % ST));
+          pp_issue_pv(acc, corr, pa, v_tile(vc % ST));
+          your_turn();
+          wgmma_wait<1>();   // S_n; P V may still run
+          reg_fence64(s);
+          release(empty_k(kc % ST));
+          ++kc;
+          if (n == t.n_tiles - 1) release(q_empty(slot));
+          pp_tile_softmax(s, m, l, corr, t.k_first + n * PP_KEYS, qc0, r0, cq, T_len, causal,
+                          window, softcap, scale, sl);
+          wgmma_wait<0>();
+          reg_fence64(acc);
+          release(empty_v(vc % ST));
+          ++vc;
+          pp_pack(pa, s);
+        }
+
+        // section n_tiles: the last P V
+        mbar_wait(full_v(vc % ST), (vc / ST) & 1);
+        my_turn();
+        reg_fence64(acc);
+        pp_issue_pv(acc, corr, pa, v_tile(vc % ST));
+        your_turn();
+        wgmma_wait<0>();
+        reg_fence64(acc);
+        release(empty_v(vc % ST));
+        ++vc;
+        ++qc;
+      }
+
+      // rows that see no key (l == 0) come out as 0
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+        l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int qpos = qc0 + r0 + 8 * hh;
+        if (qpos >= S) continue;
+        const float inv = 1.f / (l[hh] == 0.f ? 1.f : l[hh]);
+        __nv_bfloat16* orow = o + (((long)t.b * S + qpos) * H + t.h) * HD + cq;
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * hh] * inv, acc[4 * j + 2 * hh + 1] * inv);
+      }
+    }
+    if (issued && c == 0) named_sync(PP_TURN_BAR, 256);
+  }
+}
+
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -822,16 +1280,17 @@ EncodeTiled encode_tiled() {
 }
 
 // A (batch, rows, heads, hd) bf16 tensor as a 4-D map (hd, heads, rows,
-// batch) with 64 x 1 x 64 x 1 boxes, 128-byte swizzle, zeros out of bounds.
+// batch) with 64 x 1 x box_rows x 1 boxes, 128-byte swizzle, zeros out of
+// bounds.
 cudaError_t make_map(CUtensorMap* map, const void* ptr, int batch, int rows, int heads,
-                     int hd) {
+                     int hd, int box_rows = 64) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)rows,
                               (cuuint64_t)batch};
   const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)heads * hd * 2,
                                  (cuuint64_t)rows * heads * hd * 2};
-  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
                   strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -859,12 +1318,80 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, i
   return cudaGetLastError();
 }
 
+template <int HD, int ST>
+cudaError_t launch_pingpong(const void* q, const void* k, const void* v, void* o, int B, int S,
+                            int T_len, int H, int KV, int causal, int window, float softcap,
+                            float scale, cudaStream_t stream) {
+  constexpr size_t smem = pp_smem_bytes<HD, ST>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_pingpong_bf16<HD, ST>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tq, tk, tv;
+  if ((err = make_map(&tq, q, B, S, H, HD)) != cudaSuccess) return err;
+  if ((err = make_map(&tk, k, B, T_len, KV, HD, PP_KEYS)) != cudaSuccess) return err;
+  if ((err = make_map(&tv, v, B, T_len, KV, HD, PP_KEYS)) != cudaSuccess) return err;
+  const long items = (long)((S + PP_ROWS - 1) / PP_ROWS) * B * H;
+  if (items > 0x7fffffffL) return cudaErrorInvalidConfiguration;
+  // one block an SM, persistent over its items
+  int device = 0, sms = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return err;
+  const unsigned blocks = (unsigned)(items < sms ? items : sms);
+  flash_fwd_pingpong_bf16<HD, ST><<<blocks, PP_THREADS, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), B, S, T_len, H, KV, causal, window, softcap,
+      scale);
+  return cudaGetLastError();
+}
+
+int bf16_rows(int B, int S, int H, int hd) {
+  (void)B;
+  (void)H;
+  return hd == 128 && S >= PP_MIN_S ? PP_ROWS : BQ;
+}
+
+cudaError_t launch_bf16(int rows, int hd, const void* q, const void* k, const void* v, void* o,
+                        int B, int S, int T_len, int H, int KV, int causal, int window,
+                        float softcap, float scale, cudaStream_t stream) {
+#define FA_ARGS q, k, v, o, B, S, T_len, H, KV, causal, window, softcap, scale, stream
+  if (rows == PP_ROWS && hd == 128) return launch_pingpong<128, PP_STAGES>(FA_ARGS);
+  if (rows == BQ) {
+    switch (hd) {
+      case 64: return launch_wgmma<64>(FA_ARGS);
+      case 128: return launch_wgmma<128>(FA_ARGS);
+      case 256: return launch_wgmma<256>(FA_ARGS);
+    }
+  }
+#undef FA_ARGS
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32 (split TF32 on mma.sync), 1 = bfloat16 (wgmma + TMA).  Returns a
-// cudaError_t (0 on success); the launch is asynchronous on `stream`.
+// q rows a block of the bf16 kernel that flash_attention_fwd launches for
+// this shape: 128 (flash_fwd_pingpong_bf16) at hd 128 from PP_MIN_S rows
+// on, else 64 (flash_fwd_wgmma_bf16).
+int flash_attention_bf16_rows(int B, int S, int H, int hd) { return bf16_rows(B, S, H, hd); }
+
+// The bf16 kernel of `rows` q rows a block (flash_attention_bf16_rows'
+// values), whatever the shape's own rule: chip_smoke.py times both kernels
+// at every hd-128 width with it.  Returns a cudaError_t.
+int flash_attention_bf16_fwd(const void* q, const void* k, const void* v, void* o, int B, int S,
+                             int T_len, int H, int KV, int hd, int rows, int causal, int window,
+                             float softcap, float scale, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (B <= 0 || S <= 0 || T_len <= 0 || KV <= 0 || H % KV != 0)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_bf16(rows, hd, q, k, v, o, B, S, T_len, H, KV, causal, window, softcap,
+                          scale, static_cast<cudaStream_t>(stream));
+}
+
+// dtype: 0 = float32 (split TF32 on mma.sync), 1 = bfloat16 (wgmma + TMA; the kernel by
+// flash_attention_bf16_rows).  Returns a cudaError_t (0 on success); the launch is
+// asynchronous on `stream`.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         int B, int S, int T_len, int H, int KV, int hd,
                         int dtype, int causal, int window, float softcap,
@@ -882,11 +1409,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
       case 256: return (int)launch_mma<256>(FA_ARGS);
     }
   } else if (dtype == 1) {
-    switch (hd) {
-      case 64: return (int)launch_wgmma<64>(FA_ARGS);
-      case 128: return (int)launch_wgmma<128>(FA_ARGS);
-      case 256: return (int)launch_wgmma<256>(FA_ARGS);
-    }
+    return (int)launch_bf16(bf16_rows(B, S, H, hd), hd, FA_ARGS);
   }
 #undef FA_ARGS
   return (int)cudaErrorInvalidValue;

@@ -7,7 +7,11 @@ tensors it launches one of the two hand-written kernels of
 
 * bf16 -> ``"wgmma"``: both products on the tensor cores (bf16 operands,
   f32 accumulation), tiles fed by TMA.  The one rounding the reference
-  does not make is the probabilities P -> bf16 before P V.
+  does not make is the probabilities P -> bf16 before P V.  At hd 128 from
+  384 q rows on the entry point launches ``flash_fwd_pingpong_bf16`` (128
+  q rows a work item, two consumer warpgroups in ping-pong, 128-key tiles,
+  one persistent block an SM), otherwise ``flash_fwd_wgmma_bf16`` (64 rows
+  a block, 64-key tiles).
 * f32 -> ``"mma"``: both products on the tensor cores as split TF32
   (``mma.sync``): each f32 operand is hi + lo, hi rounded to TF32, and each
   product hi.hi + hi.lo + lo.hi, the passes summed from zero over short
@@ -15,8 +19,9 @@ tensors it launches one of the two hand-written kernels of
   TF32 pass keeps about three decimal digits and would miss the
   reference's 2e-5; the split meets it.
 
-Each launch counts in ``flash_attention.launches`` and in
-``flash_attention.launches_by_route[route]``.  For CPU tensors it computes
+Each launch counts in ``flash_attention.launches``, in
+``flash_attention.launches_by_route[route]`` and in
+``flash_attention.launches_by_kernel[kernel]``.  For CPU tensors it computes
 ``flash_attention_ref`` and counts nothing.  It never falls back from a
 kernel to another route or to the plain version.  The kernels have no
 backward: on CUDA tensors a call under grad mode with an input that
@@ -28,13 +33,14 @@ from __future__ import annotations
 import torch
 
 from .._grad import refuse_grad
-from .kernel import launch_flash_attention
+from .kernel import BF16_KERNELS, bf16_rows, launch_flash_attention
 
 __all__ = ["flash_attention", "flash_attention_ref"]
 
 NEG_INF = -2.3819763e38
 HEAD_DIMS = (64, 128, 256)
 ROUTES = {torch.bfloat16: "wgmma", torch.float32: "mma"}
+KERNELS = (*BF16_KERNELS.values(), "flash_fwd_mma_f32")
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
@@ -108,8 +114,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                            softcap=softcap, scale=scale)
     flash_attention.launches += 1
     flash_attention.launches_by_route[ROUTES[q.dtype]] += 1
+    b, s, h, hd = q.shape
+    kernel = (BF16_KERNELS[bf16_rows(b, s, h, hd)] if q.dtype == torch.bfloat16
+              else "flash_fwd_mma_f32")
+    flash_attention.launches_by_kernel[kernel] += 1
     return out
 
 
 flash_attention.launches = 0
 flash_attention.launches_by_route = dict.fromkeys(ROUTES.values(), 0)
+flash_attention.launches_by_kernel = dict.fromkeys(KERNELS, 0)

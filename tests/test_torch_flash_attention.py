@@ -8,6 +8,8 @@ rounded to bf16 before P V, and f32 as split TF32 on its tile sizes (also
 against an f64 reference).  The kernels themselves run only on a card:
 their test is marked ``gpu`` and skips here."""
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -88,28 +90,44 @@ NEG_INF = -2.3819763e38
 LOG2E = 1.4426950408889634
 
 
-def _wgmma_emulation(q, k, v, *, causal, window, softcap):
-    """The bf16 route's arithmetic on the CPU, tile by tile as the kernel
-    walks it: 64 q rows against 64-key tiles from the first visible one,
-    f32 logits from the bf16 operands, scale, softcap and mask, an online
-    softmax in log2 units, P rounded to bf16 before P V, f32 accumulators,
-    and 0 for a row that sees no key (the l == 0 guard)."""
+# (q rows a block, keys a K/V tile) of the bf16 route's two kernels
+WGMMA_TILES = (64, 64)        # flash_fwd_wgmma_bf16
+PINGPONG_TILES = (128, 128)   # flash_fwd_pingpong_bf16 (hd 128)
+PP_MIN_S = 384                # csrc/flash_attention.cu: the ping-pong kernel from this S on
+
+
+def _bf16_tiles(s, hd):
+    """The tiles of the bf16 kernel that ``flash_attention_fwd`` launches at
+    this shape (the source's ``bf16_rows``, pinned by
+    ``test_bf16_kernel_rule_is_the_sources``)."""
+    return PINGPONG_TILES if hd == 128 and s >= PP_MIN_S else WGMMA_TILES
+
+
+def _wgmma_emulation(q, k, v, *, causal, window, softcap, tiles=WGMMA_TILES):
+    """The bf16 route's arithmetic on the CPU, tile by tile as its kernel
+    walks it: ``tiles`` = (q rows a block, keys a tile) against K/V tiles
+    from the first one the block's rows can see, f32 logits from the bf16
+    operands, scale, softcap and mask, an online softmax in log2 units, P
+    rounded to bf16 before P V, f32 accumulators, and 0 for a row that sees
+    no key (the l == 0 guard).  The ping-pong kernel forms the same exponent
+    as s sl - m sl in one fma (sl = scale log2(e)), a rounding apart."""
+    rows, keys = tiles
     b, s, h, hd = q.shape
     t, kv = k.shape[1], k.shape[2]
     kf = k.float().repeat_interleave(h // kv, dim=2)
     vf = v.float().repeat_interleave(h // kv, dim=2)
     scale = hd ** -0.5
     out = torch.zeros(b, s, h, hd)
-    for q0 in range(0, s, 64):
-        qf = q[:, q0:q0 + 64].float()
+    for q0 in range(0, s, rows):
+        qf = q[:, q0:q0 + rows].float()
         qpos = torch.arange(q0, q0 + qf.shape[1])[:, None]
         k_lo = max(0, q0 - window + 1) if window else 0
-        k_hi = min(t, q0 + 64) if causal else t
+        k_hi = min(t, q0 + rows) if causal else t
         m = torch.full((b, h, qf.shape[1]), NEG_INF)
         l = torch.zeros(b, h, qf.shape[1])
         acc = torch.zeros(b, h, qf.shape[1], hd)
-        for k0 in range(k_lo // 64 * 64, k_hi, 64):
-            x = torch.einsum("bshd,bthd->bhst", qf, kf[:, k0:k0 + 64]) * scale
+        for k0 in range(k_lo // keys * keys, k_hi, keys):
+            x = torch.einsum("bshd,bthd->bhst", qf, kf[:, k0:k0 + keys]) * scale
             if softcap:
                 x = softcap * torch.tanh(x / softcap)
             kpos = torch.arange(k0, k0 + x.shape[-1])[None, :]
@@ -124,14 +142,14 @@ def _wgmma_emulation(q, k, v, *, causal, window, softcap):
             corr = torch.exp2(m - m_new)
             l = l * corr + p.sum(-1)
             acc = acc * corr[..., None] + torch.einsum(
-                "bhst,bthd->bhsd", p.bfloat16().float(), vf[:, k0:k0 + 64])
+                "bhst,bthd->bhsd", p.bfloat16().float(), vf[:, k0:k0 + keys])
             m = m_new
         l = torch.where(l == 0, 1.0, l)
-        out[:, q0:q0 + 64] = (acc / l[..., None]).permute(0, 2, 1, 3)
+        out[:, q0:q0 + rows] = (acc / l[..., None]).permute(0, 2, 1, 3)
     return out.to(q.dtype)
 
 
-@pytest.mark.parametrize("b,s,h,kv,hd,bq,bk,causal,window,softcap", [
+WGMMA_CASES = [
     *[(*shape, causal, 0, 0.0)
       for shape in ((1, 128, 4, 4, 64, 64, 64), (2, 256, 8, 2, 64, 128, 64),
                     (1, 192, 4, 1, 128, 64, 96), (1, 64, 2, 2, 256, 64, 64))
@@ -141,7 +159,10 @@ def _wgmma_emulation(q, k, v, *, causal, window, softcap):
     (2, 128, 4, 2, 64, 64, 32, True, 64, 30.0),
     (1, 100, 4, 2, 64, 100, 100, True, 0, 0.0),    # ragged: rows past S and T
     (1, 192, 8, 2, 128, 64, 96, True, 100, 0.0),   # a window that cuts tiles
-])
+]
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,bq,bk,causal,window,softcap", WGMMA_CASES)
 def test_wgmma_arithmetic_matches_jax_kernel(b, s, h, kv, hd, bq, bk, causal, window,
                                              softcap):
     """Rounding P to bf16 is the one step the reference's kernel does not
@@ -154,6 +175,75 @@ def test_wgmma_arithmetic_matches_jax_kernel(b, s, h, kv, hd, bq, bk, causal, wi
     out = _wgmma_emulation(tq, tk, tv, causal=causal, window=window, softcap=softcap)
     assert out.dtype == torch.bfloat16 and out.shape == tq.shape
     np.testing.assert_allclose(_np(out), _np(ref), **TOL["bfloat16"])
+
+
+# hd-128 cases for both walks: GQA groups 4 and 12, a ragged S, a window
+# of 100 that cuts a 128-key tile, and S=16 (b, s, h, kv, hd, bq, bk,
+# causal, window, softcap)
+HD128_CASES = [
+    (1, 256, 8, 2, 128, 128, 128, True, 0, 0.0),      # GQA group 4
+    (1, 256, 12, 1, 128, 128, 128, True, 0, 0.0),     # GQA group 12
+    (1, 200, 8, 2, 128, 100, 100, True, 0, 0.0),      # ragged: rows past S and T
+    (1, 384, 4, 1, 128, 128, 128, True, 100, 0.0),    # a window that cuts 128-key tiles
+    (1, 16, 8, 2, 128, 16, 16, True, 0, 0.0),         # S=16
+    (2, 256, 4, 2, 128, 128, 64, True, 64, 30.0),     # window and softcap, batch 2
+]
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("tiles,b,s,h,kv,hd,bq,bk,causal,window,softcap", [
+    *[(PINGPONG_TILES, *case) for case in WGMMA_CASES],
+    *[(tiles, *case) for case in HD128_CASES for tiles in (WGMMA_TILES, PINGPONG_TILES)],
+])
+def test_bf16_walks_match_jax_kernel(tiles, b, s, h, kv, hd, bq, bk, causal, window,
+                                     softcap):
+    """The ping-pong kernel's tile walk (128 q rows x 128 keys) on the 64x64
+    walk's cases, and both walks on the hd-128 cases, keep the bf16 route
+    inside the reference's 2e-2 of the Pallas kernel: which keys share a
+    tile moves only the rounding of P and the order of the sums."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        hash((b, s, h, kv, hd, causal, window, softcap)) % 2**31,
+        [(b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)], "bfloat16")
+    ref = jax_flash_attention(jq, jk, jv, causal=causal, window=window, softcap=softcap,
+                              block_q=bq, block_k=bk)
+    out = _wgmma_emulation(tq, tk, tv, causal=causal, window=window, softcap=softcap,
+                           tiles=tiles)
+    assert out.dtype == torch.bfloat16 and out.shape == tq.shape
+    np.testing.assert_allclose(_np(out), _np(ref), **TOL["bfloat16"])
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("s", [16, 128, 512])
+@pytest.mark.parametrize("h,kv", [(8, 2), (12, 1)])
+def test_served_bf16_walk_matches_jax_kernel(s, h, kv):
+    """The walk the entry point picks at each hd-128 prefill length (the
+    64-row kernel below ``PP_MIN_S`` rows, the ping-pong kernel from it on)
+    against the Pallas kernel, GQA groups 4 and 12 with heads cut down."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        s + 7 * h, [(1, s, h, 128), (1, s, kv, 128), (1, s, kv, 128)], "bfloat16")
+    ref = jax_flash_attention(jq, jk, jv, causal=True, block_q=min(s, 128),
+                              block_k=min(s, 128))
+    out = _wgmma_emulation(tq, tk, tv, causal=True, window=0, softcap=0.0,
+                           tiles=_bf16_tiles(s, 128))
+    np.testing.assert_allclose(_np(out), _np(ref), **TOL["bfloat16"])
+
+
+def test_bf16_kernel_rule_is_the_sources():
+    """``_bf16_tiles`` mirrors the source's rule: the ping-pong kernel's
+    tiles, its threshold and the expression that picks it."""
+    from repro_torch.kernels import _build
+
+    src = (_build.CSRC_DIR / "flash_attention.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    assert int(consts["PP_MIN_S"]) == PP_MIN_S
+    assert (int(consts["PP_ROWS"]), int(consts["PP_KEYS"])) == PINGPONG_TILES
+    assert (int(consts["BQ"]), int(consts["BK"])) == WGMMA_TILES
+    assert "return hd == 128 && S >= PP_MIN_S ? PP_ROWS : BQ;" in src
+    assert fa_kernel.BF16_KERNELS == {64: "flash_fwd_wgmma_bf16",
+                                      128: "flash_fwd_pingpong_bf16"}
+    assert [_bf16_tiles(s, hd) for s, hd in ((16, 128), (383, 128), (384, 128), (4096, 128),
+                                             (1024, 64), (1024, 256))] == [
+        WGMMA_TILES, WGMMA_TILES, PINGPONG_TILES, PINGPONG_TILES, WGMMA_TILES, WGMMA_TILES]
 
 
 def _tf32(v, rounded=True):
@@ -346,6 +436,19 @@ def test_routes_by_dtype_and_cpu_calls_count_nothing():
     assert flash_attention.launches_by_route == {"wgmma": 0, "mma": 0}
 
 
+def test_cpu_calls_count_no_kernel():
+    """The per-kernel counter names the three kernels and a CPU call moves
+    none of them."""
+    assert tuple(flash_attention.launches_by_kernel) == fa_ops.KERNELS == (
+        "flash_fwd_wgmma_bf16", "flash_fwd_pingpong_bf16", "flash_fwd_mma_f32")
+    before = dict(flash_attention.launches_by_kernel)
+    for dtype in ("bfloat16", "float32"):
+        (_, _, _), (tq, tk, tv) = _inputs(
+            17, [(1, 256, 4, 128), (1, 256, 2, 128), (1, 256, 2, 128)], dtype)
+        flash_attention(tq, tk, tv)
+    assert flash_attention.launches_by_kernel == before == dict.fromkeys(fa_ops.KERNELS, 0)
+
+
 def test_flash_attention_on_cpu_is_the_plain_version_and_counts_nothing():
     (_, _, _), (tq, tk, tv) = _inputs(
         11, [(1, 32, 4, 64), (1, 32, 2, 64), (1, 32, 2, 64)], "float32")
@@ -395,6 +498,26 @@ def test_kernel_matches_plain_version_on_card(cuda_device, dtype):
         assert flash_attention.launches_by_route[route] == before_route + 1
         ref = flash_attention_ref(q, k, v, causal=True, window=window, softcap=cap)
         np.testing.assert_allclose(_np(out.cpu()), _np(ref.cpu()), **TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_pingpong_kernel_matches_plain_version_on_card(cuda_device):
+    """The hd-128 bf16 kernels on the card, each counted under its name:
+    the ping-pong kernel from ``PP_MIN_S`` rows on (a ragged S, a window
+    that cuts 128-key tiles, a batch stride, GQA groups 4 and 12), the
+    64-row kernel below, both within the reference's 2e-2."""
+    gen = torch.Generator(cuda_device).manual_seed(2)
+    for b, s, h, kv, window in ((1, 400, 8, 2, 0), (1, 1024, 32, 8, 300), (2, 512, 32, 8, 0),
+                                (1, 1024, 48, 4, 0), (1, 16, 32, 8, 0), (1, 200, 8, 2, 0)):
+        q, k, v = (torch.randn(b, s, n, 128, generator=gen, device=cuda_device).bfloat16()
+                   for n in (h, kv, kv))
+        name = fa_kernel.BF16_KERNELS[_bf16_tiles(s, 128)[0]]
+        before = flash_attention.launches_by_kernel[name]
+        out = flash_attention(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        assert flash_attention.launches_by_kernel[name] == before + 1
+        ref = flash_attention_ref(q, k, v, causal=True, window=window)
+        np.testing.assert_allclose(_np(out.cpu()), _np(ref.cpu()), **TOL["bfloat16"])
 
 
 @pytest.mark.gpu
